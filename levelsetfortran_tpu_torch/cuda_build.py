@@ -1,0 +1,102 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, from the sources in this checkout only, into ``_build/``
+next to this file; the library's name carries a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+
+Flags: IEEE division and square root (no ``-use_fast_math``), and
+``--fmad=false`` so that no multiply-add is contracted into an FMA — the
+kernels then round exactly like their plain PyTorch versions, and the fused
+min/max kernel exactly like repeated single steps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: C entry points and their argument types (pointers and the stream as
+#: ``c_void_p``; every entry returns ``cudaGetLastError()``).
+SIGNATURES = {
+    # phi, sign, out, nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale,
+    # eps_floor, p5_zero_y, active, copy_inactive, partials, dsq, stream
+    "lsf_reinit_step_f32": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                            _I, _P, _I, _P, _P, _P],
+    # phi, out, nx, ny, nz, h1, inv_dx2, band_dx, threshold,
+    # active, copy_inactive, partials, dsq, stream
+    "lsf_minmax_step_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F,
+                            _P, _I, _P, _P, _P],
+    # the same plus ksteps before active
+    "lsf_minmax_fusedk_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                              _P, _I, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    srcs = sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    so = BUILD_DIR / f"liblsf_kernels-{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, so)          # atomic under concurrent builds
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call a C entry point and raise on a CUDA error it reports."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
