@@ -10,13 +10,21 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. build: compile the CUDA kernels from levelsetfortran_tpu_torch/csrc;
   2. kernels: each kernel against its plain PyTorch version on the card at
      (67, 45, 39) and (222, 222, 222), dense, with the fused sum and banded
-     with a real mask; K4 also against 4 launches of K3, bitwise; median
-     times from CUDA events;
+     with a real mask; K4 also against 4 launches of K3, bitwise; the
+     adjoint kernels K5 and K6 against their plain versions and against a
+     second launch, bitwise; median times from CUDA events;
   3. runs A (twoCube10 twin, dx 0.05, 262x42x42), B (icosphere with 20,480
      triangles, dx 0.01, 222^3) and C (A with --narrow-band off), each
      through ``python -m levelsetfortran_tpu_torch`` and in-process
      through ``run()`` with the launch counters read around it; outputs
-     checked against the analytic SDFs.
+     checked against the analytic SDFs;
+  4. run D, the differentiable path at the JAX package's end-to-end
+     gradient size (``bench.py:bench_e2e_pixgrad(256)``): icosphere with
+     20,480 triangles on 256^3, 50 reinit and 20 min/max steps, a 64x64
+     image, one ``image_loss_and_vertex_grad`` against a zero image; the
+     launch counters, the reverse sweeps' branches, wall and per-stage
+     forward times; then the 24^3 octahedron on the card against the CPU
+     plain path, and its finite-difference gate.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per run.
 """
@@ -35,6 +43,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((67, 45, 39), (222, 222, 222))
 MAIN_SHAPE = SHAPES[1]
+#: Adjoint kernels against their plain versions, relative to max |cot|:
+#: K5's 21-term stencil gather and ghost-BC gather follow the plain
+#: version's order, but its cot_sign cancels (ROADMAP H10), so a reordered
+#: sum shows at ~1e-6; K6 evaluates the same expressions in the same order.
+#: Scalars: float64 sums of the same per-cell terms, other order.
+ADJ_TOL = {"K5": 1e-5, "K6": 1e-6, "scalars": 1e-5}
 
 
 def phase(name, msg):
@@ -168,12 +182,54 @@ def kernel_phase(record):
                 phi, dx, h1, ksteps=4, active=act_m, with_rms=True), 20)
         phase("kernels", f"K4 {shape}: bitwise equal to 4 K3 launches, "
               f"max_abs_err vs plain {e4:.3g} (tol 1e-7)")
-        del phi, k, p, kb, pb, kc
+        del k, p, kb, pb, kc
+        adjoint_checks(record, phi, dx, h, h1, main)
+        del phi
         torch.cuda.empty_cache()
     for name, rec in record.items():
+        banded = (f" (banded {rec['banded_ms']:.4f} ms)"
+                  if "banded_ms" in rec else "")
         phase("kernels", f"{name} at {MAIN_SHAPE}: kernel {rec['ms']:.4f} ms"
-              f" (banded {rec['banded_ms']:.4f} ms), plain "
-              f"{rec['plain_ms']:.4f} ms")
+              f"{banded}, plain {rec['plain_ms']:.4f} ms")
+
+
+def adjoint_checks(record, phi, dx, h, h1, main):
+    """K5 and K6 against their plain versions (relative to max |cot|) and
+    against a second launch of themselves (bitwise)."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+
+    g = torch.tensor(np.random.default_rng(7).standard_normal(phi.shape),
+                     dtype=torch.float32, device="cuda")
+    cases = (
+        ("reinit_step_vjp", "K5", ADJ_TOL["K5"],
+         lambda: wc.reinit_step_vjp(phi, phi, g, dx, h),
+         lambda: wc.reinit_step_vjp_plain(phi, phi, g, dx, h), 3),
+        ("minmax_step_vjp", "K6", ADJ_TOL["K6"],
+         lambda: mc.minmax_step_vjp(phi, g, dx, h1),
+         lambda: mc.minmax_step_vjp_plain(phi, g, dx, h1), 10))
+    for name, kid, tol, kern, plain, reps in cases:
+        k, k2, p = kern(), kern(), plain()
+        check(all(torch.equal(a, b) for a, b in zip(k, k2)),
+              f"{kid} {phi.shape}: two launches differ")
+        nf = len(k) - 2                      # the field cotangents
+        rels = [err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(k[:nf], p[:nf])]
+        srel = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                   for a, b in zip(k[nf:], p[nf:]))
+        e = max(err(a, b) for a, b in zip(k[:nf], p[:nf]))
+        check(max(rels) <= tol and srel <= ADJ_TOL["scalars"],
+              f"{kid} {phi.shape}: rel errors {rels}, scalars {srel:.3g}")
+        rec = record[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        if main:
+            rec["ms"] = median_ms(kern, 20)
+            rec["plain_ms"] = median_ms(plain, reps)
+        phase("kernels", f"{kid} {tuple(phi.shape)}: field cotangents rel "
+              f"err {', '.join(f'{r:.3g}' for r in rels)} (tol {tol:g} of "
+              f"max|cot|), max_abs_err {e:.3g}, scalars rel {srel:.3g} (tol "
+              f"{ADJ_TOL['scalars']:g}), two launches bitwise equal")
 
 
 def near_surface_errors(path, truth_fn):
@@ -255,6 +311,164 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     return launches
 
 
+def cube_grid(vertices, n):
+    """``bench.py:_cube40_grid``: n^3 points spanning 1.2x the largest
+    extent of the bounding box, centred on it."""
+    from levelsetfortran_tpu_torch.grid.grid import Grid3D
+    lo, hi = vertices.min(0), vertices.max(0)
+    span = float((hi - lo).max()) * 1.2
+    origin = tuple(float(c) for c in (lo + hi) / 2 - span / 2)
+    return Grid3D(shape=(n, n, n), origin=origin, dx=span / (n - 1))
+
+
+def sync_time(fn):
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
+        (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def run_d_phase(ball, card, n=256, device="cuda"):
+    """Phase 4: one pixels -> vertices gradient at full size."""
+    import torch
+    from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import reverse
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.ops.init_sign import (build_init_culling,
+                                                         signed_distance_init)
+    from levelsetfortran_tpu_torch.render.sphere_trace import (camera_rays,
+                                                               render)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
+        minmax_flow_fixed
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+
+    grid = cube_grid(ball.vertices, n)
+    t0 = time.perf_counter()
+    cull = build_init_culling(grid, ball.vertices, ball.elements, block=16)
+    t_build = time.perf_counter() - t0
+    v = torch.tensor(ball.vertices, dtype=torch.float32, device=device)
+    hw, rs, ms_ = 64, 50, 20
+    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0),
+              reinit_steps=rs, minmax_steps=ms_, height=hw, width=hw,
+              culling=cull)
+    target = torch.zeros((hw, hw), device=device)
+    counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
+                wc.reinit_step_vjp, mc.minmax_step_vjp)
+    reverse.last_branch.clear()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    (loss, grad), wall = sync_time(lambda: image_loss_and_vertex_grad(
+        v, ball.elements, grid, target, **kw))
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    branches = dict(reverse.last_branch)
+    gmax = float(grad.abs().max())
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
+          "run D: non-finite loss or gradient")
+    check(gmax > 0.0, "run D: zero vertex gradient")
+    for name in ("reinit_step", "minmax_step", "reinit_step_vjp",
+                 "minmax_step_vjp"):
+        check(launches[name] > 0 or not cuda,
+              f"run D: {name} never launched")
+    check(branches == {"reinit_fixed": "sqrtn",
+                       "minmax_flow_fixed": "flat"},
+          f"run D: reverse branches {branches}")
+
+    # per-stage forward times, each stage on its own inputs (bench.py's
+    # decomposition), no graph
+    dx = grid.dx
+    with torch.no_grad():
+        phi0, t_init = sync_time(lambda: signed_distance_init(
+            grid, v, ball.elements, culling=cull))
+        phi1, t_re = sync_time(lambda: reinit_fixed(phi0, dx, 0.1 * dx, rs))
+        phi2, t_mm = sync_time(lambda: minmax_flow_fixed(
+            phi1, dx, 0.01 * dx * dx, ms_))
+        origins, dirs = camera_rays(hw, hw, eye=kw["eye"],
+                                    target=kw["target"], device=device)
+        out, t_rd = sync_time(lambda: render(phi2, grid, origins, dirs,
+                                             n_steps=64, hit_tol=0.25 * dx))
+    hits = int(out.hit.sum())
+    phase("run D", f"grid {grid.shape} dx {dx:.6g}, {ball.n_elems} "
+          f"triangles, reinit {rs} / min/max {ms_} steps, {hw}x{hw} image "
+          f"({hits} rays hit): loss {float(loss):.6g}, max|grad| "
+          f"{gmax:.6g}, launches {launches}, branches {branches}, peak "
+          f"{peak:.2f} GiB, card {card}")
+    phase("run D", f"forward+backward wall {wall:.3f} s (culling build "
+          f"{t_build:.3f} s on the host before it); forward stages: init "
+          f"{t_init:.3f} s, reinit {t_re:.3f} s, min/max {t_mm:.3f} s, "
+          f"render {t_rd:.3f} s; card {card}")
+    return launches
+
+
+def small_holds(device="cuda"):
+    """The 24^3 octahedron on the card against the CPU plain path, and the
+    directional finite-difference gate of tests/test_render.py on CUDA."""
+    import torch
+    from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
+    from levelsetfortran_tpu_torch.grid.grid import Grid3D
+    from levelsetfortran_tpu_torch.ops.init_sign import signed_distance_init
+    from levelsetfortran_tpu_torch.render.sphere_trace import (camera_rays,
+                                                               trace_depth)
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+
+    v = 0.7 * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                        [0, 0, 1], [0, 0, -1]], np.float32)
+    f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int32)
+    n, half = 24, 1.2
+    grid = Grid3D(shape=(n, n, n), origin=(-half,) * 3,
+                  dx=2 * half / (n - 1))
+    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0), reinit_steps=5,
+              minmax_steps=3, height=12, width=12, n_march_steps=48)
+    res = {}
+    for dev in (device, "cpu"):
+        res[dev] = image_loss_and_vertex_grad(
+            torch.tensor(v, device=dev), f, grid,
+            torch.zeros((12, 12), device=dev), **kw)
+    (lg, gg), (lc, gc) = res[device], res["cpu"]
+    lrel = abs(float(lg) - float(lc)) / abs(float(lc))
+    gerr = float((gg.cpu() - gc).abs().max())
+    check(lrel <= 1e-4 and torch.allclose(gg.cpu(), gc, atol=1e-4,
+                                          rtol=1e-3) and gc.abs().max() > 0,
+          f"octahedron: loss rel {lrel:.3g}, grad max err {gerr:.3g}")
+
+    origins, dirs = camera_rays(8, 8, eye=(0.0, -3.0, 0.0),
+                                target=(0.0, 0.0, 0.0), device=device)
+
+    def loss(vv):
+        phi0 = signed_distance_init(grid, vv, f)
+        phi = reinit_fixed(phi0, grid.dx, 0.1 * grid.dx, 3)
+        t = trace_depth(phi, grid, origins, dirs, 200, 0.01 * grid.dx, 10.0)
+        return torch.sum(t[3:5, 3:5] ** 2)
+
+    rng = np.random.default_rng(0)
+    d = torch.tensor(rng.standard_normal(v.shape), dtype=torch.float32,
+                     device=device)
+    d = 0.3 * d / torch.linalg.vector_norm(d)
+    vt = torch.tensor(v, device=device, requires_grad=True)
+    loss(vt).backward()
+    ana = float(torch.sum(vt.grad * d))
+    base, eps = torch.tensor(v, device=device), 1e-3
+    with torch.no_grad():
+        num = (float(loss(base + eps * d)) - float(loss(base - eps * d))) \
+            / (2 * eps)
+    fd = abs(ana - num) / max(1.0, abs(num))
+    check(fd < 0.15, f"finite difference: analytic {ana}, numeric {num}")
+    phase("run D", f"octahedron 24^3 on the card vs the CPU plain path: "
+          f"loss {float(lg):.7g} vs {float(lc):.7g} (rel {lrel:.3g}, tol "
+          f"1e-4), grad max abs err {gerr:.3g} (atol 1e-4, rtol 1e-3); "
+          f"finite difference {num:.5g} vs analytic {ana:.5g} (rel "
+          f"{fd:.3g}, gate 0.15)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -285,6 +499,10 @@ def main() -> int:
                         "levelsetfortran_tpu/ops/minmax_pallas.py:309"),
         "minmax_fusedk": ("levelsetfortran_tpu_torch/csrc/minmax_step.cu",
                           "levelsetfortran_tpu/ops/minmax_pallas.py:647"),
+        "reinit_step_vjp": ("levelsetfortran_tpu_torch/csrc/reinit_bwd.cu",
+                            "levelsetfortran_tpu/ops/weno_pallas.py:1850"),
+        "minmax_step_vjp": ("levelsetfortran_tpu_torch/csrc/minmax_bwd.cu",
+                            "levelsetfortran_tpu/ops/minmax_pallas.py:975"),
     }
     record = {n: {"max_abs_err": 0.0} for n in names}
     kernel_phase(record)
@@ -308,6 +526,9 @@ def main() -> int:
             for n, v in run_phase(label, mesh, truth, dx, extra,
                                   tmp).items():
                 total[n] += v
+    for n, v in run_d_phase(ball, card).items():
+        total[n] += v
+    small_holds()
 
     kernels = []
     for n, (src, repl) in names.items():

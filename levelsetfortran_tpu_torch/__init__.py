@@ -3,6 +3,7 @@
 The single-device pipeline of ``levelsetfortran_tpu`` (STL -> exact
 signed-distance init -> WENO5/Godunov reinitialization -> min/max
 curvature-flow smoothing -> surface-node advection -> .vti/.s3d outputs)
+and its differentiable path (rendered pixels -> STL vertex gradients)
 ported to PyTorch, with the TPU's Pallas kernels rewritten by hand in CUDA
 for Hopper (``csrc/``).  Imports neither JAX nor the JAX package.
 """
@@ -12,6 +13,8 @@ from .grid.grid import Grid3D, from_bbox, from_surface
 from .io.s3d import read_s3d, write_s3d
 from .io.stl import SurfaceMesh, read_stl, write_stl
 from .io.vti import read_vti, write_vti
+from .pipeline.differentiable import (image_loss_and_vertex_grad,
+                                      render_from_vertices)
 from .pipeline.run import run, run_mesh
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, from the sources in this checkout only, into ``_build/``
-next to this file; the library's name carries a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at
+first use, from the sources in this checkout only, into ``_build/`` next to
+this file; the library's name carries a hash of the sources and the flags,
+so an edited source rebuilds and an unchanged one loads at once.
 
 Flags: IEEE division and square root (no ``-use_fast_math``), and
 ``--fmad=false`` so that no multiply-add is contracted into an FMA — the
@@ -25,8 +26,9 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +48,14 @@ SIGNATURES = {
     # the same plus ksteps before active
     "lsf_minmax_fusedk_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
                               _P, _I, _P, _P, _P],
+    # phi, sign, g, cot_phi, cot_sign, q scratch, nx, ny, nz, dx, h, dx2,
+    # inv_dx2, eps_scale, eps_floor, ef_dx, p5_zero_y, partials, sums, stream
+    "lsf_reinit_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                           _F, _F, _F, _F, _I, _P, _P, _P],
+    # phi, g, cot_phi, nx, ny, nz, h1, inv_dx2, band_dx, threshold,
+    # partials, sums, stream
+    "lsf_minmax_bwd_f32": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
+                           _P],
 }
 
 
@@ -71,17 +81,39 @@ def build() -> Path:
     for s in srcs + sorted(CSRC.glob("*.cuh")):
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
-    so = BUILD_DIR / f"liblsf_kernels-{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    so = BUILD_DIR / f"liblsf_kernels-{tag}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, so)          # atomic under concurrent builds
+        nvcc, pid = _nvcc(), os.getpid()
+        objs = [BUILD_DIR / f"{s.stem}-{tag}-{pid}.o" for s in srcs]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        tmp = so.with_suffix(f".tmp{pid}")
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        try:
+            for cmd, proc in zip(jobs, procs):
+                _, err = proc.communicate()
+                _check(cmd, proc.returncode, err)
+            proc = subprocess.run(link, capture_output=True, text=True)
+            _check(link, proc.returncode, proc.stderr)
+            os.replace(tmp, so)      # atomic under concurrent builds
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
     return so
+
+
+def _check(cmd, returncode, stderr):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}"
+                           f"\n{stderr}")
 
 
 @functools.lru_cache(maxsize=None)

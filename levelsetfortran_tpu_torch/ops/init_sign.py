@@ -13,6 +13,13 @@ No kernel: these are PyTorch tensor ops.  The quadratic-form dot products
 are computed elementwise in full float32, so a process-wide TF32 setting
 (``torch.backends.cuda.matmul.allow_tf32``) cannot reach them — TF32 breaks
 the region classification the way the TPU's default bf16 passes did.
+
+Vertex gradients (``vertices`` a tensor that requires grad): the selection
+scan runs under ``torch.no_grad()`` on detached triangles, and the gradient
+flows only through the exact re-evaluation at each point's argmin triangle
+— the JAX package's ``stop_gradient`` on the scan (``init_sign.py:335``,
+``:354-355``).  Recording the scan would keep every (G, P, T) tile alive.
+The sign is not differentiable.
 """
 
 from __future__ import annotations
@@ -135,24 +142,31 @@ def _pdot(pc, v):
             + pc[:, :, None, 2] * v[:, None, :, 2])
 
 
-def nearest_sign_scan(points, tri, feat=None, tile: int = 128,
-                      rel_tie: float = 1e-3):
-    """Fused (distance², pseudonormal accumulator) in one tiled scan.
+def _exact_d2(points, tb):
+    """Squared distance of each point (G, P, 3) to its triangle tb
+    (G, P, 3, 3), in the direct (difference) form."""
+    cpb = point_triangle_closest(points, tb[:, :, 0], tb[:, :, 1],
+                                 tb[:, :, 2])
+    ub = points - cpb
+    return _dot(ub, ub)
 
-    ``points`` (G, P, 3) and ``tri`` (G, E, 3, 3): G independent blocks
-    (the JAX package vmaps the same per-block scan).  Per tile, the Ericson
-    dots come from the quadratic form of four products (ab·p, ac·p, n·p,
-    a·p) about each block's point mean; a new minimum more than ``rel_tie``
-    below the running one discards the tie accumulator.  The argmin
-    triangle is re-evaluated in the direct form for the exact distance.
-    Tiles are cut at ``tile`` candidates, the last one short: a padded
-    far-away sentinel contributes nothing, so the result is the padded
-    scan's.
+
+def _select_scan(points, tri, feat, tile, rel_tie=1e-3):
+    """The nearest-triangle selection scan (the JAX package's
+    ``nearest_sign_scan`` without its final re-evaluation): (argmin
+    triangle index (G, P), pseudonormal accumulator (G, P)).
+
+    ``points`` (G, P, 3), ``tri`` (G, E, 3, 3) and its features ``feat``:
+    G independent blocks (the JAX package vmaps the same per-block scan).
+    Per tile, the Ericson dots come from the quadratic form of four
+    products (ab·p, ac·p, n·p, a·p) about each block's point mean; a new
+    minimum more than ``rel_tie`` below the running one discards the tie
+    accumulator.  Tiles are cut at ``tile`` candidates, the last one short:
+    a padded far-away sentinel contributes nothing, so the result is the
+    padded scan's.
     """
     G, P, _ = points.shape
     E = tri.shape[1]
-    if feat is None:
-        feat = _triangle_features(tri)
     nrm, ang = feat
     dt = points.dtype
     shift = points.mean(dim=1, keepdim=True)          # (G, 1, 3)
@@ -227,13 +241,7 @@ def nearest_sign_scan(points, tri, feat=None, tile: int = 128,
         acc = torch.where(best_d <= thresh, acc,
                           torch.zeros_like(acc)) + contrib.sum(dim=2)
         best_d = new_d
-
-    idx = best_i[:, :, None, None].expand(G, P, 3, 3)
-    tb = torch.gather(tri, 1, idx)                     # (G, P, 3, 3)
-    cpb = point_triangle_closest(points, tb[:, :, 0], tb[:, :, 1],
-                                 tb[:, :, 2])
-    ub = points - cpb
-    return _dot(ub, ub), acc
+    return best_i, acc
 
 
 # ------------------------- block-culled init -------------------------
@@ -385,8 +393,11 @@ def _scan_blocks(grid, tri_s, feat, rows, borig, loc, *, dtype, tile):
     their candidate rows (G, K) of ``tri_s``: (G, P)."""
     origin = torch.tensor(grid.origin, dtype=dtype, device=tri_s.device)
     pts = origin + grid.dx * (borig[:, None, :] + loc[None]).to(dtype)
-    d2, ps = nearest_sign_scan(pts, tri_s[rows],
-                               tuple(f[rows] for f in feat), tile=tile)
+    with torch.no_grad():
+        best_i, ps = _select_scan(pts, tri_s.detach()[rows],
+                                  tuple(f[rows] for f in feat), tile)
+    # only the exact re-evaluation at the argmin triangle carries a gradient
+    d2 = _exact_d2(pts, tri_s[rows.gather(1, best_i)])
     sgn = torch.where(ps < 0, -1.0, 1.0).to(dtype)
     return sgn * torch.sqrt(torch.clamp_min(d2, 1e-30))
 
@@ -397,12 +408,12 @@ def _culled_init(grid: Grid3D, tri, culling: InitCulling, *, dtype, tile):
     E = tri.shape[0]
     far = torch.full((1, 3, 3), 1e30, dtype=tri.dtype, device=device)
     tri_s = torch.cat([tri, far], dim=0)            # sentinel at index E
-    feat = _triangle_features(tri_s)
+    feat = _triangle_features(tri_s.detach())
     block = culling.block
     nbx, nby, nbz = culling.nblocks
     P = block ** 3
     loc = _block_offsets(block, device)
-    results = torch.zeros((nbx * nby * nbz, P), dtype=dtype, device=device)
+    parts, places = [], []
     for cand, bidx in zip(culling.cands, culling.bidxs):
         Bg = cand.shape[0]
         counts = (cand != E).sum(axis=1)
@@ -414,11 +425,16 @@ def _culled_init(grid: Grid3D, tri, culling: InitCulling, *, dtype, tile):
             kt = max(1, int(counts[sl].max()))     # trailing sentinels only
             rows = torch.as_tensor(cand[sl, :kt], dtype=torch.long,
                                    device=device)
-            results[torch.as_tensor(bidx[sl], dtype=torch.long,
-                                    device=device)] = _scan_blocks(
+            parts.append(_scan_blocks(
                 grid, tri_s, feat, rows,
                 torch.as_tensor(borig[sl], device=device), loc,
-                dtype=dtype, tile=tile)
+                dtype=dtype, tile=tile))
+            places.append(bidx[sl])
+    results = torch.zeros((nbx * nby * nbz, P), dtype=dtype, device=device)
+    if parts:
+        idx = torch.as_tensor(np.concatenate(places), dtype=torch.long,
+                              device=device)
+        results = results.index_copy(0, idx, torch.cat(parts))
     return _blocks_to_grid(results, culling.nblocks, block, grid.shape)
 
 
@@ -430,7 +446,7 @@ def _dense_signed_distance_init(grid: Grid3D, tri, *, dtype, tile: int,
     B, P, E = nb[0] * nb[1] * nb[2], block ** 3, tri.shape[0]
     group = max(1, min(B, _PAIRS_PER_STEP // (P * tile)))
     loc = _block_offsets(block, device)
-    feat = _triangle_features(tri)
+    feat = _triangle_features(tri.detach())
     bid = torch.arange(B, device=device)
     borig = torch.stack([bid // (nb[1] * nb[2]), (bid // nb[2]) % nb[1],
                          bid % nb[2]], dim=-1) * block
@@ -445,20 +461,29 @@ def _dense_signed_distance_init(grid: Grid3D, tri, *, dtype, tile: int,
 
 
 def signed_distance_init(grid: Grid3D, vertices, elements, *,
-                         dtype=torch.float32, device="cpu", tile: int = 512,
+                         dtype=torch.float32, device=None, tile: int = 512,
                          culling="auto", cull_block: int = 16):
     """Exact-distance signed initialization on the full grid.
 
     ``culling``: ``"auto"`` builds per-block candidate lists on the host
-    (:func:`build_init_culling`); an :class:`InitCulling` is used as is;
-    ``None`` scans all pairs.  ``vertices`` (n, 3) and ``elements`` (m, 3)
-    are numpy arrays."""
+    (:func:`build_init_culling`, from a detached copy of the vertices); an
+    :class:`InitCulling` is used as is; ``None`` scans all pairs.
+    ``vertices`` (n, 3) is a numpy array or a tensor — one that requires
+    grad makes the field differentiable with respect to it — and
+    ``elements`` (m, 3) an integer array or tensor.  ``device`` defaults
+    to the vertices' (the CPU for numpy)."""
+    elems = np.asarray(elements.cpu() if isinstance(elements, torch.Tensor)
+                       else elements)
+    if isinstance(vertices, torch.Tensor):
+        v = vertices.to(dtype=dtype, device=device or vertices.device)
+        host_v = vertices.detach().cpu().numpy()
+    else:
+        host_v = np.asarray(vertices)
+        v = torch.as_tensor(host_v, dtype=dtype, device=device or "cpu")
     if isinstance(culling, str) and culling == "auto":
-        culling = build_init_culling(grid, vertices, elements,
-                                     block=cull_block, tile=tile)
-    v = torch.as_tensor(np.asarray(vertices), dtype=dtype, device=device)
-    tri = v[torch.as_tensor(np.asarray(elements), dtype=torch.long,
-                            device=device)]
+        culling = build_init_culling(grid, host_v, elems, block=cull_block,
+                                     tile=tile)
+    tri = v[torch.as_tensor(elems, dtype=torch.long, device=v.device)]
     if culling is None:
         return _dense_signed_distance_init(grid, tri, dtype=dtype, tile=tile)
     return _culled_init(grid, tri, culling, dtype=dtype, tile=tile)

@@ -1,5 +1,5 @@
-"""Kernels K3 (one min/max step) and K4 (K fused min/max steps) with their
-plain PyTorch versions.
+"""Kernels K3 (one min/max step), K4 (K fused min/max steps) and K6 (the
+VJP of one step) with their plain PyTorch versions.
 
 K3 (``csrc/minmax_step.cu``) replaces
 ``levelsetfortran_tpu/ops/minmax_pallas.py:minmax_step_padded`` and K4
@@ -12,6 +12,10 @@ brick's window once for K steps, through shared memory.  Face rule: face
 cells never update and an interior cell's +-1 reads never leave the grid,
 so the port neither wraps (jnp path) nor clamps (TPU kernel).
 
+K6 (``csrc/minmax_bwd.cu``) replaces ``minmax_pallas.py:minmax_bwd_padded``:
+the gather-form adjoint, one thread per cell recomputing its six
+neighbours' Laplacian cotangents.
+
 The wrappers run the plain version only for a CPU tensor; for a CUDA tensor
 they launch the kernel or raise.  K4 is bitwise equal to K launches of K3
 (one shared cell update, built with ``--fmad=false``).
@@ -23,8 +27,8 @@ import torch
 
 from .. import cuda_build
 from .stencil import interior_mask, shift
-from .weno_cuda import (brick_cells, check_cuda, finish_plain, np_dtype,
-                        ptr, rms_buffers)
+from .weno_cuda import (brick_cells, brick_grid, check_cuda, finish_plain,
+                        np_dtype, ptr, rms_buffers)
 
 
 def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
@@ -32,7 +36,8 @@ def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
     them from its f32 scalar inputs."""
     t = np_dtype(dtype)
     dxv = t(dx)
-    return dict(h1=float(t(h1)), inv_dx2=float(t(1) / (dxv * dxv)),
+    return dict(dx=float(dxv), h1=float(t(h1)),
+                inv_dx2=float(t(1) / (dxv * dxv)),
                 band_dx=float(t(band_radius) * dxv),
                 threshold=float(t(threshold)))
 
@@ -130,3 +135,62 @@ def minmax_fusedk(phi, dx, h1, band_radius=4.1, threshold=0.0, *, ksteps,
 
 
 minmax_fusedk.launches = 0
+
+
+def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
+    """The plain version of :func:`minmax_step_vjp` (any dtype, any device),
+    the gather-form adjoint of ``minmax_pallas._make_bwd_kernel`` (:742-757):
+    ``cot_phi = g - 6/dx^2 cot_lap + gather_6(cot_lap / dx^2)`` with
+    ``d min(lap, 0)/d lap`` = 1, 0.5 at ``lap == 0``, else 0 (JAX's
+    convention for ``lax.min``; ``torch.clamp`` would give 1 at the tie)."""
+    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
+    sum6 = (shift(phi, 0, -1) + shift(phi, 0, 1) + shift(phi, 1, -1)
+            + shift(phi, 1, 1) + shift(phi, 2, 1) + shift(phi, 2, -1))
+    lap = (sum6 - 6.0 * phi) * sc["inv_dx2"]
+    sel_min = (sum6 + phi) * (1.0 / 7.0) < sc["threshold"]
+    f = torch.where(sel_min, torch.clamp_max(lap, 0.0),
+                    torch.clamp_min(lap, 0.0))
+    gate = (interior_mask(phi.shape, 1, phi.device)
+            & (torch.abs(phi) < sc["band_dx"]))
+    zero = torch.zeros_like(phi)
+    tie = torch.where(lap == 0.0, 0.5 + zero, zero)
+    dlap = torch.where(sel_min, torch.where(lap < 0.0, 1.0 + zero, tie),
+                       torch.where(lap > 0.0, 1.0 + zero, tie))
+    cot_lap = torch.where(gate, sc["h1"] * g, zero) * dlap
+    cs6 = cot_lap * sc["inv_dx2"]
+    cot_phi = (g - (6.0 * sc["inv_dx2"]) * cot_lap
+               + shift(cs6, 0, 1) + shift(cs6, 0, -1) + shift(cs6, 1, 1)
+               + shift(cs6, 1, -1) + shift(cs6, 2, -1) + shift(cs6, 2, 1))
+    cot_dx = (-2.0 / sc["dx"]) * (cot_lap * lap).double().sum()
+    cot_h1 = torch.where(gate, f * g, zero).double().sum()
+    return cot_phi, cot_dx, cot_h1
+
+
+def minmax_step_vjp(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
+    """VJP of the dense :func:`minmax_step` at ``(phi, dx, h1)`` for the
+    output cotangent ``g`` (kernel K6, ``csrc/minmax_bwd.cu``).
+
+    Returns ``(cot_phi, cot_dx, cot_h1)``, the scalars as float64 0-d
+    tensors; ``band_radius`` and ``threshold`` enter through comparisons
+    only, so their cotangents are exactly zero (``minmax_pallas.py:1116``)
+    and are not returned."""
+    if phi.device.type == "cpu":
+        return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold)
+    cot_phi = torch.empty_like(phi)
+    check_cuda("minmax_step_vjp", phi, cot_phi, None, (g,))
+    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
+    nb = brick_grid(phi.shape)
+    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
+                           device=phi.device)
+    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
+    with torch.cuda.device(phi.device):
+        cuda_build.launch(
+            "lsf_minmax_bwd_f32", phi.data_ptr(), g.data_ptr(),
+            cot_phi.data_ptr(), *phi.shape, sc["h1"], sc["inv_dx2"],
+            sc["band_dx"], sc["threshold"], partials.data_ptr(),
+            sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    minmax_step_vjp.launches += 1
+    return cot_phi, (-2.0 / sc["dx"]) * sums[0], sums[1]
+
+
+minmax_step_vjp.launches = 0

@@ -1,5 +1,5 @@
-"""Kernel K1 — the fused reinitialization step — with its plain PyTorch
-version, and the narrow-band brick activity mask.
+"""Kernels K1 — the fused reinitialization step — and K5 — its VJP — with
+their plain PyTorch versions, and the narrow-band brick activity mask.
 
 K1 (``csrc/reinit_step.cu``) replaces the TPU kernel
 ``levelsetfortran_tpu/ops/weno_pallas.py:_pallas_step_padded``: one Jacobi
@@ -14,10 +14,18 @@ inactive bricks.  The TPU layout (x/y aprons, 128-lane z padding) is not
 ported: the tensor is the unpadded ``(nx, ny, nz)`` grid and every mask is
 in global coordinates.
 
-:func:`reinit_step` runs the plain version only for a CPU tensor; for a
-CUDA tensor it launches the kernel or raises.  Both evaluate the same
-expressions in the same order on scalars rounded once in the working
-dtype (:func:`step_scalars`), so they agree to the last bits.
+K5 (``csrc/reinit_bwd.cu``) replaces ``weno_pallas.py:_pallas_bwd_padded``
+in its dense mode: the hand-chained adjoint of the step with respect to
+(phi, sign source, dx, h), in two deterministic passes (per-cell stencil
+cotangents, then a gather).
+
+:func:`reinit_step` and :func:`reinit_step_vjp` run the plain version only
+for a CPU tensor; for a CUDA tensor they launch the kernel or raise.  K1
+and its plain version evaluate the same expressions in the same order on
+scalars rounded once in the working dtype (:func:`step_scalars`), so they
+agree to the last bits; K5 also sums its stencil and ghost-BC terms in
+its plain version's order, so only its float64 scalar sums differ in
+order.
 """
 
 from __future__ import annotations
@@ -41,16 +49,21 @@ def np_dtype(dtype: torch.dtype):
 
 def step_scalars(dtype, dx, h, eps_scale=1e-6, eps_floor=None) -> dict:
     """The step's scalar constants, each rounded once in ``dtype`` exactly
-    as the TPU kernel forms them (``_scaled_eps_floor`` :464)."""
+    as the TPU kernel forms them (``_scaled_eps_floor`` :464).  ``ef_dx``
+    is d(eps_floor)/d(dx) of the scaled floor, 0 where the floor is
+    clamped (``_axis_gsq_bwd`` :639)."""
     t = np_dtype(dtype)
     if eps_floor is None:
         eps_floor = default_eps_floor(dtype)
     dxv = t(dx)
     dx2 = dxv * dxv
     floor = t(1e-18 if dtype == torch.float32 else 1e-99)
+    scaled = t(eps_floor) * dx2
     return dict(dx=float(dxv), h=float(t(h)), dx2=float(dx2),
                 inv_dx2=float(t(1) / dx2), eps_scale=float(t(eps_scale)),
-                eps_floor=float(max(t(eps_floor) * dx2, floor)))
+                eps_floor=float(max(scaled, floor)),
+                ef_dx=float(t(2.0 * eps_floor) * dxv) if scaled >= floor
+                else 0.0)
 
 
 # ----------------------------- plain version ------------------------------
@@ -212,6 +225,249 @@ def reinit_step_plain(phi, sign_src, dx, h, *, eps_scale=1e-6,
     return finish_plain(_ghost_bc(upd, sc["dx"]), phi, out, with_rms)
 
 
+# ------------------------- plain version of the VJP ------------------------
+
+def _weights_fwd(eps, is0, is1, is2, ratio_floor):
+    """Normalized WENO weights (w0, w2) and the residuals their adjoint
+    reads (``_weno5_pair_hand.weights_fwd`` :218)."""
+    d0, d1, d2 = eps + is0, eps + is1, eps + is2
+    m12 = torch.maximum(d1, d2)
+    inv = 1.0 / torch.maximum(d0, m12)
+    r0, r1, r2 = d0 * inv, d1 * inv, d2 * inv
+    h0 = torch.clamp_min(r0, ratio_floor)
+    h1 = torch.clamp_min(r1, ratio_floor)
+    h2 = torch.clamp_min(r2, ratio_floor)
+    u0, u1, u2 = h1 * h2, h0 * h2, h0 * h1
+    t0 = u0 * u0
+    t2 = 3.0 * (u2 * u2)
+    r = 1.0 / (t0 + 6.0 * (u1 * u1) + t2)
+    w0, w2 = t0 * r, t2 * r
+    return w0, w2, (d0, d1, d2, m12, inv, r0, r1, r2, h0, h1, h2, u0, u1,
+                    u2, r, w0, w2)
+
+
+def _weights_bwd(res, cot_w0, cot_w2, ratio_floor):
+    """Quotient-rule adjoint of :func:`_weights_fwd` with argmax routing
+    (ties to the lower-index operand): (cot_eps, cot_is0..2)."""
+    (d0, d1, d2, m12, inv, r0, r1, r2, h0, h1, h2, u0, u1, u2, r, w0,
+     w2) = res
+    sigma = r * (cot_w0 * w0 + cot_w2 * w2)
+    cot_u0 = (2.0 * (r * cot_w0 - sigma)) * u0
+    cot_u1 = (-12.0 * sigma) * u1
+    cot_u2 = (6.0 * (r * cot_w2 - sigma)) * u2
+    zero = torch.zeros_like(cot_u0)
+    cr0 = torch.where(r0 >= ratio_floor, cot_u1 * h2 + cot_u2 * h1, zero)
+    cr1 = torch.where(r1 >= ratio_floor, cot_u0 * h2 + cot_u2 * h0, zero)
+    cr2 = torch.where(r2 >= ratio_floor, cot_u0 * h1 + cot_u1 * h0, zero)
+    cot_m = -(inv * inv) * (cr0 * d0 + cr1 * d1 + cr2 * d2)
+    d0_wins = d0 >= m12
+    cot_m12 = torch.where(d0_wins, zero, cot_m)
+    d1_wins = d1 >= d2
+    cot_d0 = cr0 * inv + torch.where(d0_wins, cot_m, zero)
+    cot_d1 = cr1 * inv + torch.where(d1_wins, cot_m12, zero)
+    cot_d2 = cr2 * inv + torch.where(d1_wins, zero, cot_m12)
+    return cot_d0 + cot_d1 + cot_d2, cot_d0, cot_d1, cot_d2
+
+
+def _weno5_pair_bwd(p, eps_scale, eps_floor, ratio_floor, p5_zero,
+                    cot_wm, cot_wp):
+    """Hand adjoint of :func:`_weno5_pair` (``_weno5_pair_hand`` :149,
+    equation for equation): the six diffs ``p`` and the cotangents of
+    (d_minus, d_plus) give (cot_p0..cot_p5, cot of the scaled epsilon
+    floor)."""
+    p0, p1, p2, p3, p4, p5 = p
+    ap, am = p5 - p4, p1 - p0
+    bp, bm = p4 - p3, p2 - p1
+    cp = p3 - p2
+    ab_p, ab_m = ap - bp, am - bm
+    bc_p, bc_m = bp - cp, bm - cp
+    e0p, e0m = ab_p - 2.0 * bp, ab_m - 2.0 * bm
+    e1p, e1m = bp + cp, bm + cp
+    e2p, e2m = 3.0 * cp - bm, 3.0 * cp - bp
+    is0p = 13.0 * (ab_p * ab_p) + 3.0 * (e0p * e0p)
+    is0m = 13.0 * (ab_m * ab_m) + 3.0 * (e0m * e0m)
+    is1p = 13.0 * (bc_p * bc_p) + 3.0 * (e1p * e1p)
+    is1m = 13.0 * (bc_m * bc_m) + 3.0 * (e1m * e1m)
+    is2p = 13.0 * (bc_m * bc_m) + 3.0 * (e2p * e2p)
+    is2m = 13.0 * (bc_p * bc_p) + 3.0 * (e2m * e2m)
+    p0s, p1s, p2s, p3s, p4s = p0 * p0, p1 * p1, p2 * p2, p3 * p3, p4 * p4
+    c12 = torch.maximum(p1s, p2s)
+    c34 = torch.maximum(p3s, p4s)
+    common4 = torch.maximum(c12, c34)
+    if p5_zero:
+        epsp = eps_scale * common4 + eps_floor
+    else:
+        p5s = p5 * p5
+        epsp = eps_scale * torch.maximum(common4, p5s) + eps_floor
+    epsm = eps_scale * torch.maximum(common4, p0s) + eps_floor
+    w0p, w2p, res_p = _weights_fwd(epsp, is0p, is1p, is2p, ratio_floor)
+    w0m, w2m, res_m = _weights_fwd(epsm, is0m, is1m, is2m, ratio_floor)
+    a_p, a_m, b = ab_p - bc_p, ab_m - bc_m, bc_p + bc_m
+
+    third, sixth = 1.0 / 3.0, 1.0 / 6.0
+    cot_common = cot_wm + cot_wp
+    tp, tm = cot_wp * third, -cot_wm * third
+    sp, sm = cot_wp * sixth, -cot_wm * sixth
+    cot_ap_, cot_am_ = tp * w0p, tm * w0m
+    cot_b = sp * (w2p - 0.5) + sm * (w2m - 0.5)
+    cot_epsp, ci0p, ci1p, ci2p = _weights_bwd(res_p, tp * a_p, sp * b,
+                                              ratio_floor)
+    cot_epsm, ci0m, ci1m, ci2m = _weights_bwd(res_m, tm * a_m, sm * b,
+                                              ratio_floor)
+    ce0p, ce0m = (6.0 * ci0p) * e0p, (6.0 * ci0m) * e0m
+    ce1p, ce1m = (6.0 * ci1p) * e1p, (6.0 * ci1m) * e1m
+    ce2p, ce2m = (6.0 * ci2p) * e2p, (6.0 * ci2m) * e2m
+
+    zero = torch.zeros_like(cot_common)
+    cot_mp = eps_scale * cot_epsp
+    cot_mm = eps_scale * cot_epsm
+    mm_c4 = common4 >= p0s
+    cot_c4 = torch.where(mm_c4, cot_mm, zero)
+    cot_p0s = torch.where(mm_c4, zero, cot_mm)
+    if p5_zero:
+        cot_c4 = cot_c4 + cot_mp
+        cot_p5s = zero
+    else:
+        mp_c4 = common4 >= p5s
+        cot_c4 = cot_c4 + torch.where(mp_c4, cot_mp, zero)
+        cot_p5s = torch.where(mp_c4, zero, cot_mp)
+    c12_wins = c12 >= c34
+    cot_c12 = torch.where(c12_wins, cot_c4, zero)
+    cot_c34 = torch.where(c12_wins, zero, cot_c4)
+    p1_wins, p3_wins = p1s >= p2s, p3s >= p4s
+    cot_p1s = torch.where(p1_wins, cot_c12, zero)
+    cot_p2s = torch.where(p1_wins, zero, cot_c12)
+    cot_p3s = torch.where(p3_wins, cot_c34, zero)
+    cot_p4s = torch.where(p3_wins, zero, cot_c34)
+
+    cot_ab_p = (2.0 * ab_p) * (13.0 * ci0p) + ce0p + cot_ap_
+    cot_ab_m = (2.0 * ab_m) * (13.0 * ci0m) + ce0m + cot_am_
+    cot_bc_p = (2.0 * bc_p) * (13.0 * (ci1p + ci2m)) - cot_ap_ + cot_b
+    cot_bc_m = (2.0 * bc_m) * (13.0 * (ci1m + ci2p)) - cot_am_ + cot_b
+    cot_bp = -2.0 * ce0p + ce1p - ce2m - cot_ab_p + cot_bc_p
+    cot_bm = -2.0 * ce0m + ce1m - ce2p - cot_ab_m + cot_bc_m
+    cot_cp = ce1p + ce1m + 3.0 * (ce2p + ce2m) - cot_bc_p - cot_bc_m
+    c7 = (7.0 / 12.0) * cot_common
+    c1 = (1.0 / 12.0) * cot_common
+    cps = [-cot_ab_m + (2.0 * p0) * cot_p0s,
+           cot_ab_m - cot_bm - c1 + (2.0 * p1) * cot_p1s,
+           cot_bm - cot_cp + c7 + (2.0 * p2) * cot_p2s,
+           cot_cp - cot_bp + c7 + (2.0 * p3) * cot_p3s,
+           cot_bp - cot_ab_p - c1 + (2.0 * p4) * cot_p4s,
+           cot_ab_p + (2.0 * p5) * cot_p5s]
+    return cps, cot_epsp + cot_epsm
+
+
+def _godunov_routing(d_m, d_p, pos, cot_gsq):
+    """Cotangents of (d_m, d_p) from that of the squared Godunov-selected
+    derivative (``_axis_gsq_bwd`` :619-632): the inner max routes to
+    ``d_m`` when ``d_m >= -d_p`` (positive side), nothing flows where the
+    selected value is 0."""
+    g = torch.where(pos, torch.clamp_min(torch.maximum(d_m, -d_p), 0.0),
+                    torch.clamp_min(torch.maximum(d_p, -d_m), 0.0))
+    cot_g = torch.where(g > 0.0, 2.0 * g * cot_gsq, torch.zeros_like(g))
+    zero = torch.zeros_like(g)
+    m_over_p = d_m >= -d_p
+    p_over_m = d_p >= -d_m
+    cot_dm = torch.where(pos, torch.where(m_over_p, cot_g, zero),
+                         torch.where(p_over_m, zero, -cot_g))
+    cot_dp = torch.where(pos, torch.where(m_over_p, zero, -cot_g),
+                         torch.where(p_over_m, cot_g, zero))
+    return g * g, cot_dm, cot_dp
+
+
+def _axis_diffs(phi, axis):
+    v = [shift(phi, axis, o) for o in (-3, -2, -1, 0, 1, 2, 3)]
+    return [v[i + 1] - v[i] for i in range(6)]
+
+
+def _clamp_transpose(g, axis):
+    """Transpose of gathering at ``clamp(i, 1, n-2)`` along ``axis``."""
+    n = g.shape[axis]
+    out = g.clone()
+    out.narrow(axis, 1, 1).add_(g.narrow(axis, 0, 1))
+    out.narrow(axis, n - 2, 1).add_(g.narrow(axis, n - 1, 1))
+    out.narrow(axis, 0, 1).zero_()
+    out.narrow(axis, n - 1, 1).zero_()
+    return out
+
+
+def reinit_step_vjp_plain(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
+                          eps_floor=None, quirk_y_p5_zero=False):
+    """The plain version of :func:`reinit_step_vjp` (any dtype, any
+    device): the VJP of the dense step, hand-chained as the TPU kernel K5
+    routes it — ghost-BC transpose, guarded tail, per-axis Godunov and
+    WENO-pair adjoints, stencil transpose as seven shifted adds per axis.
+    Not autograd of :func:`reinit_step_plain`: autograd splits ties and
+    differentiates ``sqrt`` at 0 where the kernel's rules do not."""
+    sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
+    f64 = phi.dtype == torch.float64
+    ratio_floor = 1e-70 if f64 else 1e-7
+    sm_floor = 1e-30 if f64 else 1e-20
+    interior = interior_mask(phi.shape, 1, phi.device)
+    deep = interior_mask(phi.shape, 4, phi.device)
+    pos = sign_src > 0.0
+    zero = torch.zeros_like(phi)
+
+    def pair(axis):
+        diffs = _axis_diffs(phi, axis)
+        p5z = quirk_y_p5_zero and axis == 1
+        w_m, w_p = _weno5_pair(*diffs, sc["eps_scale"], sc["eps_floor"],
+                               ratio_floor, p5z)
+        return (diffs, p5z, torch.where(deep, w_m, diffs[2]),
+                torch.where(deep, w_p, diffs[3]))
+
+    gsum = None
+    for axis in range(3):
+        _, _, d_m, d_p = pair(axis)
+        gsq, _, _ = _godunov_routing(d_m, d_p, pos, zero)
+        gsum = gsq if gsum is None else gsum + gsq
+
+    # ghost BC: face = clamped inner neighbour's updated value + dx
+    gf = torch.where(interior, zero, g)
+    for axis in (2, 1, 0):
+        gf = _clamp_transpose(gf, axis)
+    big_g = torch.where(interior, g, zero) + gf
+    cot_dx = torch.where(interior, zero, g).double().sum()
+
+    # guarded tail: res = c + (h sg)(1 - gm), sg = s / sqrt(max(d2, floor))
+    nzm = gsum > 0.0
+    gm_safe = torch.sqrt(torch.where(nzm, gsum, 1.0 + zero) * sc["inv_dx2"])
+    gm = torch.where(nzm, gm_safe, zero)
+    d2 = sign_src * sign_src + sc["dx2"] * gm
+    m = torch.clamp_min(d2, sm_floor)
+    sq = torch.sqrt(m)
+    sg = sign_src / sq
+    cot_hs = big_g * (1.0 - gm)
+    cot_h = (cot_hs * sg).double().sum()
+    cot_sg = cot_hs * sc["h"]
+    cot_m = cot_sg * ((-0.5 * sg) / m)
+    cot_d2 = torch.where(d2 > sm_floor, cot_m,
+                         torch.where(d2 == sm_floor, 0.5 * cot_m, zero))
+    cot_sign = cot_sg / sq + (2.0 * sign_src) * cot_d2
+    cot_gm = -((sc["h"] * sg) * big_g) + sc["dx2"] * cot_d2
+    cot_u = torch.where(nzm, cot_gm * (0.5 / gm_safe), zero)
+    cot_gs = cot_u * sc["inv_dx2"]
+    cdx = ((2.0 * sc["dx"]) * (gm * cot_d2).double()
+           - (2.0 * sc["dx"] * sc["inv_dx2"] * sc["inv_dx2"])
+           * (cot_u * gsum).double())
+
+    cot_phi = big_g
+    for axis in range(3):
+        diffs, p5z, d_m, d_p = pair(axis)
+        _, cot_dm, cot_dp = _godunov_routing(d_m, d_p, pos, cot_gs)
+        cps, cot_ef = _weno5_pair_bwd(
+            diffs, sc["eps_scale"], sc["eps_floor"], ratio_floor, p5z,
+            torch.where(deep, cot_dm, zero), torch.where(deep, cot_dp, zero))
+        cdx = cdx + sc["ef_dx"] * cot_ef.double()
+        cps[2] = cps[2] + torch.where(deep, zero, cot_dm)
+        cps[3] = cps[3] + torch.where(deep, zero, cot_dp)
+        qs = [-cps[0]] + [cps[i] - cps[i + 1] for i in range(5)] + [cps[5]]
+        for k, q in zip(range(-3, 4), qs):
+            cot_phi = cot_phi + shift(q, axis, -k)
+    return cot_phi, cot_sign, cot_dx + cdx.sum(), cot_h
+
+
 # ------------------------------ kernel wrapper -----------------------------
 
 def check_cuda(name, phi, out, active, inputs=()):
@@ -283,3 +539,40 @@ def reinit_step(phi, sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
 
 
 reinit_step.launches = 0
+
+
+def reinit_step_vjp(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
+                    eps_floor=None, quirk_y_p5_zero=False):
+    """VJP of the dense :func:`reinit_step` at ``(phi, sign_src, dx, h)``
+    for the output cotangent ``g`` (kernel K5, ``csrc/reinit_bwd.cu``).
+
+    Returns ``(cot_phi, cot_sign, cot_dx, cot_h)``; the scalar cotangents
+    are float64 0-d tensors, each a fixed-order sum of per-cell terms."""
+    if phi.device.type == "cpu":
+        return reinit_step_vjp_plain(
+            phi, sign_src, g, dx, h, eps_scale=eps_scale,
+            eps_floor=eps_floor, quirk_y_p5_zero=quirk_y_p5_zero)
+    cot_phi = torch.empty_like(phi)
+    check_cuda("reinit_step_vjp", phi, cot_phi, None, (sign_src, g))
+    cot_sign = torch.empty_like(phi)
+    sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
+    nb = brick_grid(phi.shape)
+    # 21 per-cell stencil cotangents (3 axes x 7 shifts) between the passes
+    q = torch.empty((21,) + tuple(phi.shape), dtype=phi.dtype,
+                    device=phi.device)
+    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
+                           device=phi.device)
+    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
+    with torch.cuda.device(phi.device):
+        cuda_build.launch(
+            "lsf_reinit_bwd_f32", phi.data_ptr(), sign_src.data_ptr(),
+            g.data_ptr(), cot_phi.data_ptr(), cot_sign.data_ptr(),
+            q.data_ptr(), *phi.shape, sc["dx"], sc["h"], sc["dx2"],
+            sc["inv_dx2"], sc["eps_scale"], sc["eps_floor"], sc["ef_dx"],
+            int(quirk_y_p5_zero), partials.data_ptr(), sums.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    reinit_step_vjp.launches += 1
+    return cot_phi, cot_sign, sums[0], sums[1]
+
+
+reinit_step_vjp.launches = 0

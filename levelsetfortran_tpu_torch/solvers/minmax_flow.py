@@ -3,7 +3,8 @@
 ``set3d.f90:394-462``): explicit Euler on the narrow band with the min/max
 RHS and whole-grid RMS steady-state detection.  Steps are kernels K3/K4
 (:mod:`..ops.minmax_cuda`) on a CUDA tensor and their plain versions on a
-CPU tensor.
+CPU tensor.  :func:`minmax_flow_fixed` is the differentiable fixed-step
+solve, with kernel K6 in its backward.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import minmax_cuda
+from ..ops import minmax_cuda, reverse
 from ..ops.band import narrow_band
 from ..ops.minmax import minmax_rhs
 from ..ops.stencil import interior_mask
@@ -107,3 +108,55 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     n += rem
     rms = math.inf if dsq is None else math.sqrt(dsq.item() / denom)
     return MinMaxResult(p, n, rms, math.isnan(rms))
+
+
+class _MinmaxFixed(torch.autograd.Function):
+    """``steps`` dense K3 steps; the backward runs K6 per step in reverse
+    over the stashed (flat) or recomputed (sqrt-N) trajectory
+    (``minmax_pallas.py:1049-1120``)."""
+
+    @staticmethod
+    def forward(ctx, phi0, dx, h1, band_radius, threshold, steps):
+        args = (float(dx), float(h1), float(band_radius), float(threshold))
+        p, ctx.traj = reverse.run_forward(
+            lambda q: minmax_cuda.minmax_step(q, *args), phi0, steps)
+        ctx.save_for_backward(phi0)
+        ctx.args = (args, steps)
+        ctx.meta = tuple(reverse.scalar_meta(x)
+                         for x in (dx, h1, band_radius, threshold))
+        return p if steps else phi0.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        phi0, = ctx.saved_tensors
+        args, steps = ctx.args
+
+        def fstep(p):
+            return minmax_cuda.minmax_step(p, *args)
+
+        def bstep(carry, p_in):
+            gp, cdx, ch = carry
+            cp, cdxi, chi = minmax_cuda.minmax_step_vjp(p_in, gp, *args)
+            return cp, cdx + cdxi, ch + chi
+
+        zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
+        carry = (g.contiguous(), zero, zero)
+        gp, cdx, ch = reverse.run_reverse(
+            "minmax_flow_fixed", fstep, bstep, phi0, carry, steps, ctx.traj)
+        ctx.traj = None
+        # band_radius and threshold enter through comparisons only
+        return (gp, reverse.scalar_cotangent(ctx.meta[0], cdx),
+                reverse.scalar_cotangent(ctx.meta[1], ch),
+                reverse.scalar_cotangent(ctx.meta[2], zero),
+                reverse.scalar_cotangent(ctx.meta[3], zero), None)
+
+
+def minmax_flow_fixed(phi0, dx, h1, steps: int, *, band_radius=4.1,
+                      threshold=0.0):
+    """``steps`` dense min/max steps, reverse-mode differentiable in
+    ``phi0`` and (as 0-d tensors) ``dx``, ``h1``, ``band_radius`` and
+    ``threshold`` — the port of ``solvers/minmax_flow.py:minmax_flow_fixed``
+    on its fused-kernel route (default half-width, Laplacian proxy).  The
+    forward is kernel K3 per step, the backward kernel K6 per step."""
+    return _MinmaxFixed.apply(phi0, dx, h1, band_radius, threshold,
+                              int(steps))

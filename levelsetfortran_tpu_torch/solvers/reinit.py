@@ -6,7 +6,8 @@ Jacobi steps, interior-only update, ghost-extrapolation BC, RMS over the
 reference's ``(nx-1)(ny-1)(nz-1)`` denominator, early exit below ``tol``
 and a NaN flag.  Each step is kernel K1 (:mod:`..ops.weno_cuda`) on a CUDA
 tensor and its plain version on a CPU tensor; the loops are Python loops
-that read the RMS scalar to the host once per check.
+that read the RMS scalar to the host once per check.  :func:`reinit_fixed`
+is the differentiable fixed-step solve, with kernel K5 in its backward.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import weno_cuda
+from ..ops import reverse, weno_cuda
 from ..ops.sign import smeared_sign
 from ..ops.stencil import boundary_extrapolate, interior_mask
 from ..ops.weno import weno_godunov
@@ -104,3 +105,56 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
         if rms < tol or math.isnan(rms):
             break
     return ReinitResult(p, n, rms, math.isnan(rms))
+
+
+class _ReinitFixed(torch.autograd.Function):
+    """``steps`` dense K1 steps from ``phi0`` with the sign source frozen at
+    ``phi0``; the backward runs K5 per step in reverse over the stashed
+    (flat) or recomputed (sqrt-N) trajectory (``weno_pallas.py:2191-2364``).
+    """
+
+    @staticmethod
+    def forward(ctx, phi0, dx, h, steps, kw):
+        dxf, hf = float(dx), float(h)
+        p, ctx.traj = reverse.run_forward(
+            lambda q: weno_cuda.reinit_step(q, phi0, dxf, hf, **kw), phi0,
+            steps)
+        ctx.save_for_backward(phi0)
+        ctx.args = (dxf, hf, steps, kw)
+        ctx.meta = (reverse.scalar_meta(dx), reverse.scalar_meta(h))
+        return p if steps else phi0.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        phi0, = ctx.saved_tensors
+        dxf, hf, steps, kw = ctx.args
+
+        def fstep(p):
+            return weno_cuda.reinit_step(p, phi0, dxf, hf, **kw)
+
+        def bstep(carry, p_in):
+            gp, cs, cdx, ch = carry
+            cp, csi, cdxi, chi = weno_cuda.reinit_step_vjp(
+                p_in, phi0, gp, dxf, hf, **kw)
+            return cp, cs + csi, cdx + cdxi, ch + chi
+
+        zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
+        carry = (g.contiguous(), torch.zeros_like(phi0), zero, zero)
+        gp, cs, cdx, ch = reverse.run_reverse(
+            "reinit_fixed", fstep, bstep, phi0, carry, steps, ctx.traj)
+        ctx.traj = None
+        # the sign source IS phi0: both cotangent paths land on it
+        return (gp + cs, reverse.scalar_cotangent(ctx.meta[0], cdx),
+                reverse.scalar_cotangent(ctx.meta[1], ch), None, None)
+
+
+def reinit_fixed(phi0, dx, h, steps: int, *, eps_scale=1e-6, eps_floor=None,
+                 quirk_y_p5_zero=False):
+    """``steps`` dense reinit steps, reverse-mode differentiable in
+    ``phi0`` and (as 0-d tensors) ``dx`` and ``h`` — the port of
+    ``solvers/reinit.py:reinit_fixed`` on its fused-kernel route.  The
+    forward is kernel K1 per step, the backward kernel K5 per step (their
+    plain versions on a CPU tensor)."""
+    kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
+              quirk_y_p5_zero=quirk_y_p5_zero)
+    return _ReinitFixed.apply(phi0, dx, h, int(steps), kw)
