@@ -11,8 +11,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2. kernels: each kernel against its plain PyTorch version on the card at
      (67, 45, 39) and (222, 222, 222), dense, with the fused sum and banded
      with a real mask; K4 also against 4 launches of K3, bitwise; the
-     adjoint kernels K5 and K6 against their plain versions and against a
-     second launch, bitwise; median times from CUDA events;
+     adjoint kernels K5 (with a sign source unlike phi) and K6 (on a field
+     after a K1 step) against their plain versions and against a second
+     launch, bitwise; median times from CUDA events;
   3. runs A (twoCube10 twin, dx 0.05, 262x42x42), B (icosphere with 20,480
      triangles, dx 0.01, 222^3) and C (A with --narrow-band off), each
      through ``python -m levelsetfortran_tpu_torch`` and in-process
@@ -22,9 +23,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      gradient size (``bench.py:bench_e2e_pixgrad(256)``): icosphere with
      20,480 triangles on 256^3, 50 reinit and 20 min/max steps, a 64x64
      image, one ``image_loss_and_vertex_grad`` against a zero image; the
-     launch counters, the reverse sweeps' branches, wall and per-stage
-     forward times; then the 24^3 octahedron on the card against the CPU
-     plain path, and its finite-difference gate.
+     launch counters, the reverse sweeps' branches and the wall; then each
+     stage alone, forward and backward, chained on the same cotangents
+     (its times and backward peaks, and the same gradient); K5 and K6 at
+     256^3 on run D's own inputs against their plain versions; then the
+     24^3 octahedron on the card against the CPU plain path, and its
+     finite-difference gate.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per run.
 """
@@ -37,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 
@@ -183,7 +188,11 @@ def kernel_phase(record):
         phase("kernels", f"K4 {shape}: bitwise equal to 4 K3 launches, "
               f"max_abs_err vs plain {e4:.3g} (tol 1e-7)")
         del k, p, kb, pb, kc
-        adjoint_checks(record, phi, dx, h, h1, main)
+        # K5: a sign source whose sign and value differ from phi's (a
+        # sphere 10% larger); K6: a field after one K1 step
+        r = 1.0 if main else 0.6
+        adjoint_checks(record, phi, sphere(shape, dx, 1.1 * r),
+                       wc.reinit_step(phi, phi, dx, h), dx, h, h1, main)
         del phi
         torch.cuda.empty_cache()
     for name, rec in record.items():
@@ -193,9 +202,10 @@ def kernel_phase(record):
               f"{banded}, plain {rec['plain_ms']:.4f} ms")
 
 
-def adjoint_checks(record, phi, dx, h, h1, main):
-    """K5 and K6 against their plain versions (relative to max |cot|) and
-    against a second launch of themselves (bitwise)."""
+def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
+    """K5 at (phi, sign source sgn) and K6 at mm_phi against their plain
+    versions (relative to max |cot|) and against a second launch of
+    themselves (bitwise), with a standard-normal cotangent."""
     import torch
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
@@ -204,11 +214,11 @@ def adjoint_checks(record, phi, dx, h, h1, main):
                      dtype=torch.float32, device="cuda")
     cases = (
         ("reinit_step_vjp", "K5", ADJ_TOL["K5"],
-         lambda: wc.reinit_step_vjp(phi, phi, g, dx, h),
-         lambda: wc.reinit_step_vjp_plain(phi, phi, g, dx, h), 3),
+         lambda: wc.reinit_step_vjp(phi, sgn, g, dx, h),
+         lambda: wc.reinit_step_vjp_plain(phi, sgn, g, dx, h), 3),
         ("minmax_step_vjp", "K6", ADJ_TOL["K6"],
-         lambda: mc.minmax_step_vjp(phi, g, dx, h1),
-         lambda: mc.minmax_step_vjp_plain(phi, g, dx, h1), 10))
+         lambda: mc.minmax_step_vjp(mm_phi, g, dx, h1),
+         lambda: mc.minmax_step_vjp_plain(mm_phi, g, dx, h1), 10))
     for name, kid, tol, kern, plain, reps in cases:
         k, k2, p = kern(), kern(), plain()
         check(all(torch.equal(a, b) for a, b in zip(k, k2)),
@@ -226,7 +236,8 @@ def adjoint_checks(record, phi, dx, h, h1, main):
         if main:
             rec["ms"] = median_ms(kern, 20)
             rec["plain_ms"] = median_ms(plain, reps)
-        phase("kernels", f"{kid} {tuple(phi.shape)}: field cotangents rel "
+        phase("kernels", f"{kid} {tuple(phi.shape)}{label}: field "
+              f"cotangents rel "
               f"err {', '.join(f'{r:.3g}' for r in rels)} (tol {tol:g} of "
               f"max|cot|), max_abs_err {e:.3g}, scalars rel {srel:.3g} (tol "
               f"{ADJ_TOL['scalars']:g}), two launches bitwise equal")
@@ -332,43 +343,33 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def run_d_phase(ball, card, n=256, device="cuda"):
+def run_d_phase(ball, card, record, n=256):
     """Phase 4: one pixels -> vertices gradient at full size."""
     import torch
     from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import reverse
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
-    from levelsetfortran_tpu_torch.ops.init_sign import (build_init_culling,
-                                                         signed_distance_init)
-    from levelsetfortran_tpu_torch.render.sphere_trace import (camera_rays,
-                                                               render)
-    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
-        minmax_flow_fixed
-    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+    from levelsetfortran_tpu_torch.ops.init_sign import build_init_culling
 
     grid = cube_grid(ball.vertices, n)
     t0 = time.perf_counter()
     cull = build_init_culling(grid, ball.vertices, ball.elements, block=16)
     t_build = time.perf_counter() - t0
-    v = torch.tensor(ball.vertices, dtype=torch.float32, device=device)
-    hw, rs, ms_ = 64, 50, 20
-    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0),
-              reinit_steps=rs, minmax_steps=ms_, height=hw, width=hw,
-              culling=cull)
-    target = torch.zeros((hw, hw), device=device)
+    v = torch.tensor(ball.vertices, dtype=torch.float32, device="cuda")
+    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0), reinit_steps=50,
+              minmax_steps=20, height=64, width=64, culling=cull)
+    target = torch.zeros((64, 64), device="cuda")
     counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
                 wc.reinit_step_vjp, mc.minmax_step_vjp)
     reverse.last_branch.clear()
-    cuda = device == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     (loss, grad), wall = sync_time(lambda: image_loss_and_vertex_grad(
         v, ball.elements, grid, target, **kw))
     launches = {c.__name__: c.launches for c in counters}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     branches = dict(reverse.last_branch)
     gmax = float(grad.abs().max())
     check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
@@ -376,36 +377,90 @@ def run_d_phase(ball, card, n=256, device="cuda"):
     check(gmax > 0.0, "run D: zero vertex gradient")
     for name in ("reinit_step", "minmax_step", "reinit_step_vjp",
                  "minmax_step_vjp"):
-        check(launches[name] > 0 or not cuda,
-              f"run D: {name} never launched")
+        check(launches[name] > 0, f"run D: {name} never launched")
     check(branches == {"reinit_fixed": "sqrtn",
                        "minmax_flow_fixed": "flat"},
           f"run D: reverse branches {branches}")
+    phase("run D", f"grid {grid.shape} dx {grid.dx:.6g}, {ball.n_elems} "
+          f"triangles, reinit 50 / min/max 20 steps, 64x64 image: loss "
+          f"{float(loss):.6g}, max|grad| {gmax:.6g}, launches {launches}, "
+          f"branches {branches}, peak {peak:.2f} GiB, forward+backward wall "
+          f"{wall:.3f} s (culling build {t_build:.3f} s on the host before "
+          f"it); card {card}")
 
-    # per-stage forward times, each stage on its own inputs (bench.py's
-    # decomposition), no graph
-    dx = grid.dx
-    with torch.no_grad():
-        phi0, t_init = sync_time(lambda: signed_distance_init(
-            grid, v, ball.elements, culling=cull))
-        phi1, t_re = sync_time(lambda: reinit_fixed(phi0, dx, 0.1 * dx, rs))
-        phi2, t_mm = sync_time(lambda: minmax_flow_fixed(
-            phi1, dx, 0.01 * dx * dx, ms_))
-        origins, dirs = camera_rays(hw, hw, eye=kw["eye"],
-                                    target=kw["target"], device=device)
-        out, t_rd = sync_time(lambda: render(phi2, grid, origins, dirs,
-                                             n_steps=64, hit_tol=0.25 * dx))
-    hits = int(out.hit.sum())
-    phase("run D", f"grid {grid.shape} dx {dx:.6g}, {ball.n_elems} "
-          f"triangles, reinit {rs} / min/max {ms_} steps, {hw}x{hw} image "
-          f"({hits} rays hit): loss {float(loss):.6g}, max|grad| "
-          f"{gmax:.6g}, launches {launches}, branches {branches}, peak "
-          f"{peak:.2f} GiB, card {card}")
-    phase("run D", f"forward+backward wall {wall:.3f} s (culling build "
-          f"{t_build:.3f} s on the host before it); forward stages: init "
-          f"{t_init:.3f} s, reinit {t_re:.3f} s, min/max {t_mm:.3f} s, "
-          f"render {t_rd:.3f} s; card {card}")
+    split = stage_split(v, ball.elements, grid, target, kw)
+    lrel = abs(float(split["loss"]) - float(loss)) / abs(float(loss))
+    gerr = float((split["grad"] - grad).abs().max())
+    check(lrel <= 1e-6 and gerr <= 1e-4 * gmax,
+          f"run D stages: loss rel {lrel:.3g}, grad max err {gerr:.3g}")
+    t, b, pk = split["fwd"], split["bwd"], split["peak"]
+    phase("run D", "each stage alone, forward recording its graph / "
+          "backward (backward peak): " + ", ".join(
+              f"{s} {t[s]:.3f} / {b[s]:.3f} s ({pk[s]:.2f} GiB)"
+              for s in ("init", "reinit", "minmax", "render"))
+          + f"; {split['hits']} rays hit; the chained gradient equals the "
+          f"main path's (loss rel {lrel:.3g}, grad max err {gerr:.3g}, "
+          f"gate 1e-4 of max|grad|); card {card}")
+
+    # K5 and K6 on the inputs run D gives them: K5 at the last reinit step
+    # (phi after 49 K1 steps, the sign source phi0), K6 at the first
+    # min/max step (the reinit output)
+    dx, phi0 = grid.dx, split["phi0"]
+    p = phi0
+    for _ in range(kw["reinit_steps"] - 1):
+        p = wc.reinit_step(p, phi0, dx, 0.1 * dx)
+    adjoint_checks(record, p, phi0, split["phi1"], dx, 0.1 * dx,
+                   0.01 * dx * dx, False, label=" run D's inputs")
     return launches
+
+
+def stage_split(v, elements, grid, target, kw):
+    """Run D's gradient one stage at a time: each stage's forward
+    (recording its graph) on the detached output of the one before, then
+    each backward, last stage first, fed the cotangent the stage after it
+    produced, so the chain computes the main path's gradient."""
+    import torch
+    from levelsetfortran_tpu_torch.ops.init_sign import signed_distance_init
+    from levelsetfortran_tpu_torch.render.sphere_trace import (camera_rays,
+                                                               render)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
+        minmax_flow_fixed
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+
+    # torch.autograd.backward imports sympy on its first call with a tensor
+    # cotangent (seconds on a cold host); pay that before the clock starts
+    w = torch.zeros(2, device=v.device, requires_grad=True)
+    torch.autograd.backward(2.0 * w, torch.ones_like(w))
+    dx, fwd, bwd, peak = grid.dx, {}, {}, {}
+    vv = v.detach().requires_grad_(True)
+    phi0, fwd["init"] = sync_time(lambda: signed_distance_init(
+        grid, vv, elements, dtype=vv.dtype, device=vv.device,
+        culling=kw["culling"]))
+    x0 = phi0.detach().requires_grad_(True)
+    phi1, fwd["reinit"] = sync_time(lambda: reinit_fixed(
+        x0, dx, 0.1 * dx, kw["reinit_steps"]))
+    x1 = phi1.detach().requires_grad_(True)
+    phi2, fwd["minmax"] = sync_time(lambda: minmax_flow_fixed(
+        x1, dx, 0.01 * dx * dx, kw["minmax_steps"]))
+    x2 = phi2.detach().requires_grad_(True)
+
+    def render_loss():
+        origins, dirs = camera_rays(kw["height"], kw["width"], eye=kw["eye"],
+                                    target=kw["target"], dtype=x2.dtype,
+                                    device=x2.device)
+        out = render(x2, grid, origins, dirs, n_steps=64, hit_tol=0.25 * dx)
+        return out, 0.5 * torch.sum((out.image - target) ** 2)
+
+    (out, loss), fwd["render"] = sync_time(render_loss)
+    for stage, y, x in (("render", loss, None), ("minmax", phi2, x2),
+                        ("reinit", phi1, x1), ("init", phi0, x0)):
+        torch.cuda.reset_peak_memory_stats()
+        _, bwd[stage] = sync_time(partial(
+            torch.autograd.backward, y, None if x is None else x.grad))
+        peak[stage] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return {"fwd": fwd, "bwd": bwd, "peak": peak, "loss": loss.detach(),
+            "grad": vv.grad, "hits": int(out.hit.sum()),
+            "phi0": phi0.detach(), "phi1": phi1.detach()}
 
 
 def small_holds(device="cuda"):
@@ -526,7 +581,7 @@ def main() -> int:
             for n, v in run_phase(label, mesh, truth, dx, extra,
                                   tmp).items():
                 total[n] += v
-    for n, v in run_d_phase(ball, card).items():
+    for n, v in run_d_phase(ball, card, record).items():
         total[n] += v
     small_holds()
 

@@ -3,7 +3,9 @@
 //
 // Replaces levelsetfortran_tpu/ops/weno_pallas.py:_pallas_bwd_padded (body:
 // _make_bwd_kernel, _axis_gsq_bwd, _weno5_pair_hand, the jax.vjp of
-// _tile_tail with guard_ad).  The same hand-chained adjoint, cell for cell:
+// _tile_tail with guard_ad).  It differentiates K1's own per-axis forward
+// (weno5.cuh, which both kernels include), recomputed per cell, with the
+// same hand-chained adjoint as the TPU kernel, cell for cell:
 //   * ghost BC: a face cell is its clamped inner neighbour's updated value
 //     plus dx, so an interior cell's update collects the cotangents of the
 //     face cells that clamp onto it (up to 7 at a grid corner), and every
@@ -35,13 +37,13 @@
 // bytes in, 8 out and 168 bytes of scratch traffic.  Every intermediate
 // stays in registers (512-thread bricks allow up to 128 a thread).
 #include "common.cuh"
+#include "weno5.cuh"
 
 namespace {
 
 using lsf::BRICK;
 using lsf::NT;
 
-constexpr float RATIO_FLOOR = 1e-7f;
 constexpr float SIGN_FLOOR = 1e-20f;
 
 struct BwdParams {
@@ -51,45 +53,17 @@ struct BwdParams {
   int p5_zero_y;
 };
 
-// Residuals of one normalized-weight evaluation (w0, w2).
-struct Weights {
-  float d0, d1, d2, m12, inv, r0, r1, r2, h0, h1, h2, u0, u1, u2, r, w0, w2;
-};
-
-__device__ __forceinline__ void weights_fwd(float eps, float is0, float is1,
-                                            float is2, Weights& s) {
-  s.d0 = eps + is0;
-  s.d1 = eps + is1;
-  s.d2 = eps + is2;
-  s.m12 = fmaxf(s.d1, s.d2);
-  s.inv = 1.0f / fmaxf(s.d0, s.m12);
-  s.r0 = s.d0 * s.inv;
-  s.r1 = s.d1 * s.inv;
-  s.r2 = s.d2 * s.inv;
-  s.h0 = fmaxf(s.r0, RATIO_FLOOR);
-  s.h1 = fmaxf(s.r1, RATIO_FLOOR);
-  s.h2 = fmaxf(s.r2, RATIO_FLOOR);
-  s.u0 = s.h1 * s.h2;
-  s.u1 = s.h0 * s.h2;
-  s.u2 = s.h0 * s.h1;
-  const float t0 = s.u0 * s.u0;
-  const float t2 = 3.0f * (s.u2 * s.u2);
-  s.r = 1.0f / ((t0 + 6.0f * (s.u1 * s.u1)) + t2);
-  s.w0 = t0 * s.r;
-  s.w2 = t2 * s.r;
-}
-
 // Adjoint of weights_fwd: returns cot_eps, writes cot_is0..2.
-__device__ __forceinline__ float weights_bwd(const Weights& s, float cot_w0,
+__device__ __forceinline__ float weights_bwd(const lsf::Weights& s, float cot_w0,
                                              float cot_w2, float& ci0,
                                              float& ci1, float& ci2) {
   const float sigma = s.r * (cot_w0 * s.w0 + cot_w2 * s.w2);
   const float cot_u0 = (2.0f * (s.r * cot_w0 - sigma)) * s.u0;
   const float cot_u1 = (-12.0f * sigma) * s.u1;
   const float cot_u2 = (6.0f * (s.r * cot_w2 - sigma)) * s.u2;
-  const float cr0 = s.r0 >= RATIO_FLOOR ? cot_u1 * s.h2 + cot_u2 * s.h1 : 0.0f;
-  const float cr1 = s.r1 >= RATIO_FLOOR ? cot_u0 * s.h2 + cot_u2 * s.h0 : 0.0f;
-  const float cr2 = s.r2 >= RATIO_FLOOR ? cot_u0 * s.h1 + cot_u1 * s.h0 : 0.0f;
+  const float cr0 = s.r0 >= lsf::RATIO_FLOOR ? cot_u1 * s.h2 + cot_u2 * s.h1 : 0.0f;
+  const float cr1 = s.r1 >= lsf::RATIO_FLOOR ? cot_u0 * s.h2 + cot_u2 * s.h0 : 0.0f;
+  const float cr2 = s.r2 >= lsf::RATIO_FLOOR ? cot_u0 * s.h1 + cot_u1 * s.h0 : 0.0f;
   const float cot_m = -(s.inv * s.inv) * ((cr0 * s.d0 + cr1 * s.d1) + cr2 * s.d2);
   const bool d0_wins = s.d0 >= s.m12;
   const float cot_m12 = d0_wins ? 0.0f : cot_m;
@@ -100,66 +74,22 @@ __device__ __forceinline__ float weights_bwd(const Weights& s, float cot_w0,
   return (ci0 + ci1) + ci2;
 }
 
-__device__ __forceinline__ float is_term(float sq_diff, float c) {
-  return 13.0f * sq_diff + 3.0f * (c * c);
-}
-
-// WENO5 (d_minus, d_plus) — kernel K1's weno5_pair, operation for operation.
-__device__ __forceinline__ void weno5_pair(const float* p, float eps_scale,
-                                           float eps_floor, bool p5_zero,
-                                           float& dm, float& dp) {
-  const float ap = p[5] - p[4], am = p[1] - p[0];
-  const float bp = p[4] - p[3], bm = p[2] - p[1];
-  const float cp = p[3] - p[2];
-  const float ab_p = ap - bp, ab_m = am - bm;
-  const float bc_p = bp - cp, bc_m = bm - cp;
-  const float sq_ab_p = ab_p * ab_p, sq_ab_m = ab_m * ab_m;
-  const float sq_bc_p = bc_p * bc_p, sq_bc_m = bc_m * bc_m;
-  const float common4 = fmaxf(fmaxf(p[1] * p[1], p[2] * p[2]),
-                              fmaxf(p[3] * p[3], p[4] * p[4]));
-  const float epsp = p5_zero ? eps_scale * common4 + eps_floor
-                             : eps_scale * fmaxf(common4, p[5] * p[5]) + eps_floor;
-  const float epsm = eps_scale * fmaxf(common4, p[0] * p[0]) + eps_floor;
-  Weights wp, wm;
-  weights_fwd(epsp, is_term(sq_ab_p, ab_p - 2.0f * bp),
-              is_term(sq_bc_p, bp + cp), is_term(sq_bc_m, 3.0f * cp - bm), wp);
-  weights_fwd(epsm, is_term(sq_ab_m, ab_m - 2.0f * bm),
-              is_term(sq_bc_m, bm + cp), is_term(sq_bc_p, 3.0f * cp - bp), wm);
-  const float third = 1.0f / 3.0f, sixth = 1.0f / 6.0f;
-  const float pwp = (wp.w0 * (ab_p - bc_p)) * third
-                    + ((wp.w2 - 0.5f) * (bc_p + bc_m)) * sixth;
-  const float pwm = (wm.w0 * (ab_m - bc_m)) * third
-                    + ((wm.w2 - 0.5f) * (bc_m + bc_p)) * sixth;
-  const float common = (7.0f * (p[2] + p[3]) - (p[1] + p[4])) * (1.0f / 12.0f);
-  dm = common - pwm;
-  dp = common + pwp;
-}
-
-// Adjoint of weno5_pair: cot_p[0..5] from (cot_dm, cot_dp); returns the
-// cotangent of the scaled epsilon floor.
-__device__ float weno5_pair_bwd(const float* p, float eps_scale,
-                                float eps_floor, bool p5_zero, float cot_wm,
-                                float cot_wp, float* cps) {
-  const float ap = p[5] - p[4], am = p[1] - p[0];
-  const float bp = p[4] - p[3], bm = p[2] - p[1];
-  const float cp = p[3] - p[2];
-  const float ab_p = ap - bp, ab_m = am - bm;
-  const float bc_p = bp - cp, bc_m = bm - cp;
+// Adjoint of lsf::weno5: cot_p[0..5] from (cot_dm, cot_dp); returns the
+// cotangent of the scaled epsilon floor.  It recomputes the forward's
+// residuals from p: holding them live across the Godunov routing instead
+// costs spills and ~5% of the kernel's time on the H100.
+__device__ float weno5_bwd(const float* p, float eps_scale, float eps_floor,
+                           bool p5_zero, float cot_wm, float cot_wp,
+                           float* cps) {
+  lsf::Weno5 w;
+  lsf::weno5(p, eps_scale, eps_floor, p5_zero, w);
+  const float ab_p = w.ab_p, ab_m = w.ab_m, bc_p = w.bc_p, bc_m = w.bc_m;
+  const float bp = w.bp, bm = w.bm, cp = w.cp;
   const float e0p = ab_p - 2.0f * bp, e0m = ab_m - 2.0f * bm;
   const float e1p = bp + cp, e1m = bm + cp;
   const float e2p = 3.0f * cp - bm, e2m = 3.0f * cp - bp;
-  const float p0s = p[0] * p[0], p1s = p[1] * p[1], p2s = p[2] * p[2];
-  const float p3s = p[3] * p[3], p4s = p[4] * p[4], p5s = p[5] * p[5];
-  const float c12 = fmaxf(p1s, p2s), c34 = fmaxf(p3s, p4s);
-  const float common4 = fmaxf(c12, c34);
-  const float epsp = p5_zero ? eps_scale * common4 + eps_floor
-                             : eps_scale * fmaxf(common4, p5s) + eps_floor;
-  const float epsm = eps_scale * fmaxf(common4, p0s) + eps_floor;
-  Weights wp, wm;
-  weights_fwd(epsp, is_term(ab_p * ab_p, e0p), is_term(bc_p * bc_p, e1p),
-              is_term(bc_m * bc_m, e2p), wp);
-  weights_fwd(epsm, is_term(ab_m * ab_m, e0m), is_term(bc_m * bc_m, e1m),
-              is_term(bc_p * bc_p, e2m), wm);
+  const lsf::Weights& wp = w.wp;
+  const lsf::Weights& wm = w.wm;
   const float a_p = ab_p - bc_p, a_m = ab_m - bc_m, b = bc_p + bc_m;
 
   const float third = 1.0f / 3.0f, sixth = 1.0f / 6.0f;
@@ -178,6 +108,7 @@ __device__ float weno5_pair_bwd(const float* p, float eps_scale,
   // epsilon max-chain routing (common4 collects both branches)
   const float cot_mp = eps_scale * cot_epsp;
   const float cot_mm = eps_scale * cot_epsm;
+  const float common4 = w.common4, p0s = w.p0s, p5s = w.p5s;
   const bool mm_c4 = common4 >= p0s;
   float cot_c4 = mm_c4 ? cot_mm : 0.0f;
   const float cot_p0s = mm_c4 ? 0.0f : cot_mm;
@@ -189,10 +120,10 @@ __device__ float weno5_pair_bwd(const float* p, float eps_scale,
     cot_c4 = cot_c4 + (mp_c4 ? cot_mp : 0.0f);
     cot_p5s = mp_c4 ? 0.0f : cot_mp;
   }
-  const bool c12_wins = c12 >= c34;
+  const bool c12_wins = w.c12 >= w.c34;
   const float cot_c12 = c12_wins ? cot_c4 : 0.0f;
   const float cot_c34 = c12_wins ? 0.0f : cot_c4;
-  const bool p1_wins = p1s >= p2s, p3_wins = p3s >= p4s;
+  const bool p1_wins = w.p1s >= w.p2s, p3_wins = w.p3s >= w.p4s;
   const float cot_p1s = p1_wins ? cot_c12 : 0.0f;
   const float cot_p2s = p1_wins ? 0.0f : cot_c12;
   const float cot_p3s = p3_wins ? cot_c34 : 0.0f;
@@ -216,13 +147,12 @@ __device__ float weno5_pair_bwd(const float* p, float eps_scale,
   return cot_epsp + cot_epsm;
 }
 
-// Godunov selection of one axis: the selected derivative (>= 0), and the
-// cotangents of (d_m, d_p) for the cotangent cot_gsq of its square.
-__device__ __forceinline__ float godunov(float dm, float dp, bool pos,
-                                         float cot_gsq, float& cot_dm,
-                                         float& cot_dp) {
-  const float g = pos ? fmaxf(fmaxf(dm, -dp), 0.0f)
-                      : fmaxf(fmaxf(dp, -dm), 0.0f);
+// Adjoint of the Godunov selection: the cotangents of (d_m, d_p) for the
+// cotangent cot_gsq of the selected derivative's square.
+__device__ __forceinline__ void godunov_bwd(float dm, float dp, bool pos,
+                                            float cot_gsq, float& cot_dm,
+                                            float& cot_dp) {
+  const float g = lsf::godunov(dm, dp, pos);
   const float cot_g = g > 0.0f ? (2.0f * g) * cot_gsq : 0.0f;
   const bool m_over_p = dm >= -dp, p_over_m = dp >= -dm;
   if (pos) {
@@ -232,7 +162,6 @@ __device__ __forceinline__ float godunov(float dm, float dp, bool pos,
     cot_dm = p_over_m ? 0.0f : -cot_g;
     cot_dp = p_over_m ? cot_g : 0.0f;
   }
-  return g;
 }
 
 // The six raw one-sided differences of one axis at cell s (stride st);
@@ -258,15 +187,12 @@ __device__ __forceinline__ float axis_g(const float* __restrict__ phi,
                                         long long s, long long st, float c,
                                         bool deep, bool pos,
                                         const BwdParams& q, bool p5_zero) {
-  float p[6], dm, dp, unused0, unused1;
+  float p[6];
   axis_diffs(phi, s, st, c, deep, p);
-  if (deep) {
-    weno5_pair(p, q.eps_scale, q.eps_floor, p5_zero, dm, dp);
-  } else {
-    dm = p[2];
-    dp = p[3];
-  }
-  return godunov(dm, dp, pos, 0.0f, unused0, unused1);
+  if (!deep) return lsf::godunov(p[2], p[3], pos);
+  lsf::Weno5 w;
+  lsf::weno5(p, q.eps_scale, q.eps_floor, p5_zero, w);
+  return lsf::godunov(w.dm, w.dp, pos);
 }
 
 // One axis's adjoint at an interior cell: the seven stencil cotangents
@@ -275,17 +201,18 @@ __device__ float axis_bwd(const float* __restrict__ phi, long long s,
                           long long st, float c, bool deep, bool pos,
                           float cot_gsq, const BwdParams& q, bool p5_zero,
                           float* qs) {
-  float p[6], dm, dp, cot_dm, cot_dp;
+  float p[6], cot_dm, cot_dp;
   axis_diffs(phi, s, st, c, deep, p);
   float cps[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float cot_ef = 0.0f;
   if (deep) {
-    weno5_pair(p, q.eps_scale, q.eps_floor, p5_zero, dm, dp);
-    godunov(dm, dp, pos, cot_gsq, cot_dm, cot_dp);
-    cot_ef = weno5_pair_bwd(p, q.eps_scale, q.eps_floor, p5_zero, cot_dm,
-                            cot_dp, cps);
+    lsf::Weno5 w;
+    lsf::weno5(p, q.eps_scale, q.eps_floor, p5_zero, w);
+    godunov_bwd(w.dm, w.dp, pos, cot_gsq, cot_dm, cot_dp);
+    cot_ef = weno5_bwd(p, q.eps_scale, q.eps_floor, p5_zero, cot_dm,
+                       cot_dp, cps);
   } else {
-    godunov(p[2], p[3], pos, cot_gsq, cot_dm, cot_dp);
+    godunov_bwd(p[2], p[3], pos, cot_gsq, cot_dm, cot_dp);
     cps[2] = cot_dm;
     cps[3] = cot_dp;
   }

@@ -2,7 +2,8 @@
 //
 // Replaces levelsetfortran_tpu/ops/weno_pallas.py:_pallas_step_padded (body:
 // _make_kernel, _tile_step_values, _tile_axis_gsq, _weno5_pair,
-// _godunov_axis, _tile_tail).  Same math, cell for cell:
+// _godunov_axis, _tile_tail).  Same math, cell for cell (the per-axis WENO5
+// and Godunov selection live in weno5.cuh, shared with the adjoint K5):
 //   * HJ-WENO5 one-sided derivatives per axis from RAW neighbour
 //     differences (no 1/dx), the epsilon floor carrying the dx^2 scale and
 //     the weight-ratio floor 1e-7; first-order one-sided differences
@@ -37,6 +38,7 @@
 // faces).  `partials` (optional) receives each brick's sum of squared
 // changes for the deterministic second pass.
 #include "common.cuh"
+#include "weno5.cuh"
 
 namespace {
 
@@ -48,81 +50,6 @@ struct StepParams {
   float dx, h, dx2, inv_dx2, eps_scale, eps_floor;   // eps_floor: dx^2-scaled
   int p5_zero_y;
 };
-
-__device__ __forceinline__ float is_term(float sq_diff, float c) {
-  return 13.0f * sq_diff + 3.0f * (c * c);
-}
-
-// (w0, w2) over the common denominator (d0 d1 d2)^2, ratios floored at 1e-7.
-__device__ __forceinline__ void weights(float eps, float is0, float is1,
-                                        float is2, float& w0, float& w2) {
-  float d0 = eps + is0;
-  float d1 = eps + is1;
-  float d2 = eps + is2;
-  const float inv_max = 1.0f / fmaxf(d0, fmaxf(d1, d2));
-  d0 = fmaxf(d0 * inv_max, 1e-7f);
-  d1 = fmaxf(d1 * inv_max, 1e-7f);
-  d2 = fmaxf(d2 * inv_max, 1e-7f);
-  const float q0 = d1 * d2;
-  const float q1 = d0 * d2;
-  const float q2 = d0 * d1;
-  const float t0 = q0 * q0;
-  const float t1 = 6.0f * (q1 * q1);
-  const float t2 = 3.0f * (q2 * q2);
-  const float r = 1.0f / ((t0 + t1) + t2);
-  w0 = t0 * r;
-  w2 = t2 * r;
-}
-
-// WENO5 (d_minus, d_plus) from the six one-sided raw differences.
-__device__ __forceinline__ void weno5_pair(float p0, float p1, float p2,
-                                           float p3, float p4, float p5,
-                                           float eps_scale, float eps_floor,
-                                           bool p5_zero, float& dm,
-                                           float& dp) {
-  const float ap = p5 - p4;
-  const float am = p1 - p0;
-  const float bp = p4 - p3;
-  const float bm = p2 - p1;
-  const float cp = p3 - p2;
-  const float ab_p = ap - bp;
-  const float ab_m = am - bm;
-  const float bc_p = bp - cp;
-  const float bc_m = bm - cp;
-  const float sq_ab_p = ab_p * ab_p;
-  const float sq_ab_m = ab_m * ab_m;
-  const float sq_bc_p = bc_p * bc_p;
-  const float sq_bc_m = bc_m * bc_m;
-  const float is0p = is_term(sq_ab_p, ab_p - 2.0f * bp);
-  const float is0m = is_term(sq_ab_m, ab_m - 2.0f * bm);
-  const float is1p = is_term(sq_bc_p, bp + cp);
-  const float is1m = is_term(sq_bc_m, bm + cp);
-  const float is2p = is_term(sq_bc_m, 3.0f * cp - bm);
-  const float is2m = is_term(sq_bc_p, 3.0f * cp - bp);
-  const float common4 = fmaxf(fmaxf(p1 * p1, p2 * p2), fmaxf(p3 * p3, p4 * p4));
-  const float epsp = p5_zero ? eps_scale * common4 + eps_floor
-                             : eps_scale * fmaxf(common4, p5 * p5) + eps_floor;
-  const float epsm = eps_scale * fmaxf(common4, p0 * p0) + eps_floor;
-  float w0p, w2p, w0m, w2m;
-  weights(epsp, is0p, is1p, is2p, w0p, w2p);
-  weights(epsm, is0m, is1m, is2m, w0m, w2m);
-  const float third = 1.0f / 3.0f;
-  const float sixth = 1.0f / 6.0f;
-  const float pwp = (w0p * (ab_p - bc_p)) * third
-                    + ((w2p - 0.5f) * (bc_p + bc_m)) * sixth;
-  const float pwm = (w0m * (ab_m - bc_m)) * third
-                    + ((w2m - 0.5f) * (bc_m + bc_p)) * sixth;
-  const float common = (7.0f * (p2 + p3) - (p1 + p4)) * (1.0f / 12.0f);
-  dm = common - pwm;
-  dp = common + pwp;
-}
-
-// Squared Godunov-selected derivative: max(m, -p, 0)^2 or max(p, -m, 0)^2.
-__device__ __forceinline__ float godunov_sq(float dm, float dp, bool pos) {
-  const float g = pos ? fmaxf(fmaxf(dm, -dp), 0.0f)
-                      : fmaxf(fmaxf(dp, -dm), 0.0f);
-  return g * g;
-}
 
 // One axis's squared derivative at interior cell s (stride st along it).
 __device__ __forceinline__ float axis_gsq(const float* __restrict__ phi,
@@ -137,13 +64,18 @@ __device__ __forceinline__ float axis_gsq(const float* __restrict__ phi,
     const float vp1 = __ldg(phi + s + st);
     const float vp2 = __ldg(phi + s + 2 * st);
     const float vp3 = __ldg(phi + s + 3 * st);
-    weno5_pair(vm2 - vm3, vm1 - vm2, c - vm1, vp1 - c, vp2 - vp1, vp3 - vp2,
-               p.eps_scale, p.eps_floor, p5_zero, dm, dp);
+    const float d[6] = {vm2 - vm3, vm1 - vm2, c - vm1,
+                        vp1 - c, vp2 - vp1, vp3 - vp2};
+    lsf::Weno5 w;
+    lsf::weno5(d, p.eps_scale, p.eps_floor, p5_zero, w);
+    dm = w.dm;
+    dp = w.dp;
   } else {
     dm = c - __ldg(phi + s - st);
     dp = __ldg(phi + s + st) - c;
   }
-  return godunov_sq(dm, dp, pos);
+  const float g = lsf::godunov(dm, dp, pos);
+  return g * g;
 }
 
 // The Euler-updated value of interior cell (i, j, k).

@@ -21,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -85,35 +87,23 @@ def build() -> Path:
     so = BUILD_DIR / f"liblsf_kernels-{tag}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc, pid = _nvcc(), os.getpid()
-        objs = [BUILD_DIR / f"{s.stem}-{tag}-{pid}.o" for s in srcs]
-        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                for s, o in zip(srcs, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for cmd in jobs]
-        tmp = so.with_suffix(f".tmp{pid}")
-        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
-        try:
-            for cmd, proc in zip(jobs, procs):
-                _, err = proc.communicate()
-                _check(cmd, proc.returncode, err)
-            proc = subprocess.run(link, capture_output=True, text=True)
-            _check(link, proc.returncode, proc.stderr)
-            os.replace(tmp, so)      # atomic under concurrent builds
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
-            for f in (*objs, tmp):
-                f.unlink(missing_ok=True)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+            with ThreadPoolExecutor(len(srcs)) as pool:
+                list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                      str(s)] for s, o in zip(srcs, objs)]))
+            lib = Path(tmp) / so.name
+            _run([nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)])
+            os.replace(lib, so)      # atomic under concurrent builds
     return so
 
 
-def _check(cmd, returncode, stderr):
-    if returncode != 0:
-        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}"
-                           f"\n{stderr}")
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
 
 
 @functools.lru_cache(maxsize=None)
