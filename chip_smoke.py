@@ -13,7 +13,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      with a real mask; K4 also against 4 launches of K3, bitwise; the
      adjoint kernels K5 (with a sign source unlike phi) and K6 (on a field
      after a K1 step) against their plain versions and against a second
-     launch, bitwise; median times from CUDA events;
+     launch, bitwise; median times from CUDA events; the pack modes of K1
+     and K3 at (8, 64^3) and at run E's (8, 129^3), one geometry frozen,
+     against a second launch, each geometry's solo launch and their plain
+     versions, bitwise, and one packed launch timed against 8 solo ones,
+     all 8 live;
   3. runs A (twoCube10 twin, dx 0.05, 262x42x42), B (icosphere with 20,480
      triangles, dx 0.01, 222^3) and C (A with --narrow-band off), each
      through ``python -m levelsetfortran_tpu_torch`` and in-process
@@ -28,7 +32,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      (its times and backward peaks, and the same gradient); K5 and K6 at
      256^3 on run D's own inputs against their plain versions; then the
      24^3 octahedron on the card against the CPU plain path, and its
-     finite-difference gate.
+     finite-difference gate;
+  5. run E, the batched serving path (``run_batch``): four icospheres and
+     four boxes on a common 129^3 grid, through the CLI with eight inputs
+     and in-process with the launch counters read around it; each output
+     checked against its analytic SDF; the packed solver stages held
+     against the solo dense solvers on the same init, bitwise.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per run.
 """
@@ -54,6 +63,32 @@ MAIN_SHAPE = SHAPES[1]
 #: sum shows at ~1e-6; K6 evaluates the same expressions in the same order.
 #: Scalars: float64 sums of the same per-cell terms, other order.
 ADJ_TOL = {"K5": 1e-5, "K6": 1e-6, "scalars": 1e-5}
+#: Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+#: float32 operations/s outside the tensor cores (an FMA counted as two).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: Float operations a kernel's function needs, counted by hand from csrc/
+#: (an add, multiply, compare-select, division or square root is one):
+#: per cell, K1's step (145 per axis for WENO5 and the Godunov square, 14
+#: for the tail) and the fused sum (3); per in-band interior cell, one
+#: min/max update (14) and its adjoint's own terms (19), and per cell K6's
+#: 6-neighbour gather (16); per cell K5's forward and adjoint (~1600).
+OPS = {"reinit": 452, "rms": 3, "minmax_band": 14, "reinit_vjp": 1600,
+       "minmax_vjp_band": 19, "minmax_vjp": 16}
+#: Run E, the batched serving path: four icospheres (5,120 triangles) and
+#: four boxes at dx 0.015 with the default config (pad 10): a common grid
+#: of 129^3 per geometry.  The boxes have 4 quads per edge (192
+#: triangles): with 12 long triangles the exact-distance init takes the
+#: wrong sign at a few points beside an edge (ROADMAP H11).  Depth cut:
+#: 250 advection iterations instead of 1000 (the nodes have settled by 200;
+#: the advection is launch-bound, 15 s of the in-process run at 1000).
+RUN_E_ADVECT_ITERS = 250
+RUN_E_DX = 0.015
+RUN_E_SPHERES = (0.5, 0.6, 0.7, 0.8)
+RUN_E_BOXES = ((0.8, 0.8, 0.8), (0.8, 0.5, 0.3), (0.4, 0.8, 0.6),
+               (0.6, 0.6, 0.8))
+#: The pack kernels' checks: B geometries, geometry FROZEN not stepping.
+PACK_B, FROZEN = 8, 3
 
 
 def phase(name, msg):
@@ -91,6 +126,23 @@ def median_ms(fn, reps):
 
 def err(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+def bound(nbytes, ops):
+    """The least time the card could take for the work: its bytes (each
+    input read once, each output written once) over the memory rate or its
+    float operations over the float32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def band_cells(phi, dx, radius=4.1):
+    """Interior cells whose own value is in the min/max band: the cells a
+    min/max step (or its adjoint) updates, over the last three axes."""
+    band = (phi.abs() < float(np.float32(radius) * np.float32(dx)))
+    return int(band[..., 1:-1, 1:-1, 1:-1].sum())
 
 
 def kernel_phase(record):
@@ -133,6 +185,7 @@ def kernel_phase(record):
                 phi, phi, dx, h, with_rms=True), 5)
             rec["banded_ms"] = median_ms(lambda: wc.reinit_step(
                 phi, phi, dx, h, active=act_r, with_rms=True), 20)
+            rec.update(bound(12 * phi.numel(), OPS["reinit"] * phi.numel()))
         phase("kernels", f"K1 {shape}: max_abs_err {e1:.3g} (tol 1e-6), "
               f"dsq rel {rel:.3g} (tol 1e-5), active bricks "
               f"{int(act_r.sum())}/{act_r.numel()}")
@@ -156,6 +209,9 @@ def kernel_phase(record):
                 phi, dx, h1, with_rms=True), 10)
             rec["banded_ms"] = median_ms(lambda: mc.minmax_step(
                 phi, dx, h1, active=act_m, with_rms=True), 20)
+            rec.update(bound(8 * phi.numel(),
+                             OPS["minmax_band"] * band_cells(phi, dx)
+                             + OPS["rms"] * phi.numel()))
         phase("kernels", f"K3 {shape}: max_abs_err {e3:.3g} (tol 1e-7), "
               f"dsq rel {rel3:.3g}, active bricks "
               f"{int(act_m.sum())}/{act_m.numel()}")
@@ -185,6 +241,9 @@ def kernel_phase(record):
                 phi, dx, h1, ksteps=4, with_rms=True), 10)
             rec["banded_ms"] = median_ms(lambda: mc.minmax_fusedk(
                 phi, dx, h1, ksteps=4, active=act_m, with_rms=True), 20)
+            rec.update(bound(8 * phi.numel(),
+                             4 * OPS["minmax_band"] * band_cells(phi, dx)
+                             + OPS["rms"] * phi.numel()))
         phase("kernels", f"K4 {shape}: bitwise equal to 4 K3 launches, "
               f"max_abs_err vs plain {e4:.3g} (tol 1e-7)")
         del k, p, kb, pb, kc
@@ -195,11 +254,14 @@ def kernel_phase(record):
                        wc.reinit_step(phi, phi, dx, h), dx, h, h1, main)
         del phi
         torch.cuda.empty_cache()
-    for name, rec in record.items():
+    for name in ("reinit_step", "minmax_step", "minmax_fusedk",
+                 "reinit_step_vjp", "minmax_step_vjp"):
+        rec = record[name]
         banded = (f" (banded {rec['banded_ms']:.4f} ms)"
                   if "banded_ms" in rec else "")
         phase("kernels", f"{name} at {MAIN_SHAPE}: kernel {rec['ms']:.4f} ms"
-              f"{banded}, plain {rec['plain_ms']:.4f} ms")
+              f"{banded}, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
@@ -212,14 +274,18 @@ def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
 
     g = torch.tensor(np.random.default_rng(7).standard_normal(phi.shape),
                      dtype=torch.float32, device="cuda")
+    cells = phi.numel()
     cases = (
         ("reinit_step_vjp", "K5", ADJ_TOL["K5"],
          lambda: wc.reinit_step_vjp(phi, sgn, g, dx, h),
-         lambda: wc.reinit_step_vjp_plain(phi, sgn, g, dx, h), 3),
+         lambda: wc.reinit_step_vjp_plain(phi, sgn, g, dx, h), 3,
+         bound(20 * cells, OPS["reinit_vjp"] * cells)),
         ("minmax_step_vjp", "K6", ADJ_TOL["K6"],
          lambda: mc.minmax_step_vjp(mm_phi, g, dx, h1),
-         lambda: mc.minmax_step_vjp_plain(mm_phi, g, dx, h1), 10))
-    for name, kid, tol, kern, plain, reps in cases:
+         lambda: mc.minmax_step_vjp_plain(mm_phi, g, dx, h1), 10,
+         bound(12 * cells, OPS["minmax_vjp_band"] * band_cells(mm_phi, dx)
+               + OPS["minmax_vjp"] * cells)))
+    for name, kid, tol, kern, plain, reps, bnd in cases:
         k, k2, p = kern(), kern(), plain()
         check(all(torch.equal(a, b) for a, b in zip(k, k2)),
               f"{kid} {phi.shape}: two launches differ")
@@ -236,6 +302,7 @@ def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
         if main:
             rec["ms"] = median_ms(kern, 20)
             rec["plain_ms"] = median_ms(plain, reps)
+            rec.update(bnd)
         phase("kernels", f"{kid} {tuple(phi.shape)}{label}: field "
               f"cotangents rel "
               f"err {', '.join(f'{r:.3g}' for r in rels)} (tol {tol:g} of "
@@ -524,6 +591,312 @@ def small_holds(device="cuda"):
           f"{fd:.3g}, gate 0.15)")
 
 
+def packed_inputs(shape, dx):
+    """B spheres of growing radius on (nx, ny, nz): phi (the SDF doubled,
+    so a reinit step has work), a sign source 10% larger (it differs from
+    phi in sign and value), and per-geometry h and h1 rounded once in
+    float32; every geometry but FROZEN live."""
+    import torch
+    radii = [0.25 * (min(shape) - 1) * dx * (1.0 + 0.1 * b)
+             for b in range(PACK_B)]
+    phi = torch.stack([2.0 * sphere(shape, dx, r) for r in radii])
+    sgn = torch.stack([sphere(shape, dx, 1.1 * r) for r in radii])
+    h = np.float32(0.1 * dx) / (1.0 + 0.25 * np.arange(PACK_B,
+                                                      dtype=np.float32))
+    live = torch.ones(PACK_B, dtype=torch.int32, device="cuda")
+    live[FROZEN] = 0
+    return phi, sgn, h, np.float32(0.01) * h, live
+
+
+def packed_holds(name, kern, plain, solo, phi, live):
+    """One pack kernel against a second launch (bitwise), each live
+    geometry's solo launch (bitwise, fields and sums), the frozen geometry
+    (a copy, sum 0) and its plain version (max_abs_err, sums rel)."""
+    import torch
+    (k, kd), (k2, kd2) = kern(live), kern(live)
+    check(torch.equal(k, k2) and torch.equal(kd, kd2),
+          f"{name} {tuple(phi.shape)}: two launches differ")
+    for b in range(phi.shape[0]):
+        if b == FROZEN:
+            check(torch.equal(k[b], phi[b]) and float(kd[b]) == 0.0,
+                  f"{name}: frozen geometry {b} changed")
+            continue
+        s, sd = solo(b)
+        check(torch.equal(k[b], s) and float(kd[b]) == float(sd),
+              f"{name} {tuple(phi.shape)}: geometry {b} differs from its "
+              f"solo launch ({err(k[b], s):.3g}, dsq {float(kd[b])!r} vs "
+              f"{float(sd)!r})")
+    p, pd = plain(live)
+    e = err(k, p)
+    rel = float(((kd - pd).abs() / pd.clamp_min(1e-30)).max())
+    check(e == 0.0 and rel <= 1e-5,
+          f"{name} {tuple(phi.shape)}: max_abs_err {e:.3g} vs plain, dsq "
+          f"rel {rel:.3g}")
+    return k, e, rel
+
+
+def packed_phase(record, run_e_shape):
+    """Phase 2b: the pack modes of K1 and K3 at (B, 64^3) and at run E's
+    own shape, each against a second launch, B solo launches and its plain
+    version; one packed launch timed against B solo launches."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+
+    for shape, dx in (((64, 64, 64), 0.03), (run_e_shape, RUN_E_DX)):
+        main = shape == run_e_shape
+        phi, sgn, h, h1, live = packed_inputs(shape, dx)
+        all_live = torch.ones_like(live)
+        hv = torch.tensor(h, device="cuda")
+        h1v = torch.tensor(h1, device="cuda")
+        cells = phi[0].numel()
+
+        def k1(lv):
+            return wc.reinit_step_packed(phi, sgn, dx, hv, lv, with_rms=True)
+
+        def k1_solo(b):
+            return wc.reinit_step(phi[b], sgn[b], dx, float(h[b]),
+                                  with_rms=True)
+
+        mm_phi, e1, rel1 = packed_holds(
+            "K1 pack", k1, lambda lv: wc.reinit_step_packed_plain(
+                phi, sgn, dx, h, lv, with_rms=True), k1_solo, phi, live)
+
+        def k3(lv):
+            return mc.minmax_step_packed(mm_phi, dx, h1v, lv, with_rms=True)
+
+        def k3_solo(b):
+            return mc.minmax_step(mm_phi[b], dx, float(h1[b]), with_rms=True)
+
+        _, e3, rel3 = packed_holds(
+            "K3 pack", k3, lambda lv: mc.minmax_step_packed_plain(
+                mm_phi, dx, h1, lv, with_rms=True), k3_solo, mm_phi, live)
+
+        # timed with every geometry live, as in run E's first steps: the
+        # packed launch, the B solo launches, the plain version and the
+        # bound all do the same work
+        for rname, kern, solo, plain, e, rel, nbytes, ops in (
+                ("reinit_step_packed", k1, k1_solo,
+                 lambda: wc.reinit_step_packed_plain(phi, sgn, dx, h,
+                                                     all_live, with_rms=True),
+                 e1, rel1, 12 * PACK_B * cells,
+                 OPS["reinit"] * PACK_B * cells),
+                ("minmax_step_packed", k3, k3_solo,
+                 lambda: mc.minmax_step_packed_plain(mm_phi, dx, h1, all_live,
+                                                     with_rms=True),
+                 e3, rel3, 8 * PACK_B * cells,
+                 OPS["minmax_band"] * sum(band_cells(mm_phi[b], dx)
+                                          for b in range(PACK_B))
+                 + OPS["rms"] * PACK_B * cells)):
+            rec = record[rname]
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            t_pack = median_ms(lambda: kern(all_live), 20)
+            t_solo = median_ms(lambda: [solo(b) for b in range(PACK_B)], 20)
+            if main:
+                rec.update(ms=t_pack, solo_ms=t_solo,
+                           plain_ms=median_ms(plain, 3), **bound(nbytes, ops))
+            phase("kernels", f"{rname} {(PACK_B, *shape)}, geometry "
+                  f"{FROZEN} frozen: every live geometry bitwise equal to "
+                  f"its solo launch (field and dsq), the frozen one "
+                  f"unchanged with dsq 0, two launches bitwise equal, "
+                  f"max_abs_err vs plain {e:.3g} (tol 0), dsq rel {rel:.3g} "
+                  f"(tol 1e-5); all {PACK_B} live: one packed launch "
+                  f"{t_pack:.4f} ms vs {PACK_B} solo launches {t_solo:.4f} ms")
+        del phi, sgn, mm_phi
+        torch.cuda.empty_cache()
+    for rname in ("reinit_step_packed", "minmax_step_packed"):
+        rec = record[rname]
+        phase("kernels", f"{rname} at {(PACK_B, *run_e_shape)}, all live: "
+              f"kernel "
+              f"{rec['ms']:.4f} ms, {PACK_B} solo launches "
+              f"{rec['solo_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def box_caps(v, half_extent):
+    edge = np.isclose(np.abs(v), np.float32(half_extent)).sum(1) >= 2
+    return np.where(edge, 2.0, 1.5) * RUN_E_DX
+
+
+def run_e_meshes():
+    """Run E's meshes, their analytic SDFs, names, and for each the cap on
+    its nodes' advected |sdf| as a function of the nodes: 1.5 dx (runs
+    A/B), 2 dx on a box's edges and corners, which min/max flow rounds.
+    The JAX package's own run_batch rounds them as far on a CPU at this
+    dx: box (0.8, 0.5, 0.3) edges 1.68 dx and corners 1.72 dx, face nodes
+    0.02 dx (tests/test_torch_box_edges.py run as a script)."""
+    from levelsetfortran_tpu_torch.models import analytic
+    meshes, truths, names, caps = [], [], [], []
+    for r in RUN_E_SPHERES:
+        meshes.append(analytic.icosphere_mesh(radius=r, subdivisions=4))
+        truths.append(partial(analytic.sdf_sphere, center=(0.0, 0.0, 0.0),
+                              radius=r))
+        names.append(f"ball{round(100 * r)}")
+        caps.append(lambda v: np.full(len(v), 1.5 * RUN_E_DX))
+    for e in RUN_E_BOXES:
+        meshes.append(analytic.box_mesh(half_extent=e, subdivisions=4))
+        truths.append(partial(analytic.sdf_box, center=(0.0, 0.0, 0.0),
+                              half_extent=e))
+        names.append("box" + "".join(str(round(10 * v)) for v in e))
+        caps.append(partial(box_caps, half_extent=e))
+    return meshes, truths, names, caps
+
+
+def run_e_phase(card, tmp):
+    """Phase 5: the batched serving path at full size.  Eight meshes
+    through the CLI with eight inputs and in process through run_batch
+    (its launch counters read around it), each geometry held to the run
+    A/B gates; then the packed solver stages held against the solo dense
+    solvers on the same init and h, bitwise."""
+    import logging
+
+    import torch
+    from levelsetfortran_tpu_torch import write_stl
+    from levelsetfortran_tpu_torch.io.vti import read_vti
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.pipeline import batch
+    from levelsetfortran_tpu_torch.pipeline.cli import (build_parser,
+                                                        config_from_args)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+    from levelsetfortran_tpu_torch.utils.logging import StageTimer, logger
+
+    meshes, truths, names, caps = run_e_meshes()
+    paths = [os.path.join(tmp, f"{n}.stl") for n in names]
+    for path, mesh in zip(paths, meshes):
+        write_stl(path, mesh)
+    cli_dir = os.path.join(tmp, "E_cli")
+    args = [*paths, "--dx", str(RUN_E_DX), "--advect-iters",
+            str(RUN_E_ADVECT_ITERS), "--out-dir", cli_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "levelsetfortran_tpu_torch", *args],
+        cwd=HERE, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"run E CLI failed:\n{proc.stdout}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check([ln.split("]")[0][1:] for ln in lines] == names,
+          f"run E CLI printed {lines}")
+    check('"strategy": "packed"' in proc.stderr, "run E CLI: not packed")
+
+    cfg = config_from_args(build_parser().parse_args(args))
+    inits, logged = [], []
+    real_init = batch.signed_distance_init
+
+    def keep(*a, **k):
+        inits.append(real_init(*a, **k))
+        return inits[-1]
+
+    class Keep(logging.Handler):
+        def emit(self, rec):
+            logged.append(json.loads(rec.getMessage()))
+
+    handler = Keep()
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    batch.signed_distance_init = keep
+    counters = (wc.reinit_step_packed, mc.minmax_step_packed, wc.reinit_step,
+                mc.minmax_step, mc.minmax_fusedk)
+    for c in counters:
+        c.launches = 0
+    timer = StageTimer()
+    try:
+        items = batch.run_batch(paths, cfg, timer=timer)
+    finally:
+        batch.signed_distance_init = real_init
+        logger.removeHandler(handler)
+    launches = {c.__name__: c.launches for c in counters}
+    strategy = [r["strategy"] for r in logged
+                if r["stage"] == "batch_strategy"]
+    check(strategy == ["packed"], f"run E: strategy {strategy}")
+    check(launches["reinit_step_packed"] > 0
+          and launches["minmax_step_packed"] > 0,
+          f"run E: pack kernels not launched {launches}")
+    check(all(launches[n] == 0 for n in ("reinit_step", "minmax_step",
+                                         "minmax_fusedk")),
+          f"run E: solo kernels launched in the batched stages {launches}")
+
+    shape = items[0].grid.shape
+    dx = cfg.dx
+    for it, truth, name, cap_of in zip(items, truths, names, caps):
+        pts = it.grid.coords(dtype=torch.float64).numpy()
+        tv = truth(pts)
+        near = np.abs(tv) < 0.2
+        e_sdf = np.abs(it.phi_init - tv)[near]
+        e_smooth = np.abs(it.phi_smoothed - tv)[near]
+        adv = np.abs(truth(it.advected))
+        cap = cap_of(it.mesh.vertices)
+        cli_phi, _ = read_vti(os.path.join(cli_dir, name,
+                                           "signedDistanceFunction.vti"))
+        check(np.array_equal(cli_phi, it.phi_init),
+              f"run E {name}: CLI and run_batch fields differ")
+        check(os.path.exists(os.path.join(cli_dir, name, f"{name}.s3d")),
+              f"run E {name}: CLI wrote no .s3d")
+        finite = all(np.isfinite(f).all() for f in
+                     (it.phi_init, it.phi_smoothed, it.advected))
+        phase("run E", f"{name}: reinit_iters {it.reinit_iters}, "
+              f"minmax_iters {it.minmax_iters}, asymptotic_error "
+              f"{it.asymptotic_error:.4g}, sdf near-surface max err "
+              f"{e_sdf.max():.4g}, smoothed median err "
+              f"{np.median(e_smooth):.4g}, advected max |sdf| "
+              f"{adv.max():.4g} = {adv.max() / dx:.3g} dx (cap "
+              f"{cap.min() / dx:g}-{cap.max() / dx:g} dx)")
+        check(e_sdf.max() < 5e-3, f"run E {name}: sdf error {e_sdf.max()}")
+        check(np.median(e_smooth) < 6e-3,
+              f"run E {name}: smoothed median error")
+        check((adv <= cap).all(), f"run E {name}: advected {adv.max()}")
+        check(it.reinit_iters < cfg.reinit_iters, f"run E {name}: cap")
+        check(finite, f"run E {name}: non-finite output")
+    marks = timer.marks
+    stages = {"init": marks["search"],
+              "reinit": marks["initialization"] - marks["search"],
+              "minmax": marks["minmax"] - marks["initialization"],
+              "advect": marks["advect"] - marks["minmax"],
+              "outputs": marks["total"] - marks["advect"]}
+    phase("run E", f"{len(items)} geometries on {shape} (dx {dx}, "
+          f"{len(items) * int(np.prod(shape))} cells stacked, "
+          f"{cfg.advect_iters} advection iterations), strategy packed, "
+          f"launches {launches}; run_batch wall {marks['total']:.3f}"
+          f" s: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; CLI {cli_s:.1f} s; card {card}")
+
+    # the packed solver stages against the solo dense solvers, same init
+    phi0 = torch.stack(inits)
+    h_r, h_m = batch.step_sizes(meshes, cfg)
+    rkw = dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,
+               quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero)
+    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
+    rp, t_rp = sync_time(lambda: batch.reinit_batched_packed(
+        phi0, dx, h_r, cfg.reinit_iters, cfg.reinit_tol, **rkw))
+    rs, t_rs = sync_time(lambda: [
+        reinit(phi0[b], dx, float(h_r[b]), cfg.reinit_iters, cfg.reinit_tol,
+               **rkw) for b in range(len(meshes))])
+    mp, t_mp = sync_time(lambda: batch.minmax_batched_packed(
+        rp.phi, dx, h_m, cfg.minmax_iters, cfg.minmax_tol, **mkw))
+    ms, t_ms = sync_time(lambda: [
+        minmax_flow(rs[b].phi, dx, float(h_m[b]), cfg.minmax_iters,
+                    cfg.minmax_tol, **mkw) for b in range(len(meshes))])
+    for b, name in enumerate(names):
+        check(rp.iterations[b] == rs[b].iterations == items[b].reinit_iters
+              and torch.equal(rp.phi[b], rs[b].phi),
+              f"run E {name}: packed reinit differs from the solo solver")
+        check(mp.iterations[b] == ms[b].iterations == items[b].minmax_iters
+              and torch.equal(mp.phi[b], ms[b].phi),
+              f"run E {name}: packed min/max differs from the solo solver")
+        check(np.array_equal(mp.phi[b].double().cpu().numpy(),
+                             items[b].phi_smoothed),
+              f"run E {name}: the solver stages differ from run_batch's")
+    phase("run E", f"packed solver stages vs the solo dense solvers on the "
+          f"same init and h: counts equal and fields bitwise equal for all "
+          f"{len(names)} geometries; reinit {max(rp.iterations)} steps "
+          f"packed {t_rp:.3f} s vs sequential {t_rs:.3f} s, min/max "
+          f"{max(mp.iterations)} steps packed {t_mp:.3f} s vs sequential "
+          f"{t_ms:.3f} s; card {card}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -558,9 +931,19 @@ def main() -> int:
                             "levelsetfortran_tpu/ops/weno_pallas.py:1850"),
         "minmax_step_vjp": ("levelsetfortran_tpu_torch/csrc/minmax_bwd.cu",
                             "levelsetfortran_tpu/ops/minmax_pallas.py:975"),
+        "reinit_step_packed": (
+            "levelsetfortran_tpu_torch/csrc/reinit_step.cu",
+            "levelsetfortran_tpu/ops/weno_pallas.py:1938 (pack)"),
+        "minmax_step_packed": (
+            "levelsetfortran_tpu_torch/csrc/minmax_step.cu",
+            "levelsetfortran_tpu/ops/minmax_pallas.py:309 (pack)"),
     }
-    record = {n: {"max_abs_err": 0.0} for n in names}
+    record = {n: {"max_abs_err": 0.0, "library_ms": None} for n in names}
     kernel_phase(record)
+    from levelsetfortran_tpu_torch.pipeline.batch import common_shape_grids
+    run_e_shape = common_shape_grids(run_e_meshes()[0], RUN_E_DX,
+                                     10)[0].shape
+    packed_phase(record, run_e_shape)
 
     cubes = analytic.two_cubes_mesh()
     ball = analytic.icosphere_mesh(subdivisions=5)
@@ -581,6 +964,8 @@ def main() -> int:
             for n, v in run_phase(label, mesh, truth, dx, extra,
                                   tmp).items():
                 total[n] += v
+        for n, v in run_e_phase(card, tmp).items():
+            total[n] += v
     for n, v in run_d_phase(ball, card, record).items():
         total[n] += v
     small_holds()
@@ -590,8 +975,11 @@ def main() -> int:
         r = record[n]
         kernels.append({"name": n, "route": "cuda", "source": src,
                         "replaces": repl, "launches": total[n],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        **{k: r[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")},
+                        **({"solo_ms": r["solo_ms"]} if "solo_ms" in r
+                           else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

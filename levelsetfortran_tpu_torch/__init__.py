@@ -5,7 +5,9 @@ signed-distance init -> WENO5/Godunov reinitialization -> min/max
 curvature-flow smoothing -> surface-node advection -> .vti/.s3d outputs)
 and its differentiable path (rendered pixels -> STL vertex gradients)
 ported to PyTorch, with the TPU's Pallas kernels rewritten by hand in CUDA
-for Hopper (``csrc/``).  Imports neither JAX nor the JAX package.
+for Hopper (``csrc/``); ``run_batch`` serves several geometries through the
+solver stages together (the kernels' pack modes).  Imports neither JAX nor
+the JAX package.
 """
 
 from .config import LevelSetConfig, QuirkConfig, REFERENCE_PARITY
@@ -13,6 +15,7 @@ from .grid.grid import Grid3D, from_bbox, from_surface
 from .io.s3d import read_s3d, write_s3d
 from .io.stl import SurfaceMesh, read_stl, write_stl
 from .io.vti import read_vti, write_vti
+from .pipeline.batch import BatchItem, run_batch
 from .pipeline.differentiable import (image_loss_and_vertex_grad,
                                       render_from_vertices)
 from .pipeline.run import run, run_mesh

@@ -97,8 +97,9 @@ class LevelSetConfig:
     nb_refresh_every: int = 8
     #: Mask-refresh interval of the banded min/max stage.
     minmax_nb_refresh_every: int = 16
-    #: "auto": the first CUDA device when there is one, else the CPU.
-    device: str = "auto"
+    #: The torch device the pipeline runs on, taken as given: "cuda" (the
+    #: kernels) or "cpu" (their plain versions); no fallback between them.
+    device: str = "cuda"
 
     quirks: QuirkConfig = dataclasses.field(default_factory=QuirkConfig)
 
@@ -124,10 +125,16 @@ class LevelSetConfig:
         return 1e-18
 
     def torch_device(self) -> torch.device:
-        if self.device == "auto":
-            return torch.device("cuda" if torch.cuda.is_available()
-                                else "cpu")
-        return torch.device(self.device)
+        """Exactly the device asked for, never another one."""
+        device = torch.device(self.device)
+        if device.type == "cuda":
+            if self.dtype == torch.float64:
+                raise ValueError("float64 runs on the CPU only (the CUDA "
+                                 "kernels take float32): pass device='cpu'")
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                                   "the kernels' plain versions")
+        return device
 
     @classmethod
     def from_reference_fields(cls, d: dict, **overrides) -> "LevelSetConfig":

@@ -3,7 +3,8 @@
 //
 // Every kernel runs one thread block per BRICK^3 brick of the unpadded
 // (nx, ny, nz) grid (z fastest), one thread per cell.  The narrow-band
-// activity mask is one int32 per brick, laid out (nbx, nby, nbz).
+// activity mask is one int32 per brick, laid out (nbx, nby, nbz).  A packed
+// batch of B geometries multiplies the launch grid's x-brick axis by B.
 //
 // The sum of squared cell changes decides when a solve stops, so it must
 // not change from run to run: each block writes its partial sum (a fixed
@@ -49,10 +50,14 @@ inline dim3 brick_grid(int nx, int ny, int nz) {
 
 namespace {
 
-// Second pass: one block adds the per-brick partials in a fixed order.
+// Second pass: block g adds the g-th run of n per-brick partials in a fixed
+// order into out[g].  One block for a solo grid; one per geometry for a
+// packed batch, whose partials are laid out geometry-major, each run in
+// the solo brick order, so each geometry's sum has a solo launch's bits.
 __global__ void reduce_partials(const double* __restrict__ partials,
                                 long long n, double* __restrict__ out) {
   __shared__ double s[1024];
+  partials += blockIdx.x * n;
   double acc = 0.0;
   for (long long q = threadIdx.x; q < n; q += blockDim.x) acc += partials[q];
   s[threadIdx.x] = acc;
@@ -61,16 +66,18 @@ __global__ void reduce_partials(const double* __restrict__ partials,
     if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) *out = s[0];
+  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
-// Launch the second pass when the caller asked for the sum.
-inline int finish(dim3 grid, void* partials, void* dsq, cudaStream_t st) {
+// Launch the second pass when the caller asked for the sum; `groups`
+// geometries share the launch grid equally.
+inline int finish(dim3 grid, void* partials, void* dsq, cudaStream_t st,
+                  int groups = 1) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (partials != nullptr) {
-    const long long nb = (long long)grid.x * grid.y * grid.z;
-    reduce_partials<<<1, 1024, 0, st>>>(
+    const long long nb = (long long)grid.x * grid.y * grid.z / groups;
+    reduce_partials<<<groups, 1024, 0, st>>>(
         static_cast<const double*>(partials), nb, static_cast<double*>(dsq));
   }
   return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 // Kernels K3 and K4: min/max curvature-flow Euler steps.
 //
 // K3 replaces levelsetfortran_tpu/ops/minmax_pallas.py:minmax_step_padded
-// (body _make_kernel); K4 replaces minmax_fusedk_padded (body
-// _make_fusedk_kernel).  One step, per cell:
+// (body _make_kernel), its pack mode that function's `pack=B` (B
+// geometries per launch, each with its own h1 and sum); K4 replaces
+// minmax_fusedk_padded (body _make_fusedk_kernel).  One step, per cell:
 //   sum6 = x- + x+ + y- + y+ + z+ + z-     (this order)
 //   lap  = (sum6 - 6 c) / dx^2,  pave = (sum6 + c) / 7
 //   F    = min(lap, 0) if pave < threshold else max(lap, 0)
@@ -90,6 +91,56 @@ minmax_step_kernel(const float* __restrict__ phi, float* __restrict__ out,
   }
 }
 
+// Pack mode of K3 (replaces minmax_step_padded(pack=B)): B same-shape
+// geometries stacked (B, nx, ny, nz) in one launch of grid (nbz, nby,
+// B * nbx), geometry b = blockIdx.z / nbx in its own coordinates (64-bit
+// offset b * nx * ny * nz) with its own h1 from the device vector h1s, its
+// partials in the solo brick order, geometry-major.  A frozen geometry
+// (live[b] == 0) copies its cells and writes zero partials.
+__global__ void __launch_bounds__(NT)
+minmax_step_packed_kernel(const float* __restrict__ phi,
+                          float* __restrict__ out, MinmaxParams p,
+                          const float* __restrict__ h1s,
+                          const int* __restrict__ live,
+                          double* __restrict__ partials) {
+  __shared__ double red[NT];
+  const int nbx = (p.nx + BRICK - 1) / BRICK;
+  const int b = blockIdx.z / nbx;
+  const int k = blockIdx.x * BRICK + threadIdx.x;
+  const int j = blockIdx.y * BRICK + threadIdx.y;
+  const int i = (blockIdx.z - b * nbx) * BRICK + threadIdx.z;
+  const long long off = (long long)b * p.nx * p.ny * p.nz;
+  phi += off;
+  out += off;
+  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
+  const long long sy = p.nz;
+  const long long sx = (long long)p.ny * p.nz;
+  const long long idx = i * sx + j * sy + k;
+  if (live[b] == 0) {                                 // uniform per block
+    if (in_grid) out[idx] = phi[idx];
+    if (partials != nullptr && lsf::thread_rank() == 0)
+      partials[lsf::brick_id()] = 0.0;
+    return;
+  }
+  double dd = 0.0;
+  if (in_grid) {
+    MinmaxParams q = p;
+    q.h1 = h1s[b];
+    const float c = phi[idx];
+    float r = c;
+    if (updates(i, j, k, c, q))
+      r = minmax_update(c, phi[idx - sx], phi[idx + sx], phi[idx - sy],
+                        phi[idx + sy], phi[idx + 1], phi[idx - 1], q);
+    out[idx] = r;
+    const float d = r - c;
+    dd = (double)d * (double)d;
+  }
+  if (partials != nullptr) {
+    const double total = lsf::block_sum(dd, red);
+    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(NT)
 minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
@@ -171,6 +222,23 @@ extern "C" int lsf_minmax_step_f32(const void* phi, void* out, int nx,
       static_cast<const int*>(active), copy_inactive,
       static_cast<double*>(partials));
   return lsf::finish(grid, partials, dsq, st);
+}
+
+extern "C" int lsf_minmax_step_packed_f32(const void* phi, void* out,
+                                          int batch, int nx, int ny, int nz,
+                                          const void* h1s, float inv_dx2,
+                                          float band_dx, float threshold,
+                                          const void* live, void* partials,
+                                          void* dsq, void* stream) {
+  const MinmaxParams p{nx, ny, nz, 0.0f, inv_dx2, band_dx, threshold};
+  dim3 grid = lsf::brick_grid(nx, ny, nz);
+  grid.z *= batch;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  minmax_step_packed_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
+      static_cast<const float*>(phi), static_cast<float*>(out), p,
+      static_cast<const float*>(h1s), static_cast<const int*>(live),
+      static_cast<double*>(partials));
+  return lsf::finish(grid, partials, dsq, st, batch);
 }
 
 extern "C" int lsf_minmax_fusedk_f32(const void* phi, void* out, int nx,

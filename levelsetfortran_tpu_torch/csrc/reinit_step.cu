@@ -37,6 +37,10 @@
 // the BC everywhere, as the dense one does (frozen TPU tiles keep stale
 // faces).  `partials` (optional) receives each brick's sum of squared
 // changes for the deterministic second pass.
+//
+// Pack mode (reinit_step_packed_kernel, the TPU kernel's `pack` argument):
+// B geometries per launch, each with its own h and sum; not the TPU's
+// x-concatenated layout but a leading batch dimension on the launch grid.
 #include "common.cuh"
 #include "weno5.cuh"
 
@@ -156,6 +160,65 @@ reinit_step_kernel(const float* __restrict__ phi,
   }
 }
 
+// Pack mode: B same-shape geometries stacked (B, nx, ny, nz), one launch.
+// The launch grid is (nbz, nby, B * nbx); geometry b = blockIdx.z / nbx
+// owns the blocks of its solo grid, in the solo order, so brick_id() is
+// b * bricks + its solo id and the partials come out geometry-major.
+// Every index, face test and clamp is in the geometry's own coordinates
+// (64-bit offset b * nx * ny * nz), and each live geometry steps with its
+// own h, read from the device vector hs: a live geometry's cells are a solo
+// launch's cells bit for bit.  A frozen geometry (live[b] == 0) is a pure
+// passthrough, faces included, with a zero partial: the solver's ping-pong
+// buffer then holds its field in both halves.  (This is not the banded
+// mode above, which still takes the ghost BC on frozen bricks' faces.)
+// Three blocks per SM: left to itself ptxas gives this kernel 51 registers
+// (two blocks of 512 threads per SM), the solo kernel 40; bounded, it takes
+// 40 and a 24-byte stack, and its outputs are unchanged.
+__global__ void __launch_bounds__(NT, 3)
+reinit_step_packed_kernel(const float* __restrict__ phi,
+                          const float* __restrict__ sgn_src,
+                          float* __restrict__ out, StepParams p,
+                          const float* __restrict__ hs,
+                          const int* __restrict__ live,
+                          double* __restrict__ partials) {
+  __shared__ double red[NT];
+  const int nbx = (p.nx + BRICK - 1) / BRICK;
+  const int b = blockIdx.z / nbx;
+  const int x0 = (blockIdx.z - b * nbx) * BRICK, y0 = blockIdx.y * BRICK;
+  const int z0 = blockIdx.x * BRICK;
+  const int i = x0 + threadIdx.z, j = y0 + threadIdx.y, k = z0 + threadIdx.x;
+  const long long off = (long long)b * p.nx * p.ny * p.nz;
+  phi += off;
+  sgn_src += off;
+  out += off;
+  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
+  const long long idx = ((long long)i * p.ny + j) * p.nz + k;
+  if (live[b] == 0) {                                 // uniform per block
+    if (in_grid) out[idx] = phi[idx];
+    if (partials != nullptr && lsf::thread_rank() == 0)
+      partials[lsf::brick_id()] = 0.0;
+    return;
+  }
+  double dd = 0.0;
+  if (in_grid) {
+    StepParams q = p;
+    q.h = hs[b];
+    const int si = clamp_inner(i, p.nx);
+    const int sj = clamp_inner(j, p.ny);
+    const int sk = clamp_inner(k, p.nz);
+    const bool face = si != i || sj != j || sk != k;
+    const float v = cell_update(phi, sgn_src, si, sj, sk, q);
+    const float res = face ? v + p.dx : v;
+    out[idx] = res;
+    const float d = res - phi[idx];
+    dd = (double)d * (double)d;
+  }
+  if (partials != nullptr) {
+    const double total = lsf::block_sum(dd, red);
+    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
+  }
+}
+
 }  // namespace
 
 extern "C" int lsf_reinit_step_f32(const void* phi, const void* sgn_src,
@@ -174,4 +237,24 @@ extern "C" int lsf_reinit_step_f32(const void* phi, const void* sgn_src,
       static_cast<float*>(out), p, static_cast<const int*>(active),
       copy_inactive, static_cast<double*>(partials));
   return lsf::finish(grid, partials, dsq, st);
+}
+
+extern "C" int lsf_reinit_step_packed_f32(const void* phi,
+                                          const void* sgn_src, void* out,
+                                          int batch, int nx, int ny, int nz,
+                                          float dx, const void* hs, float dx2,
+                                          float inv_dx2, float eps_scale,
+                                          float eps_floor, int p5_zero_y,
+                                          const void* live, void* partials,
+                                          void* dsq, void* stream) {
+  const StepParams p{nx, ny, nz, dx, 0.0f, dx2, inv_dx2, eps_scale,
+                     eps_floor, p5_zero_y};
+  dim3 grid = lsf::brick_grid(nx, ny, nz);
+  grid.z *= batch;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  reinit_step_packed_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
+      static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
+      static_cast<float*>(out), p, static_cast<const float*>(hs),
+      static_cast<const int*>(live), static_cast<double*>(partials));
+  return lsf::finish(grid, partials, dsq, st, batch);
 }

@@ -10,7 +10,9 @@ is below the threshold else max(lap, 0), and phi += h1 F where
 bytes (~15 operations per cell against 8 bytes of traffic); K4 moves a
 brick's window once for K steps, through shared memory.  Face rule: face
 cells never update and an interior cell's +-1 reads never leave the grid,
-so the port neither wraps (jnp path) nor clamps (TPU kernel).
+so the port neither wraps (jnp path) nor clamps (TPU kernel).  K3's pack
+mode (:func:`minmax_step_packed`) steps B same-shape geometries per launch,
+each with its own h1 and sum, as ``minmax_step_padded(pack=B)`` does.
 
 K6 (``csrc/minmax_bwd.cu``) replaces ``minmax_pallas.py:minmax_bwd_padded``:
 the gather-form adjoint, one thread per cell recomputing its six
@@ -27,8 +29,9 @@ import torch
 
 from .. import cuda_build
 from .stencil import interior_mask, shift
-from .weno_cuda import (brick_cells, brick_grid, check_cuda, finish_plain,
-                        np_dtype, ptr, rms_buffers)
+from .weno_cuda import (brick_cells, brick_grid, check_cuda, check_packed,
+                        finish_plain, live_vector, np_dtype, packed_rms_buffers,
+                        packed_vector, ptr, rms_buffers, run_packed_plain)
 
 
 def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
@@ -135,6 +138,48 @@ def minmax_fusedk(phi, dx, h1, band_radius=4.1, threshold=0.0, *, ksteps,
 
 
 minmax_fusedk.launches = 0
+
+
+def minmax_step_packed_plain(phi, dx, h1, live, band_radius=4.1,
+                             threshold=0.0, *, out=None, with_rms=False):
+    """The plain version of :func:`minmax_step_packed` (any dtype, any
+    device): the solo plain step per live geometry."""
+    hv = packed_vector(h1, phi.shape[0], phi.dtype, "cpu").tolist()
+    return run_packed_plain(phi, out, live, with_rms, lambda g, o, rms: (
+        minmax_step_plain(phi[g], dx, hv[g], band_radius, threshold, out=o,
+                          with_rms=rms)))
+
+
+def minmax_step_packed(phi, dx, h1, live, band_radius=4.1, threshold=0.0, *,
+                       out=None, with_rms=False):
+    """One dense min/max step of each of B same-shape geometries in ONE
+    launch (K3's pack mode; replaces ``minmax_step_padded(pack=B)``).
+    ``h1`` per geometry and ``live`` as in
+    :func:`..weno_cuda.reinit_step_packed`; each live geometry equals a solo
+    :func:`minmax_step` with its h1 bitwise, a frozen one is copied."""
+    if phi.device.type == "cpu":
+        return minmax_step_packed_plain(phi, dx, h1, live, band_radius,
+                                        threshold, out=out,
+                                        with_rms=with_rms)
+    if out is None:
+        out = torch.empty_like(phi)
+    check_packed("minmax_step_packed", phi, out)
+    b = phi.shape[0]
+    hv = packed_vector(h1, b, phi.dtype, phi.device)
+    lv = live_vector(live, b, phi.device)
+    sc = minmax_scalars(phi.dtype, dx, 0.0, band_radius, threshold)
+    partials, dsq = packed_rms_buffers(phi, with_rms)
+    with torch.cuda.device(phi.device):
+        cuda_build.launch(
+            "lsf_minmax_step_packed_f32", phi.data_ptr(), out.data_ptr(),
+            *phi.shape, hv.data_ptr(), sc["inv_dx2"], sc["band_dx"],
+            sc["threshold"], lv.data_ptr(), ptr(partials), ptr(dsq),
+            torch.cuda.current_stream().cuda_stream)
+    minmax_step_packed.launches += 1
+    return (out, dsq) if with_rms else out
+
+
+minmax_step_packed.launches = 0
 
 
 def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0):

@@ -14,6 +14,13 @@ inactive bricks.  The TPU layout (x/y aprons, 128-lane z padding) is not
 ported: the tensor is the unpadded ``(nx, ny, nz)`` grid and every mask is
 in global coordinates.
 
+K1's pack mode (:func:`reinit_step_packed`) replaces the TPU kernel's
+``pack`` argument: B same-shape geometries ``(B, nx, ny, nz)`` per launch,
+each with its own h, its own sum and a frozen flag.  The batch is a leading
+dimension (the launch grid's x-brick axis times B), not the TPU's
+x-concatenated aprons, and each geometry's cells and sum equal a solo
+launch's bitwise.
+
 K5 (``csrc/reinit_bwd.cu``) replaces ``weno_pallas.py:_pallas_bwd_padded``
 in its dense mode: the hand-chained adjoint of the step with respect to
 (phi, sign source, dx, h), in two deterministic passes (per-cell stencil
@@ -576,3 +583,151 @@ def reinit_step_vjp(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
 
 
 reinit_step_vjp.launches = 0
+
+
+# -------------------------------- pack mode --------------------------------
+
+def packed_vector(h, batch, dtype, device) -> torch.Tensor:
+    """A per-geometry step as the pack kernels take it: a (B,) tensor on
+    ``device`` (a scalar is broadcast), each entry rounded once in
+    ``dtype`` on the host, as :func:`step_scalars` rounds a solo step's h,
+    so that a packed step and a solo step with the same h agree bitwise.
+    A (B,) tensor already in ``dtype`` on ``device`` is taken as it is."""
+    if (isinstance(h, torch.Tensor) and h.dtype == dtype
+            and h.device == torch.device(device)
+            and tuple(h.shape) == (batch,)):
+        return h.contiguous()
+    if isinstance(h, torch.Tensor):
+        h = h.detach().cpu().double().numpy()
+    v = np.broadcast_to(np.asarray(h, np.float64).astype(np_dtype(dtype)),
+                        (batch,))
+    return torch.tensor(v, device=device)
+
+
+def live_vector(live, batch, device) -> torch.Tensor:
+    """The (B,) int32 mask of geometries that step (0: frozen)."""
+    v = torch.as_tensor(live, device=device).to(torch.int32).contiguous()
+    if tuple(v.shape) != (batch,):
+        raise ValueError(f"live must have shape ({batch},), got "
+                         f"{tuple(v.shape)}")
+    return v
+
+
+def check_packed(name, phi, out, inputs=()):
+    """Raise on what the pack kernels do not take: a (B, nx, ny, nz) stack
+    of float32 grids, each one a grid the solo kernel takes, with the B
+    geometries' x-bricks on the launch grid's z axis (at most 65,535)."""
+    if phi.dim() != 4:
+        raise ValueError(f"{name}: a packed batch is (B, nx, ny, nz), got "
+                         f"{tuple(phi.shape)}")
+    if phi.shape[0] * brick_grid(phi.shape[1:])[0] > 65535:
+        raise ValueError(f"{name}: batch {phi.shape[0]} too large for "
+                         f"{tuple(phi.shape[1:])} grids in one launch")
+    check_cuda(name, phi[0], out[0], None)
+    for t in (phi, *inputs, out):
+        if (t.dtype != torch.float32 or t.shape != phi.shape
+                or t.device != phi.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: every field must be a contiguous "
+                             f"float32 tensor of shape {tuple(phi.shape)} "
+                             f"on {phi.device}")
+    if any(out.data_ptr() == t.data_ptr() for t in (phi, *inputs)):
+        raise ValueError(f"{name}: out must not alias an input")
+
+
+def packed_rms_buffers(phi, with_rms):
+    """Geometry-major per-brick partial sums and the (B,) sums."""
+    if not with_rms:
+        return None, None
+    nb = brick_grid(phi.shape[1:])
+    b = phi.shape[0]
+    return (torch.empty(b * nb[0] * nb[1] * nb[2], dtype=torch.float64,
+                        device=phi.device),
+            torch.empty(b, dtype=torch.float64, device=phi.device))
+
+
+def run_packed_plain(phi, out, live, with_rms, step):
+    """A pack mode's plain version: ``step(g, out_g, with_rms)`` (a solo
+    plain step of geometry g into ``out_g``) for each live geometry; a
+    frozen one is copied, its sum 0."""
+    b = phi.shape[0]
+    if out is None:
+        out = torch.empty_like(phi)
+    dsq = torch.zeros(b, dtype=torch.float64, device=phi.device)
+    for g, on in enumerate(live_vector(live, b, "cpu").tolist()):
+        if not on:
+            out[g].copy_(phi[g])
+        elif with_rms:
+            dsq[g] = step(g, out[g], True)[1]
+        else:
+            step(g, out[g], False)
+    return (out, dsq) if with_rms else out
+
+
+def reinit_step_packed_plain(phi, sign_src, dx, h, live, *, out=None,
+                             with_rms=False, eps_scale=1e-6, eps_floor=None,
+                             quirk_y_p5_zero=False):
+    """The plain version of :func:`reinit_step_packed` (any dtype, any
+    device): the solo plain step per live geometry."""
+    hv = packed_vector(h, phi.shape[0], phi.dtype, "cpu").tolist()
+    return run_packed_plain(phi, out, live, with_rms, lambda g, o, rms: (
+        reinit_step_plain(phi[g], sign_src[g], dx, hv[g],
+                          eps_scale=eps_scale, eps_floor=eps_floor,
+                          quirk_y_p5_zero=quirk_y_p5_zero, out=o,
+                          with_rms=rms)))
+
+
+def reinit_step_packed(phi, sign_src, dx, h, live, *, out=None,
+                       with_rms=False, eps_scale=1e-6, eps_floor=None,
+                       quirk_y_p5_zero=False):
+    """One dense reinit step of each of B same-shape geometries in ONE
+    launch (K1's pack mode; replaces the TPU kernel's ``pack`` argument).
+
+    ``phi``, ``sign_src`` and ``out`` are ``(B, nx, ny, nz)``; ``h`` is a
+    per-geometry step (a (B,) float32 tensor on the device, or anything
+    :func:`packed_vector` rounds into one); ``live`` a (B,) mask: a frozen
+    geometry (0) is copied unchanged, faces included, and its sum is 0.
+    Each live geometry equals a solo :func:`reinit_step` with its h
+    bitwise.  Returns ``out``, or ``(out, dsq)`` with the (B,) float64
+    per-geometry sums of squared changes when ``with_rms``."""
+    if phi.device.type == "cpu":
+        return reinit_step_packed_plain(
+            phi, sign_src, dx, h, live, out=out, with_rms=with_rms,
+            eps_scale=eps_scale, eps_floor=eps_floor,
+            quirk_y_p5_zero=quirk_y_p5_zero)
+    if out is None:
+        out = torch.empty_like(phi)
+    check_packed("reinit_step_packed", phi, out, (sign_src,))
+    b = phi.shape[0]
+    hv = packed_vector(h, b, phi.dtype, phi.device)
+    lv = live_vector(live, b, phi.device)
+    sc = step_scalars(phi.dtype, dx, 0.0, eps_scale, eps_floor)
+    partials, dsq = packed_rms_buffers(phi, with_rms)
+    with torch.cuda.device(phi.device):
+        cuda_build.launch(
+            "lsf_reinit_step_packed_f32", phi.data_ptr(),
+            sign_src.data_ptr(), out.data_ptr(), *phi.shape, sc["dx"],
+            hv.data_ptr(), sc["dx2"], sc["inv_dx2"], sc["eps_scale"],
+            sc["eps_floor"], int(quirk_y_p5_zero), lv.data_ptr(),
+            ptr(partials), ptr(dsq), torch.cuda.current_stream().cuda_stream)
+    reinit_step_packed.launches += 1
+    return (out, dsq) if with_rms else out
+
+
+reinit_step_packed.launches = 0
+
+
+def reinit_scan_packed(phis, dx, h, steps: int, *, eps_scale=1e-6,
+                       eps_floor=None, quirk_y_p5_zero=False):
+    """``steps`` packed reinit steps of every geometry, the sign source
+    frozen at ``phis`` (``weno_pallas.py:reinit_scan_pallas_packed``, the
+    fixed-step serving scan); ``h`` scalar or per geometry."""
+    b = phis.shape[0]
+    hv = packed_vector(h, b, phis.dtype, phis.device)
+    live = torch.ones(b, dtype=torch.int32, device=phis.device)
+    bufs = (torch.empty_like(phis), torch.empty_like(phis))
+    p = phis
+    for n in range(steps):
+        p = reinit_step_packed(p, phis, dx, hv, live, out=bufs[n % 2],
+                               eps_scale=eps_scale, eps_floor=eps_floor,
+                               quirk_y_p5_zero=quirk_y_p5_zero)
+    return p if steps else phis.clone()

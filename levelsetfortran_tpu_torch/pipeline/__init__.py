@@ -1,1 +1,5 @@
-"""End-to-end pipeline and command line."""
+"""End-to-end pipeline, batched serving and command line."""
+
+from .batch import BatchItem, run_batch
+
+__all__ = ["BatchItem", "run_batch"]

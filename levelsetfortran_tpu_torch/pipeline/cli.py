@@ -1,7 +1,9 @@
-"""Command line: ``python -m levelsetfortran_tpu_torch <mesh.stl>``.
+"""Command line: ``python -m levelsetfortran_tpu_torch <mesh.stl> [...]``.
 
 Flags for every field of the port's config (the JAX package's CLI, less
-the sharding, checkpoint, batch and init-mode flags the port lacks).
+the sharding, checkpoint, data-parallel and init-mode flags the port
+lacks).  One input runs the pipeline (``run``); several run as one batch
+(``run_batch``), one output directory and one printed line per geometry.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 
 from ..config import LevelSetConfig, QuirkConfig
 from ..utils.logging import configure
+from .batch import run_batch
 from .run import run
 
 
@@ -21,7 +24,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="Level-set pipeline on PyTorch/CUDA: STL -> SDF -> "
                     "smoothing -> advected surface (.vti/.s3d outputs)")
     d = LevelSetConfig()
-    p.add_argument("mesh", help="input .stl (binary or ascii) or .s3d file")
+    p.add_argument("mesh", nargs="+",
+                   help="input .stl (binary or ascii) or .s3d file(s); "
+                        "several inputs run as one batch (the solver "
+                        "stages step every geometry together, each with "
+                        "its own convergence)")
     p.add_argument("--dx", type=float, default=d.dx)
     p.add_argument("--pad-cells", type=int, default=d.pad_cells)
     p.add_argument("--init-culling", choices=["auto", "off"],
@@ -72,9 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "or 'all'")
     p.add_argument("--dtype", choices=["float32", "float64"],
                    default="float32",
-                   help="float64 runs on the CPU only (no kernel takes it)")
+                   help="float64 runs on the CPU only (--device cpu)")
     p.add_argument("--device", default=d.device,
-                   help="'auto' (CUDA when present), 'cuda', 'cpu', ...")
+                   help="'cuda' (the CUDA kernels; the default, with no "
+                        "fallback) or 'cpu' (their plain PyTorch versions)")
     p.add_argument("--out-dir", default=None)
     p.add_argument("--no-outputs", action="store_true")
     return p
@@ -114,7 +122,17 @@ def config_from_args(args) -> LevelSetConfig:
 def main(argv=None) -> int:
     configure()
     args = build_parser().parse_args(argv)
-    result = run(args.mesh, config_from_args(args), out_dir=args.out_dir,
+    cfg = config_from_args(args)
+    if len(args.mesh) > 1:
+        items = run_batch(args.mesh, cfg, out_dir=args.out_dir or ".",
+                          write_outputs=not args.no_outputs)
+        for it in items:
+            print(f"[{it.name}] grid={it.grid.shape} "
+                  f"reinit_iters={it.reinit_iters} "
+                  f"minmax_iters={it.minmax_iters} "
+                  f"asymptotic_error={it.asymptotic_error:.3e}")
+        return 0
+    result = run(args.mesh[0], cfg, out_dir=args.out_dir,
                  write_outputs=not args.no_outputs)
     print(f"grid={result.grid.shape} reinit_iters={result.reinit_iters} "
           f"minmax_iters={result.minmax_iters} "
