@@ -37,7 +37,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      four boxes on a common 129^3 grid, through the CLI with eight inputs
      and in-process with the launch counters read around it; each output
      checked against its analytic SDF; the packed solver stages held
-     against the solo dense solvers on the same init, bitwise.
+     against the solo dense solvers on the same init, bitwise;
+  6. the block modes of K1 and K3 (phase 2c: one shard's halo-padded block
+     of a domain-decomposed grid) on a (2,2,1) split of the 222^3 sphere
+     field and a (2,2,2) split of (66, 46, 38): against their plain
+     versions over the whole padded output, the gathered field against the
+     solo kernel on the whole grid (bitwise), the owned-range sums against
+     the solo sum, two steps per exchange and the overlapped step against
+     plain stepping (bitwise), the banded step against the dense one on
+     active bricks; then run F, run B's mesh with ``--mesh-shape 2,2,1``
+     through the CLI and ``run()``, held to run B's gates and against run
+     B's fields, the block-mode counters read around it and the solo
+     kernels' counters zero; then its solver stages once more at fixed
+     counts, dense, with two steps per exchange and overlapped, bitwise
+     equal to each other and to the solo dense solvers.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per run.
 """
@@ -350,7 +363,8 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     check(cfg.reinit_iters == LevelSetConfig().reinit_iters
           and cfg.minmax_iters == LevelSetConfig().minmax_iters,
           "default iteration caps")
-    counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk)
+    counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
+                wc.reinit_step_block, mc.minmax_step_block)
     for c in counters:
         c.launches = 0
     res = run(stl, cfg, out_dir=os.path.join(tmp, f"{label}_py"))
@@ -380,13 +394,18 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     check(res.reinit_iters < cfg.reinit_iters, f"run {label}: reinit cap")
     check(finite and not res.reinit_diverged and not res.minmax_diverged,
           f"run {label}: diverged or non-finite")
-    if "off" in extra_args:
+    if "--mesh-shape" in extra_args:
+        want = ("reinit_step_block", "minmax_step_block")
+    elif "off" in extra_args:
         want = ("reinit_step", "minmax_step")
     else:
         want = ("reinit_step", "minmax_fusedk")
     for name in want:
         check(launches[name] > 0, f"run {label}: {name} never launched")
-    return launches
+    if "--mesh-shape" in extra_args:
+        check(all(v == 0 for n, v in launches.items() if n not in want),
+              f"run {label}: solo kernels launched under a mesh {launches}")
+    return launches, res
 
 
 def cube_grid(vertices, n):
@@ -401,8 +420,11 @@ def cube_grid(vertices, n):
 
 def sync_time(fn):
     import torch
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
-        (lambda: None)
+
+    def sync():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
     sync()
     t0 = time.perf_counter()
     out = fn()
@@ -713,6 +735,346 @@ def packed_phase(record, run_e_shape):
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
+def in_grid_cells(pad, geom):
+    """Cells of a padded block that lie inside the global grid: the cells a
+    block-mode launch reads (halo cells past a global face are never)."""
+    n = 1
+    for p, o, g in zip(pad.shape, geom.origin, geom.gshape):
+        n *= min(o + p, g) - max(o, 0)
+    return n
+
+
+def written_cells(step, pad):
+    """Cells a dense K1 block-mode launch ``step(out)`` writes: the in-grid
+    cells whose stencil stays inside the array, which k steps per exchange
+    need stepped.  Counted from a launch into an output of NaNs (the input
+    is finite)."""
+    import torch
+    out = torch.full_like(pad, float("nan"))
+    step(out)
+    return int((~torch.isnan(out)).sum())
+
+
+def block_phase(record):
+    """Phase 2c: the block modes of K1 and K3 on the card."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.halo import crop, halo_exchange
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh,
+                                                         split_blocks)
+
+    for shape, mshape, dx, radius in ((MAIN_SHAPE, (2, 2, 1), 0.01, 1.0),
+                                      ((66, 46, 38), (2, 2, 2), 0.05, 0.6)):
+        main = shape == MAIN_SHAPE
+        mesh = make_mesh(mshape, ["cuda"])
+        phi, sgn = sphere(shape, dx, radius), sphere(shape, dx, 1.1 * radius)
+        h, h1 = 0.1 * dx / 3.0, 0.01 * dx / 3.0
+        blocks, sblocks = split_blocks(mesh, phi), split_blocks(mesh, sgn)
+
+        def gather(bl):
+            return gather_blocks(mesh, bl)
+
+        # K1: every block against its plain version over the whole padded
+        # output, the gathered field and the summed owned-range sums
+        # against the solo kernel on the whole grid
+        w = sh.sharded_widths(mesh, sh.HALO)
+        geoms = sh.reinit_geoms(mesh, shape, w)
+        pads = [p.contiguous() for p in halo_exchange(blocks, w, mesh)]
+        spads = [p.contiguous() for p in halo_exchange(sblocks, w, mesh)]
+        e1, eb, owned, sums, frozen = 0.0, 0.0, [], [], [0, 0]
+        for p, sp, g in zip(pads, spads, geoms):
+            k, kd = wc.reinit_step_block(p, sp, dx, h, g, with_rms=True)
+            q, qd = wc.reinit_step_block_plain(p, sp, dx, h, g,
+                                               with_rms=True)
+            e1 = max(e1, err(k, q))
+            check(abs(float(kd) - float(qd)) <= 1e-5 * float(qd),
+                  f"K1 block {shape}: dsq {float(kd)} vs plain {float(qd)}")
+            owned.append(crop(k, w))
+            sums.append(float(kd))
+            # banded: a real mask from the exchanged block; against the
+            # plain version, and against the dense launch on active bricks
+            act = wc.tile_activity(p, dx, 8.1, h / dx, window="band4",
+                                   geom=g)
+            frozen[0] += int(act.numel() - act.sum())
+            frozen[1] += act.numel()
+            kb = wc.reinit_step_block(p, sp, dx, h, g, active=act)
+            eb = max(eb, err(kb, wc.reinit_step_block_plain(
+                p, sp, dx, h, g, active=act)))
+            live = wc.brick_cells(act, p.shape, g.brick_origin)
+            check(torch.equal(kb[live], k[live]),
+                  f"K1 block {shape}: banded differs from dense on active "
+                  f"bricks")
+        solo, sd = wc.reinit_step(phi, sgn, dx, h, with_rms=True)
+        rel1 = abs(sum(sums) - float(sd)) / float(sd)
+        check(e1 <= 1e-6 and eb <= 1e-6, f"K1 block {shape}: max_abs_err "
+              f"{e1:.3g} dense, {eb:.3g} banded")
+        check(torch.equal(gather(owned), solo),
+              f"K1 block {shape}: gathered field differs from the solo "
+              f"kernel ({err(gather(owned), solo):.3g})")
+        check(rel1 <= 1e-12, f"K1 block {shape}: owned sums rel {rel1:.3g}")
+        check(not main or 0 < frozen[0] < frozen[1], "K1 block: mask skips")
+
+        # two steps: k = 1, k = 2 and the overlapped step, all bitwise the
+        # solo kernel's two steps; one overlapped step against the plain
+        # block step
+        two = wc.reinit_step(solo, sgn, dx, h)
+        rms = {}
+        for label, kw in (("k=1", {}), ("k=2", {"steps_per_exchange": 2}),
+                          ("overlap", {"overlap": True})):
+            s = sh.ShardedLevelSet(mesh, shape, dx, **kw)
+            check(label != "overlap" or s.use_overlap,
+                  f"K1 block {shape}: no interior bricks to overlap")
+            out, n, rms[label] = s.reinit(blocks, h, 2, 0.0,
+                                          sign_src=sblocks)
+            check(n == 2 and torch.equal(gather(out), two),
+                  f"K1 block {shape} {label}: two steps differ from the "
+                  f"solo kernel's ({err(gather(out), two):.3g})")
+        one = s.reinit_step(blocks, sblocks, h)
+        plain1 = sh.reinit_step_local(blocks, sblocks, dx, h, gshape=shape,
+                                      mesh=mesh)
+        e_ov = err(gather(one), gather(plain1))
+        check(e_ov <= 1e-6 and torch.equal(gather(one), solo),
+              f"K1 block {shape}: overlapped step vs plain block step "
+              f"{e_ov:.3g}")
+        rec = record["reinit_step_block"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], e1, eb, e_ov)
+        if main:
+            p, sp, g = pads[0], spads[0], geoms[0]
+            buf = torch.zeros_like(p)
+            # the halo is read and not stepped: bytes over the in-grid
+            # cells (phi and the sign source) and the written cells,
+            # operations over the written cells only
+            cells = in_grid_cells(p, g)
+            stepped = written_cells(lambda o: wc.reinit_step_block(
+                p, sp, dx, h, g, out=o), p)
+            check(blocks[0].numel() <= stepped < cells,
+                  f"K1 block: {stepped} cells written of {cells} in the grid")
+            rec["ms"] = median_ms(lambda: wc.reinit_step_block(
+                p, sp, dx, h, g, out=buf, with_rms=True), 20)
+            rec["plain_ms"] = median_ms(lambda: wc.reinit_step_block_plain(
+                p, sp, dx, h, g, out=buf, with_rms=True), 3)
+            rec["shape"] = list(p.shape)
+            rec["cells"] = (cells, stepped, blocks[0].numel())
+            rec.update(bound(8 * cells + 4 * stepped,
+                             OPS["reinit"] * stepped
+                             + OPS["rms"] * blocks[0].numel()))
+            t4 = median_ms(lambda: [wc.reinit_step_block(
+                a, b, dx, h, c, out=buf, with_rms=True)
+                for a, b, c in zip(pads, spads, geoms)], 20)
+            t1 = median_ms(lambda: wc.reinit_step(phi, sgn, dx, h,
+                                                  with_rms=True), 20)
+            rec["all_blocks_ms"], rec["solo_ms"] = t4, t1
+        phase("kernels", f"K1 block {shape} on {mshape}, padded blocks "
+              f"{tuple(pads[0].shape)}: max_abs_err vs plain {e1:.3g} dense, "
+              f"{eb:.3g} banded ({frozen[0]}/{frozen[1]} bricks frozen; "
+              f"equal to dense on active bricks), tol 1e-6; gathered field "
+              f"bitwise equal to the solo kernel; owned sums rel {rel1:.3g} "
+              f"(tol 1e-12); two steps with k=1, k=2 and overlapped bitwise "
+              f"equal to the solo kernel's (rms {rms['k=1']:.9g} / "
+              f"{rms['k=2']:.9g} / {rms['overlap']:.9g}); overlapped step "
+              f"vs plain block step {e_ov:.3g}")
+        del pads, spads, owned, solo, two, out, one, plain1
+        torch.cuda.empty_cache()
+
+        # K3: a halo of one cell; on a field after one K1 step
+        mphi = wc.reinit_step(phi, sgn, dx, h)
+        mblocks = split_blocks(mesh, mphi)
+        w1 = sh.sharded_widths(mesh, 1)
+        mgeoms = sh.minmax_geoms(mesh, shape, w1)
+        mpads = [p.contiguous() for p in halo_exchange(mblocks, w1, mesh)]
+        acts = sh.minmax_tile_activity_local(mblocks, dx, 4.1)
+        e3, owned, banded, sums = 0.0, [], [], []
+        for p, g, a in zip(mpads, mgeoms, acts):
+            k, kd = mc.minmax_step_block(p, dx, h1, g, with_rms=True)
+            q, qd = mc.minmax_step_block_plain(p, dx, h1, g, with_rms=True)
+            kb = mc.minmax_step_block(p, dx, h1, g, active=a)
+            e3 = max(e3, err(k, q), err(kb, mc.minmax_step_block_plain(
+                p, dx, h1, g, active=a)))
+            check(abs(float(kd) - float(qd)) <= 1e-5 * float(qd),
+                  f"K3 block {shape}: dsq {float(kd)} vs plain {float(qd)}")
+            owned.append(crop(k, w1))
+            banded.append(crop(kb, w1))
+            sums.append(float(kd))
+        solo, sd = mc.minmax_step(mphi, dx, h1, with_rms=True)
+        rel3 = abs(sum(sums) - float(sd)) / float(sd)
+        nfrozen = sum(int(a.numel() - a.sum()) for a in acts)
+        check(e3 <= 1e-7, f"K3 block {shape}: max_abs_err {e3:.3g}")
+        check(torch.equal(gather(owned), solo)
+              and torch.equal(gather(banded), solo),
+              f"K3 block {shape}: gathered field differs from the solo "
+              f"kernel ({err(gather(owned), solo):.3g} dense, "
+              f"{err(gather(banded), solo):.3g} banded)")
+        check(rel3 <= 1e-12, f"K3 block {shape}: owned sums rel {rel3:.3g}")
+        check(not main or nfrozen > 0, "K3 block: mask skips")
+        s = sh.ShardedLevelSet(mesh, shape, dx, narrow_band=True)
+        out, n, _ = s.minmax_flow(mblocks, h1, 3, 0.0)
+        q = mphi
+        for _ in range(3):
+            q = mc.minmax_step(q, dx, h1)
+        check(n == 3 and torch.equal(gather(out), q),
+              f"K3 block {shape}: three banded sharded steps differ from "
+              f"the solo kernel's ({err(gather(out), q):.3g})")
+        rec = record["minmax_step_block"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], e3)
+        if main:
+            p, g = mpads[0], mgeoms[0]
+            buf = torch.zeros_like(p)
+            rec["ms"] = median_ms(lambda: mc.minmax_step_block(
+                p, dx, h1, g, out=buf, with_rms=True), 20)
+            rec["plain_ms"] = median_ms(lambda: mc.minmax_step_block_plain(
+                p, dx, h1, g, out=buf, with_rms=True), 10)
+            rec["shape"] = list(p.shape)
+            # the width-1 halo is read; the owned cells are written
+            cells, stepped = in_grid_cells(p, g), mblocks[0].numel()
+            rec["cells"] = (cells, stepped, stepped)
+            rec.update(bound(4 * cells + 4 * stepped,
+                             # owned in-band cells (those on a global face
+                             # are far outside the band on this field)
+                             OPS["minmax_band"] * band_cells(p, dx)
+                             + OPS["rms"] * mblocks[0].numel()))
+            rec["all_blocks_ms"] = median_ms(lambda: [mc.minmax_step_block(
+                a, dx, h1, c, out=buf, with_rms=True)
+                for a, c in zip(mpads, mgeoms)], 20)
+            rec["solo_ms"] = median_ms(lambda: mc.minmax_step(
+                mphi, dx, h1, with_rms=True), 20)
+        phase("kernels", f"K3 block {shape} on {mshape}, padded blocks "
+              f"{tuple(mpads[0].shape)}: max_abs_err vs plain {e3:.3g} (tol "
+              f"1e-7), gathered field bitwise equal to the solo kernel, "
+              f"dense and banded ({nfrozen} bricks frozen); owned sums rel "
+              f"{rel3:.3g} (tol 1e-12); three banded sharded steps bitwise "
+              f"equal to the solo kernel's")
+        del mpads, owned, banded, solo, out, q, phi, sgn, mphi
+        torch.cuda.empty_cache()
+    for name in ("reinit_step_block", "minmax_step_block"):
+        rec = record[name]
+        phase("kernels", f"{name}, one padded block {tuple(rec['shape'])} "
+              f"of {MAIN_SHAPE} on (2, 2, 1): kernel {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']}; {rec['cells'][0]} in-grid cells read, "
+              f"{rec['cells'][1]} stepped, {rec['cells'][2]} owned); the 4 "
+              f"blocks {rec['all_blocks_ms']:.4f}"
+              f" ms vs one solo launch on the whole grid "
+              f"{rec['solo_ms']:.4f} ms")
+
+
+def run_f_phase(ball, ball_sdf, res_b, card, tmp):
+    """Phase 6: run B's mesh through the domain-decomposed pipeline."""
+    import logging
+
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig
+    from levelsetfortran_tpu_torch.ops.init_sign import \
+        signed_distance_init_sharded
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+    from levelsetfortran_tpu_torch.utils.logging import logger
+
+    dx, logged = 0.01, []
+
+    class Keep(logging.Handler):
+        def emit(self, rec):
+            logged.append(json.loads(rec.getMessage()))
+
+    handler = Keep()
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        launches, res = run_phase("F", ball, ball_sdf, dx,
+                                  ["--mesh-shape", "2,2,1"], tmp)
+    finally:
+        logger.removeHandler(handler)
+    check(res.grid.shape == res_b.grid.shape, "run F: grid differs from B's")
+    # where the run says it put its shards: round-robin over every visible
+    # card (all four blocks on the one card when there is one)
+    events = [r for r in logged if r["stage"] == "grid"]
+    devices = [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))]
+    check(len(events) == 1 and events[0]["mesh"] == [2, 2, 1]
+          and events[0]["devices"] == devices
+          and events[0]["narrow_band"] and not events[0]["overlap"],
+          f"run F: grid event {events}")
+    cfg = LevelSetConfig(dx=dx)
+    diag = float(np.sqrt(((ball.vertices.max(0)
+                           - ball.vertices.min(0)) ** 2).sum()))
+    h, h1 = cfg.reinit_cfl * dx / diag, cfg.minmax_cfl * dx / diag
+    band = np.abs(res_b.phi_init) < cfg.stencil_band_radius * dx
+    d_init = np.abs(res.phi_init - res_b.phi_init)[band].max()
+    d_smooth = np.abs(res.phi_smoothed - res_b.phi_smoothed)[band].max()
+    d_adv = np.abs(res.advected - res_b.advected).max()
+    # the two runs stop on other checks (the sharded solvers read the RMS
+    # every exchange, the solo banded ones every chunk): a reinit step moves
+    # a cell by at most h, a min/max step past its stop by at most
+    # tol * sqrt(cells)
+    dr = abs(res.reinit_iters - res_b.reinit_iters)
+    dm = abs(res.minmax_iters - res_b.minmax_iters)
+    cells = float(np.prod([n - 1 for n in res.grid.shape]))
+    gate_init = 1.05 * h * max(1, dr)
+    gate_smooth = gate_init + dm * cfg.minmax_tol * np.sqrt(cells)
+    t = res.timers
+    stages = {"init": t["search"], "reinit": t["initialization"] - t["search"],
+              "minmax": t["minmax"] - t["initialization"],
+              "advect": t["advect"] - t["minmax"],
+              "final reinit": t["total"] - t["advect"]}
+    tb = res_b.timers
+    block = tuple(n // m for n, m in zip(res.grid.shape, (2, 2, 1)))
+    phase("run F", f"mesh (2, 2, 1) on {len(devices)} card(s) "
+          f"{events[0]['devices']}, blocks {block}: reinit_iters {res.reinit_iters} (run "
+          f"B {res_b.reinit_iters}), minmax_iters {res.minmax_iters} (run B "
+          f"{res_b.minmax_iters}); against run B in the band: phi_init max "
+          f"diff {d_init:.3g} (gate {gate_init:.3g}), phi_smoothed "
+          f"{d_smooth:.3g} (gate {gate_smooth:.3g}), advected nodes "
+          f"{d_adv:.3g}; stage walls " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in stages.items())
+          + f", total {t['total']:.3f} s (run B total {tb['total']:.3f} s, "
+          f"init {tb['search']:.3f} s, advect "
+          f"{tb['advect'] - tb['minmax']:.3f} s); card {card}")
+    check(d_init <= gate_init, f"run F: phi_init differs from B {d_init}")
+    check(d_smooth <= gate_smooth, f"run F: phi_smoothed differs {d_smooth}")
+
+    # the solver stages once more on run F's init (built again, on run F's
+    # devices), at run F's counts with the stop test off: dense, two steps
+    # per exchange and overlapped, bitwise equal to each other and to the
+    # solo dense solvers
+    mesh = make_mesh((2, 2, 1), devices)
+    shape = res.grid.shape
+    blocks = signed_distance_init_sharded(
+        res.grid, ball.vertices, ball.elements, mesh, dtype=cfg.dtype,
+        cull_block=cfg.init_cull_block)
+    check({str(b.device) for b in blocks} == set(devices)
+          and all(tuple(b.shape) == block for b in blocks),
+          "run F: the init's blocks are not on the mesh's devices")
+    whole = gather_blocks(mesh, blocks)
+    n_r = res.reinit_iters + res.reinit_iters % 2
+    n_m = res.minmax_iters
+    ref_r, t_sr = sync_time(lambda: reinit(whole, dx, h, n_r, 0.0))
+    ref_m, t_sm = sync_time(lambda: minmax_flow(ref_r.phi, dx, h1, n_m, 0.0))
+    walls = {}
+    for label, kw in (("dense", {}), ("k=2", {"steps_per_exchange": 2}),
+                      ("overlap", {"overlap": True})):
+        s = sh.ShardedLevelSet(mesh, shape, dx, **kw)
+        check(label != "overlap" or s.use_overlap, "run F: no overlap")
+        (pr, nr, _), t_r = sync_time(lambda: s.reinit(blocks, h, n_r, 0.0))
+        (pm, nm, _), t_m = sync_time(lambda: s.minmax_flow(pr, h1, n_m, 0.0))
+        check(nr == n_r and torch.equal(gather_blocks(mesh, pr), ref_r.phi),
+              f"run F {label}: sharded reinit differs from the solo solver")
+        check(nm == n_m and torch.equal(gather_blocks(mesh, pm), ref_m.phi),
+              f"run F {label}: sharded min/max differs from the solo solver")
+        walls[label] = (t_r, t_m)
+    phase("run F", f"solver stages on run F's init on {len(devices)} "
+          f"card(s) at fixed counts (reinit "
+          f"{n_r}, min/max {n_m} steps, stop test off): sharded dense, k=2 "
+          f"and overlapped fields bitwise equal to the solo dense solvers'; "
+          f"reinit / min/max walls " + ", ".join(
+              f"{k} {a:.4f} / {b:.4f} s" for k, (a, b) in walls.items())
+          + f", solo {t_sr:.4f} / {t_sm:.4f} s; card {card}")
+    return launches
+
+
 def box_caps(v, half_extent):
     edge = np.isclose(np.abs(v), np.float32(half_extent)).sum(1) >= 2
     return np.where(edge, 2.0, 1.5) * RUN_E_DX
@@ -897,11 +1259,10 @@ def run_e_phase(card, tmp):
     return launches
 
 
-def main() -> int:
+def start():
+    """Phases 0 and 1: the card's line, TF32 on, the kernels built.
+    Returns the card's name and power limit."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -914,36 +1275,45 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 on")
 
     from levelsetfortran_tpu_torch import cuda_build
-    from levelsetfortran_tpu_torch.models import analytic
     t0 = time.perf_counter()
     cuda_build.library()
     phase("build", f"{time.perf_counter() - t0:.1f} s "
           f"({', '.join(s.name for s in cuda_build.sources())})")
+    return card
 
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = start()
+    from levelsetfortran_tpu_torch.models import analytic
+    from levelsetfortran_tpu_torch.pipeline.batch import common_shape_grids
+
+    csrc = "levelsetfortran_tpu_torch/csrc/"
+    weno, mm = ("levelsetfortran_tpu/ops/weno_pallas.py:",
+                "levelsetfortran_tpu/ops/minmax_pallas.py:")
     names = {
-        "reinit_step": ("levelsetfortran_tpu_torch/csrc/reinit_step.cu",
-                        "levelsetfortran_tpu/ops/weno_pallas.py:1938"),
-        "minmax_step": ("levelsetfortran_tpu_torch/csrc/minmax_step.cu",
-                        "levelsetfortran_tpu/ops/minmax_pallas.py:309"),
-        "minmax_fusedk": ("levelsetfortran_tpu_torch/csrc/minmax_step.cu",
-                          "levelsetfortran_tpu/ops/minmax_pallas.py:647"),
-        "reinit_step_vjp": ("levelsetfortran_tpu_torch/csrc/reinit_bwd.cu",
-                            "levelsetfortran_tpu/ops/weno_pallas.py:1850"),
-        "minmax_step_vjp": ("levelsetfortran_tpu_torch/csrc/minmax_bwd.cu",
-                            "levelsetfortran_tpu/ops/minmax_pallas.py:975"),
-        "reinit_step_packed": (
-            "levelsetfortran_tpu_torch/csrc/reinit_step.cu",
-            "levelsetfortran_tpu/ops/weno_pallas.py:1938 (pack)"),
-        "minmax_step_packed": (
-            "levelsetfortran_tpu_torch/csrc/minmax_step.cu",
-            "levelsetfortran_tpu/ops/minmax_pallas.py:309 (pack)"),
+        "reinit_step": (csrc + "reinit_step.cu", weno + "1938"),
+        "minmax_step": (csrc + "minmax_step.cu", mm + "309"),
+        "minmax_fusedk": (csrc + "minmax_step.cu", mm + "647"),
+        "reinit_step_vjp": (csrc + "reinit_bwd.cu", weno + "1850"),
+        "minmax_step_vjp": (csrc + "minmax_bwd.cu", mm + "975"),
+        "reinit_step_packed": (csrc + "reinit_step.cu",
+                               weno + "1938 (pack)"),
+        "minmax_step_packed": (csrc + "minmax_step.cu", mm + "309 (pack)"),
+        "reinit_step_block": (
+            csrc + "reinit_step.cu",
+            weno + "1938 (offsets, rms_bounds, tile_range + out_init)"),
+        "minmax_step_block": (csrc + "minmax_step.cu",
+                              mm + "309 (offsets)"),
     }
     record = {n: {"max_abs_err": 0.0, "library_ms": None} for n in names}
     kernel_phase(record)
-    from levelsetfortran_tpu_torch.pipeline.batch import common_shape_grids
-    run_e_shape = common_shape_grids(run_e_meshes()[0], RUN_E_DX,
-                                     10)[0].shape
-    packed_phase(record, run_e_shape)
+    packed_phase(record, common_shape_grids(run_e_meshes()[0], RUN_E_DX,
+                                            10)[0].shape)
+    block_phase(record)
 
     cubes = analytic.two_cubes_mesh()
     ball = analytic.icosphere_mesh(subdivisions=5)
@@ -956,18 +1326,23 @@ def main() -> int:
         return analytic.sdf_sphere(p, (0.0, 0.0, 0.0), 1.0)
 
     total = {n: 0 for n in names}
+
+    def count(launches):
+        for n, v in launches.items():
+            total[n] += v
+
     with tempfile.TemporaryDirectory() as tmp:
+        results = {}
         for label, mesh, truth, dx, extra in (
                 ("A", cubes, cubes_sdf, 0.05, []),
                 ("B", ball, ball_sdf, 0.01, []),
                 ("C", cubes, cubes_sdf, 0.05, ["--narrow-band", "off"])):
-            for n, v in run_phase(label, mesh, truth, dx, extra,
-                                  tmp).items():
-                total[n] += v
-        for n, v in run_e_phase(card, tmp).items():
-            total[n] += v
-    for n, v in run_d_phase(ball, card, record).items():
-        total[n] += v
+            launches, results[label] = run_phase(label, mesh, truth, dx,
+                                                 extra, tmp)
+            count(launches)
+        count(run_f_phase(ball, ball_sdf, results["B"], card, tmp))
+        count(run_e_phase(card, tmp))
+    count(run_d_phase(ball, card, record))
     small_holds()
 
     kernels = []

@@ -1,16 +1,20 @@
 """Configuration schema for the PyTorch level-set engine.
 
 Same fields, defaults and reference citations as the JAX package's
-``levelsetfortran_tpu/config.py`` for everything the single-device pipeline
-uses.  Dropped: the sharding and checkpoint fields, ``init_mode`` (only the
-exact-distance init is ported), the in-loop metrics stream, the dead
-``sign_eps`` literal, and the TPU-only ``use_pallas`` switch — here the
-tensor's device decides whether a step runs its CUDA kernel.
+``levelsetfortran_tpu/config.py`` for everything the single-device and the
+domain-decomposed pipelines use (``mesh_shape``, ``steps_per_exchange``,
+``overlap``, ``gather_results``).  Dropped: ``checkpoint_chunk`` (and
+``checkpoint_dir`` in all but name: any value makes the pipeline raise),
+``init_mode`` (only the exact-distance init is ported), the in-loop metrics
+stream, ``mesh_axis_names`` and ``halo_width`` (nothing reads them), the
+dead ``sign_eps`` literal, and the TPU-only ``use_pallas`` switch — here
+the tensor's device decides whether a step runs its CUDA kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,12 +41,8 @@ _DROPPED_DEFAULTS = {
     "init_mode": "distance",
     "metrics_every": 0,
     "sign_eps": 1e-13,
-    "mesh_shape": None,
     "mesh_axis_names": ("x", "y", "z"),
     "halo_width": 4,
-    "steps_per_exchange": 1,
-    "overlap": False,
-    "gather_results": True,
     "checkpoint_dir": None,
     "checkpoint_chunk": 500,
 }
@@ -101,6 +101,25 @@ class LevelSetConfig:
     #: kernels) or "cpu" (their plain versions); no fallback between them.
     device: str = "cuda"
 
+    # --- domain decomposition ---
+    #: (mx, my, mz) shards over (x, y, z); "auto": one shard per visible
+    #: device (``parallel.mesh.factor3``); None: no decomposition.  There
+    #: may be more shards than devices (placed round-robin).
+    mesh_shape: Union[None, str, Tuple[int, ...]] = None
+    steps_per_exchange: int = 1         # reinit steps per halo exchange (k)
+    #: Run the halo exchange beside the interior launch.  Under a mesh it
+    #: needs ``narrow_band="off"`` and ``steps_per_exchange=1`` (the
+    #: pipeline raises otherwise); the "grid" log event says whether it is
+    #: in effect (a block too small for an interior brick box has none).
+    overlap: bool = False
+    #: Gather the full fields to host numpy in PipelineResult (default).
+    #: Under a mesh, False leaves them as lists of device blocks; a run
+    #: without a mesh always returns host arrays.
+    gather_results: bool = True
+    #: Checkpointed, resumable solves are not ported yet: any value makes
+    #: the pipeline raise ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+    checkpoint_dir: Optional[str] = None
+
     quirks: QuirkConfig = dataclasses.field(default_factory=QuirkConfig)
 
     def __post_init__(self):
@@ -113,6 +132,13 @@ class LevelSetConfig:
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64; "
                              f"got {self.dtype}")
+        m = self.mesh_shape
+        if isinstance(m, list):
+            object.__setattr__(self, "mesh_shape", tuple(m))
+        elif not (m is None or m == "auto" or (
+                isinstance(m, tuple) and len(m) == 3)):
+            raise ValueError("mesh_shape must be None, 'auto' or three "
+                             f"ints; got {m!r}")
 
     def replace(self, **kw) -> "LevelSetConfig":
         return dataclasses.replace(self, **kw)
@@ -158,8 +184,6 @@ class LevelSetConfig:
                 q = value if isinstance(value, dict) \
                     else dataclasses.asdict(value)
                 kw["quirks"] = QuirkConfig(**q)
-            elif name in ours:
-                kw[name] = value
             elif name in _DROPPED_DEFAULTS:
                 default = _DROPPED_DEFAULTS[name]
                 v = tuple(value) if isinstance(value, list) else value
@@ -167,6 +191,8 @@ class LevelSetConfig:
                     raise ValueError(
                         f"{name}={value!r} is not ported (the port supports "
                         f"only the default {default!r})")
+            elif name in ours:
+                kw[name] = value
             else:
                 raise ValueError(f"unknown config field {name!r}")
         kw.update(overrides)

@@ -43,6 +43,58 @@ __device__ __forceinline__ double block_sum(double v, double* s) {
   return s[0];
 }
 
+// Where one shard's padded block lies in a domain-decomposed grid, and how
+// its brick grid is laid (the block modes of K1 and K3).  All per axis
+// (x, y, z):
+//   g   the global grid's dimensions;
+//   o   the global index of the array's cell 0 (negative where the halo
+//       reaches past a global face: such cells are never read or written);
+//   c   the array index of brick (0, 0, 0)'s first cell (<= 0 where the
+//       grid is anchored on the owned block, a halo width into the array);
+//   nb  the brick grid's dimensions (the layout of `active`);
+//   t0  the first brick of this launch (the launch grid holds its counts);
+//   rms the global half-open box [x0, x1) x [y0, y1) x [z0, z1) whose cells
+//       the fused sum counts.
+struct BlockGeom {
+  int g[3], o[3], c[3], nb[3], t0[3], rms[6];
+};
+
+// The host-side record behind it: BlockGeom's ints in this order, then the
+// launch's brick counts (x, y, z).
+constexpr int BLOCK_GEOM_INTS = 24;
+
+inline BlockGeom block_geom(const int* v) {
+  BlockGeom q;
+  for (int a = 0; a < 3; ++a) {
+    q.g[a] = v[a];
+    q.o[a] = v[3 + a];
+    q.c[a] = v[6 + a];
+    q.nb[a] = v[9 + a];
+    q.t0[a] = v[12 + a];
+  }
+  for (int a = 0; a < 6; ++a) q.rms[a] = v[15 + a];
+  return q;
+}
+
+inline dim3 block_launch_grid(const int* v) {
+  return dim3(v[23], v[22], v[21]);          // blockIdx.x walks z
+}
+
+// Whether the brick holding array cell (i, j, k) steps (no mask: all do).
+__device__ __forceinline__ bool block_brick_active(
+    const int* __restrict__ active, const BlockGeom& q, int i, int j, int k) {
+  if (active == nullptr) return true;
+  return active[((long long)((i - q.c[0]) / BRICK) * q.nb[1]
+                 + (j - q.c[1]) / BRICK) * q.nb[2] + (k - q.c[2]) / BRICK]
+         != 0;
+}
+
+__device__ __forceinline__ bool in_rms_box(const BlockGeom& q, int gi, int gj,
+                                           int gk) {
+  return gi >= q.rms[0] && gi < q.rms[1] && gj >= q.rms[2] && gj < q.rms[3]
+         && gk >= q.rms[4] && gk < q.rms[5];
+}
+
 inline dim3 brick_grid(int nx, int ny, int nz) {
   return dim3((nz + BRICK - 1) / BRICK, (ny + BRICK - 1) / BRICK,
               (nx + BRICK - 1) / BRICK);

@@ -27,6 +27,15 @@
 // or writes nothing (the ping-pong buffer already holds its values).  The
 // update gate is the cell's own value, so a brick with no in-band cell can
 // never change: the banded solve equals the dense one bitwise.
+//
+// Block mode of K3 (minmax_step_block_kernel, the TPU kernel's `offsets`
+// argument): the tensor is one shard's block of a domain-decomposed grid
+// with a halo of one neighbour cell on its sharded axes (the TPU's wider
+// aprons are layout, not math).  The face rule and the fused sum's box are
+// in global coordinates (origin + local index, all three axes); a cell
+// updates only where its +-1 reads stay inside the array, which every owned
+// cell's do; a frozen brick copies its cells.  Same minmax_update(), so a
+// block's cells equal the solo kernel's on the whole grid bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -134,6 +143,46 @@ minmax_step_packed_kernel(const float* __restrict__ phi,
     out[idx] = r;
     const float d = r - c;
     dd = (double)d * (double)d;
+  }
+  if (partials != nullptr) {
+    const double total = lsf::block_sum(dd, red);
+    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
+  }
+}
+
+// Block mode: p.nx/ny/nz are the PADDED array's dimensions; q places it in
+// the global grid (common.cuh).
+__global__ void __launch_bounds__(NT)
+minmax_step_block_kernel(const float* __restrict__ phi,
+                         float* __restrict__ out, MinmaxParams p,
+                         lsf::BlockGeom q, const int* __restrict__ active,
+                         double* __restrict__ partials) {
+  __shared__ double red[NT];
+  const int i = q.c[0] + (q.t0[0] + (int)blockIdx.z) * BRICK + threadIdx.z;
+  const int j = q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK + threadIdx.y;
+  const int k = q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK + threadIdx.x;
+  const bool in_pad = i >= 0 && i < p.nx && j >= 0 && j < p.ny && k >= 0
+                      && k < p.nz;
+  double dd = 0.0;
+  if (in_pad) {
+    const long long sy = p.nz;
+    const long long sx = (long long)p.ny * p.nz;
+    const long long idx = i * sx + j * sy + k;
+    const int gi = q.o[0] + i, gj = q.o[1] + j, gk = q.o[2] + k;
+    const float c = phi[idx];
+    float r = c;
+    const bool steps = gi >= 1 && gi <= q.g[0] - 2 && gj >= 1
+                       && gj <= q.g[1] - 2 && gk >= 1 && gk <= q.g[2] - 2
+                       && i >= 1 && i <= p.nx - 2 && j >= 1 && j <= p.ny - 2
+                       && k >= 1 && k <= p.nz - 2 && fabsf(c) < p.band_dx;
+    if (steps && lsf::block_brick_active(active, q, i, j, k))
+      r = minmax_update(c, phi[idx - sx], phi[idx + sx], phi[idx - sy],
+                        phi[idx + sy], phi[idx + 1], phi[idx - 1], p);
+    out[idx] = r;
+    if (lsf::in_rms_box(q, gi, gj, gk)) {
+      const float d = r - c;
+      dd = (double)d * (double)d;
+    }
   }
   if (partials != nullptr) {
     const double total = lsf::block_sum(dd, red);
@@ -262,5 +311,23 @@ extern "C" int lsf_minmax_fusedk_f32(const void* phi, void* out, int nx,
     case 4: minmax_fusedk_kernel<4><<<grid, block, 0, st>>>(in, o, p, act, copy_inactive, part); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return lsf::finish(grid, partials, dsq, st);
+}
+
+// geom: BLOCK_GEOM_INTS host ints (common.cuh); nx, ny, nz: the padded
+// array's dimensions.
+extern "C" int lsf_minmax_step_block_f32(const void* phi, void* out, int nx,
+                                         int ny, int nz, const int* geom,
+                                         float h1, float inv_dx2,
+                                         float band_dx, float threshold,
+                                         const void* active, void* partials,
+                                         void* dsq, void* stream) {
+  const MinmaxParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const dim3 grid = lsf::block_launch_grid(geom);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  minmax_step_block_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
+      static_cast<const float*>(phi), static_cast<float*>(out), p, q,
+      static_cast<const int*>(active), static_cast<double*>(partials));
   return lsf::finish(grid, partials, dsq, st);
 }

@@ -41,6 +41,22 @@
 // Pack mode (reinit_step_packed_kernel, the TPU kernel's `pack` argument):
 // B geometries per launch, each with its own h and sum; not the TPU's
 // x-concatenated layout but a leading batch dimension on the launch grid.
+//
+// Block mode (reinit_step_block_kernel, the TPU kernel's `offsets`,
+// `rms_bounds` and `tile_range` + `out_init` arguments): the tensor is one
+// shard's block of a domain-decomposed grid, padded with a halo of
+// neighbour cells on its sharded axes.  Every mask (deep, interior, face
+// clamp) is taken at origin + local index in GLOBAL coordinates on all
+// three axes; every in-grid cell of the padded extent whose stencil stays
+// inside the array is updated (so k steps on a halo of 3k cells leave the
+// owned cells exact), the others are left as they are; the fused sum counts
+// only the cells inside the global box `rms` (the owned range); the brick
+// grid and the `active` mask are anchored where the caller says (on the
+// owned block, whose origin lies a halo width into the array); and a launch
+// may cover a sub-box of the brick grid, writing into an output that other
+// launches fill (the exchange/compute overlap).  A cell's arithmetic is
+// cell_update_at(), the solo kernel's, so a block's cells equal the solo
+// kernel's on the whole grid bit for bit.
 #include "common.cuh"
 #include "weno5.cuh"
 
@@ -82,18 +98,16 @@ __device__ __forceinline__ float axis_gsq(const float* __restrict__ phi,
   return g * g;
 }
 
-// The Euler-updated value of interior cell (i, j, k).
-__device__ float cell_update(const float* __restrict__ phi,
-                             const float* __restrict__ sgn_src, int i, int j,
-                             int k, const StepParams& p) {
-  const long long sx = (long long)p.ny * p.nz;
-  const long long sy = p.nz;
-  const long long s = i * sx + j * sy + k;
+// The Euler-updated value of the interior cell at linear offset s of an
+// array with strides (sx, sy, 1); `deep`: the cell is 4 or more cells from
+// every face of the GLOBAL grid (WENO5), else first-order differences.
+__device__ float cell_update_at(const float* __restrict__ phi,
+                                const float* __restrict__ sgn_src,
+                                long long s, long long sx, long long sy,
+                                bool deep, const StepParams& p) {
   const float c = __ldg(phi + s);
   const float src = __ldg(sgn_src + s);
   const bool pos = src > 0.0f;
-  const bool deep = i >= 4 && i <= p.nx - 5 && j >= 4 && j <= p.ny - 5
-                    && k >= 4 && k <= p.nz - 5;
   float sum = axis_gsq(phi, s, sx, c, deep, pos, p, false);
   sum = sum + axis_gsq(phi, s, sy, c, deep, pos, p, p.p5_zero_y != 0);
   sum = sum + axis_gsq(phi, s, 1, c, deep, pos, p, false);
@@ -101,6 +115,17 @@ __device__ float cell_update(const float* __restrict__ phi,
   const float d2 = src * src + p.dx2 * gm;
   const float sg = src / sqrtf(fmaxf(d2, 1e-20f));
   return c + (p.h * sg) * (1.0f - gm);
+}
+
+// The Euler-updated value of interior cell (i, j, k) of a whole grid.
+__device__ __forceinline__ float cell_update(
+    const float* __restrict__ phi, const float* __restrict__ sgn_src, int i,
+    int j, int k, const StepParams& p) {
+  const long long sx = (long long)p.ny * p.nz;
+  const long long sy = p.nz;
+  const bool deep = i >= 4 && i <= p.nx - 5 && j >= 4 && j <= p.ny - 5
+                    && k >= 4 && k <= p.nz - 5;
+  return cell_update_at(phi, sgn_src, i * sx + j * sy + k, sx, sy, deep, p);
 }
 
 __device__ __forceinline__ int clamp_inner(int i, int n) {
@@ -219,6 +244,62 @@ reinit_step_packed_kernel(const float* __restrict__ phi,
   }
 }
 
+// Block mode: one shard's padded block (see the header).  p.nx/ny/nz are the
+// PADDED array's dimensions; q places it in the global grid.
+__global__ void __launch_bounds__(NT)
+reinit_step_block_kernel(const float* __restrict__ phi,
+                         const float* __restrict__ sgn_src,
+                         float* __restrict__ out, StepParams p,
+                         lsf::BlockGeom q, const int* __restrict__ active,
+                         double* __restrict__ partials) {
+  __shared__ double red[NT];
+  const int i = q.c[0] + (q.t0[0] + (int)blockIdx.z) * BRICK + threadIdx.z;
+  const int j = q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK + threadIdx.y;
+  const int k = q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK + threadIdx.x;
+  const int gi = q.o[0] + i, gj = q.o[1] + j, gk = q.o[2] + k;
+  const bool in_grid = i >= 0 && i < p.nx && j >= 0 && j < p.ny && k >= 0
+                       && k < p.nz && gi >= 0 && gi < q.g[0] && gj >= 0
+                       && gj < q.g[1] && gk >= 0 && gk < q.g[2];
+  double dd = 0.0;
+  if (in_grid) {
+    const long long sx = (long long)p.ny * p.nz;
+    const long long sy = p.nz;
+    const long long idx = i * sx + j * sy + k;
+    const int gsi = clamp_inner(gi, q.g[0]);
+    const int gsj = clamp_inner(gj, q.g[1]);
+    const int gsk = clamp_inner(gk, q.g[2]);
+    const int si = gsi - q.o[0], sj = gsj - q.o[1], sk = gsk - q.o[2];
+    const bool face = gsi != gi || gsj != gj || gsk != gk;
+    if (face || lsf::block_brick_active(active, q, i, j, k)) {
+      // the cell whose update this thread evaluates is (si, sj, sk): itself,
+      // or a global-face cell's clamped inner neighbour (in the same shard)
+      const bool deep = gsi >= 4 && gsi <= q.g[0] - 5 && gsj >= 4
+                        && gsj <= q.g[1] - 5 && gsk >= 4
+                        && gsk <= q.g[2] - 5;
+      const int r = deep ? 3 : 1;
+      const bool valid = si >= r && si + r < p.nx && sj >= r
+                         && sj + r < p.ny && sk >= r && sk + r < p.nz;
+      if (valid) {
+        const long long s = si * sx + sj * sy + sk;
+        const float v = lsf::block_brick_active(active, q, si, sj, sk)
+            ? cell_update_at(phi, sgn_src, s, sx, sy, deep, p) : phi[s];
+        const float res = face ? v + p.dx : v;
+        out[idx] = res;
+        if (lsf::in_rms_box(q, gi, gj, gk)) {
+          const float d = res - phi[idx];
+          dd = (double)d * (double)d;
+        }
+      }
+    } else {
+      out[idx] = phi[idx];       // a frozen brick copies: the buffer written
+    }                            // holds stale halos, not the last iterate
+  }
+  if (partials != nullptr) {
+    const double total = lsf::block_sum(dd, red);
+    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
+  }
+}
+
 }  // namespace
 
 extern "C" int lsf_reinit_step_f32(const void* phi, const void* sgn_src,
@@ -257,4 +338,26 @@ extern "C" int lsf_reinit_step_packed_f32(const void* phi,
       static_cast<float*>(out), p, static_cast<const float*>(hs),
       static_cast<const int*>(live), static_cast<double*>(partials));
   return lsf::finish(grid, partials, dsq, st, batch);
+}
+
+// geom: BLOCK_GEOM_INTS host ints (common.cuh: BlockGeom and the launch's
+// brick counts); nx, ny, nz: the padded array's dimensions.
+extern "C" int lsf_reinit_step_block_f32(const void* phi, const void* sgn_src,
+                                         void* out, int nx, int ny, int nz,
+                                         const int* geom, float dx, float h,
+                                         float dx2, float inv_dx2,
+                                         float eps_scale, float eps_floor,
+                                         int p5_zero_y, const void* active,
+                                         void* partials, void* dsq,
+                                         void* stream) {
+  const StepParams p{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
+                     p5_zero_y};
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const dim3 grid = lsf::block_launch_grid(geom);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  reinit_step_block_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
+      static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
+      static_cast<float*>(out), p, q, static_cast<const int*>(active),
+      static_cast<double*>(partials));
+  return lsf::finish(grid, partials, dsq, st);
 }

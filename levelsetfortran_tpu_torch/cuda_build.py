@@ -43,6 +43,15 @@ SIGNATURES = {
     # eps_floor, p5_zero_y, active, copy_inactive, partials, dsq, stream
     "lsf_reinit_step_f32": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                             _I, _P, _I, _P, _P, _P],
+    # phi, sign, out, padded nx, ny, nz, block geometry (host ints), dx, h,
+    # dx2, inv_dx2, eps_scale, eps_floor, p5_zero_y, active, partials, dsq,
+    # stream
+    "lsf_reinit_step_block_f32": [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
+                                  _F, _F, _I, _P, _P, _P, _P],
+    # phi, out, padded nx, ny, nz, block geometry (host ints), h1, inv_dx2,
+    # band_dx, threshold, active, partials, dsq, stream
+    "lsf_minmax_step_block_f32": [_P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
+                                  _P, _P, _P, _P],
     # phi, sign, out, batch, nx, ny, nz, dx, h vector, dx2, inv_dx2,
     # eps_scale, eps_floor, p5_zero_y, live, partials, dsq vector, stream
     "lsf_reinit_step_packed_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _F,

@@ -13,24 +13,21 @@ import re
 import struct
 
 import numpy as np
+import torch
 
 from ..grid.grid import Grid3D
 
 _LF = b"\n"
 
 
-def write_vti(path: str, phi: np.ndarray, grid: Grid3D, *,
-              name: str = "phi") -> None:
-    """Write a scalar field of shape ``grid.shape`` (axes x, y, z)."""
+def _write_framed(path: str, grid: Grid3D, name: str, payload) -> None:
+    """The XML frame around ``payload``, an iterable of byte chunks that
+    together hold ``grid``'s samples as Float64, x fastest."""
     nx, ny, nz = (s - 1 for s in grid.shape)
-    phi = np.asarray(phi, dtype=np.float64)
-    if phi.shape != grid.shape:
-        raise ValueError(f"phi shape {phi.shape} != grid shape {grid.shape}")
     extent = f" 0 {nx:6d} 0 {ny:6d} 0 {nz:6d}"
     origin = "".join(f"{v:20.8f} " for v in grid.origin)
     spacing = "".join(f"{grid.dx:20.8f} " for _ in range(3))
-    nbyte = phi.size * 8
-    payload = np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()
+    nbyte = int(np.prod(grid.shape)) * 8
     with open(path, "wb") as f:
         f.write(b'<?xml version="1.0"?>' + _LF)
         f.write(b'<VTKFile type="ImageData" version="0.1" '
@@ -47,9 +44,48 @@ def write_vti(path: str, phi: np.ndarray, grid: Grid3D, *,
         f.write(b'<AppendedData encoding="raw">' + _LF)
         f.write(b"_")
         f.write(struct.pack("<i", nbyte))
-        f.write(payload)
+        for chunk in payload:
+            f.write(chunk)
         f.write(_LF + b"</AppendedData>" + _LF)
         f.write(b"</VTKFile>" + _LF)
+
+
+def write_vti(path: str, phi: np.ndarray, grid: Grid3D, *,
+              name: str = "phi") -> None:
+    """Write a scalar field of shape ``grid.shape`` (axes x, y, z)."""
+    phi = np.asarray(phi, dtype=np.float64)
+    if phi.shape != grid.shape:
+        raise ValueError(f"phi shape {phi.shape} != grid shape {grid.shape}")
+    _write_framed(path, grid, name,
+                  [np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()])
+
+
+def write_vti_streaming(path: str, blocks, grid: Grid3D, mesh, *,
+                        name: str = "phi", chunk_z: int = 16) -> None:
+    """Write a sharded field (``blocks`` of the shard mesh ``mesh``, device
+    tensors) in z-slabs: each slab is assembled on the host from the
+    blocks' slices, so the host holds ``nx * ny * chunk_z`` samples at a
+    time and the whole field is never gathered.  The bytes equal
+    :func:`write_vti` of the gathered field."""
+    b = mesh.block_shape(grid.shape)
+    if any(tuple(x.shape) != b for x in blocks):
+        raise ValueError(f"blocks are not {b} blocks of grid {grid.shape}")
+
+    def slabs():
+        for k0 in range(0, grid.shape[2], chunk_z):
+            k1 = min(k0 + chunk_z, grid.shape[2])
+            slab = np.empty(grid.shape[:2] + (k1 - k0,), np.float64)
+            for c, x in zip(mesh.coords(), blocks):
+                ox, oy, oz = (i * n for i, n in zip(c, b))
+                lo, hi = max(k0, oz), min(k1, oz + b[2])
+                if lo < hi:
+                    slab[ox:ox + b[0], oy:oy + b[1], lo - k0:hi - k0] = (
+                        x[:, :, lo - oz:hi - oz].detach()
+                        .to("cpu", torch.float64).numpy())
+            # payload is x-fastest: (x, y, zc) -> (zc, y, x), C order
+            yield np.ascontiguousarray(slab.transpose(2, 1, 0)).tobytes()
+
+    _write_framed(path, grid, name, slabs())
 
 
 def read_vti(path: str) -> tuple[np.ndarray, Grid3D]:

@@ -14,6 +14,10 @@ so the port neither wraps (jnp path) nor clamps (TPU kernel).  K3's pack
 mode (:func:`minmax_step_packed`) steps B same-shape geometries per launch,
 each with its own h1 and sum, as ``minmax_step_padded(pack=B)`` does.
 
+K3's block mode (:func:`minmax_step_block`) is the kernel's ``offsets``
+argument: one shard's block with a halo of one neighbour cell, the face rule
+and the fused sum's box in global coordinates.
+
 K6 (``csrc/minmax_bwd.cu``) replaces ``minmax_pallas.py:minmax_bwd_padded``:
 the gather-form adjoint, one thread per cell recomputing its six
 neighbours' Laplacian cotangents.
@@ -28,10 +32,12 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
-from .stencil import interior_mask, shift
-from .weno_cuda import (brick_cells, brick_grid, check_cuda, check_packed,
-                        finish_plain, live_vector, np_dtype, packed_rms_buffers,
-                        packed_vector, ptr, rms_buffers, run_packed_plain)
+from .stencil import global_interior_mask, interior_mask, shift
+from .weno_cuda import (BlockGeom, block_rms_buffers, brick_cells,
+                        brick_grid, check_block, check_cuda, check_packed,
+                        finish_block_plain, finish_plain, live_vector,
+                        np_dtype, packed_rms_buffers, packed_vector, ptr,
+                        rms_buffers, run_packed_plain)
 
 
 def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
@@ -45,16 +51,18 @@ def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
                 threshold=float(t(threshold)))
 
 
-def _dense_step(phi, sc):
-    """One dense min/max step in whole-grid tensor ops."""
+def _dense_step(phi, sc, interior=None):
+    """One dense min/max step in whole-grid tensor ops; ``interior``: the
+    cells that may update (default: all but ``phi``'s own faces)."""
     sum6 = (shift(phi, 0, -1) + shift(phi, 0, 1) + shift(phi, 1, -1)
             + shift(phi, 1, 1) + shift(phi, 2, 1) + shift(phi, 2, -1))
     lap = (sum6 - 6.0 * phi) * sc["inv_dx2"]
     pave = (sum6 + phi) * (1.0 / 7.0)
     f = torch.where(pave < sc["threshold"], torch.clamp_max(lap, 0.0),
                     torch.clamp_min(lap, 0.0))
-    gate = (interior_mask(phi.shape, 1, phi.device)
-            & (torch.abs(phi) < sc["band_dx"]))
+    if interior is None:
+        interior = interior_mask(phi.shape, 1, phi.device)
+    gate = interior & (torch.abs(phi) < sc["band_dx"])
     return torch.where(gate, phi + sc["h1"] * f, phi)
 
 
@@ -115,6 +123,57 @@ def minmax_step(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
 
 
 minmax_step.launches = 0
+
+
+def minmax_step_block_plain(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
+                            threshold=0.0, *, active=None, out=None,
+                            with_rms=False):
+    """The plain version of :func:`minmax_step_block` (any dtype, any
+    device): the solo plain step with the face rule in global coordinates
+    (``parallel/sharded.py:434-445`` of the JAX package), on the cells the
+    kernel's brick grid covers."""
+    sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
+    shape, dev = pad.shape, pad.device
+    interior = (global_interior_mask(shape, geom.origin, geom.gshape, 1, dev)
+                & interior_mask(shape, 1, dev))
+    new = _dense_step(pad, sc, interior)
+    ones = torch.ones(geom.bricks(shape), dtype=torch.int32, device=dev)
+    written = brick_cells(ones, shape, geom.brick_origin)
+    if active is not None:
+        new = torch.where(brick_cells(active, shape, geom.brick_origin), new,
+                          pad)
+    return finish_block_plain(new, written, pad, out, with_rms, geom)
+
+
+def minmax_step_block(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
+                      threshold=0.0, *, active=None, out=None,
+                      with_rms=False):
+    """One min/max step of one shard's padded block (K3's block mode):
+    ``pad`` holds the owned cells and a halo of one neighbour cell on the
+    sharded axes, ``geom`` places it in the global grid and lays the brick
+    grid over the owned cells.  Cells the brick grid covers are written
+    into ``out`` (a copy of ``pad`` when None); bricks with ``active == 0``
+    copy.  ``with_rms`` adds the float64 sum over ``geom``'s box."""
+    if pad.device.type == "cpu":
+        return minmax_step_block_plain(pad, dx, h1, geom, band_radius,
+                                       threshold, active=active, out=out,
+                                       with_rms=with_rms)
+    if out is None:
+        out = pad.clone()
+    check_block("minmax_step_block", pad, out, active, geom)
+    sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
+    partials, dsq = block_rms_buffers(pad, geom, None, with_rms)
+    with torch.cuda.device(pad.device):
+        cuda_build.launch(
+            "lsf_minmax_step_block_f32", pad.data_ptr(), out.data_ptr(),
+            *pad.shape, geom.ints(pad.shape), sc["h1"], sc["inv_dx2"],
+            sc["band_dx"], sc["threshold"], ptr(active), ptr(partials),
+            ptr(dsq), torch.cuda.current_stream().cuda_stream)
+    minmax_step_block.launches += 1
+    return (out, dsq) if with_rms else out
+
+
+minmax_step_block.launches = 0
 
 
 def minmax_fusedk(phi, dx, h1, band_radius=4.1, threshold=0.0, *, ksteps,

@@ -44,3 +44,31 @@ def boundary_extrapolate(phi: torch.Tensor, dx) -> torch.Tensor:
     point plus ``dx`` (``subs.f90:858-897``)."""
     bmask = ~interior_mask(phi.shape, 1, phi.device)
     return torch.where(bmask, clamped_inner(phi) + dx, phi)
+
+
+def global_interior_mask(shape, origin, gshape, depth: int,
+                         device=None) -> torch.Tensor:
+    """:func:`interior_mask` of one block of a larger grid, in GLOBAL
+    coordinates: the block's cell 0 has global index ``origin`` in a grid of
+    ``gshape`` points.  ``depth=0`` marks the block's in-grid cells (a halo
+    may reach past a global face)."""
+    masks = []
+    for ax, (n, o, g) in enumerate(zip(shape, origin, gshape)):
+        idx = o + torch.arange(n, device=device)
+        m = (idx >= depth) & (idx <= g - 1 - depth)
+        bshape = [1, 1, 1]
+        bshape[ax] = n
+        masks.append(m.reshape(bshape))
+    return masks[0] & masks[1] & masks[2]
+
+
+def global_clamped_inner(a: torch.Tensor, origin, gshape) -> torch.Tensor:
+    """:func:`clamped_inner` of one block in GLOBAL coordinates: ``a``
+    gathered, per axis, at the global index clamped to ``[1, n-2]`` (then
+    clipped into the block, for halo cells past a global face).  A global
+    face cell's source lies in its own block."""
+    out = a
+    for ax, (n, o, g) in enumerate(zip(a.shape[:3], origin, gshape)):
+        idx = (o + torch.arange(n, device=a.device)).clamp(1, g - 2) - o
+        out = out.index_select(ax, idx.clamp(0, n - 1))
+    return out

@@ -21,6 +21,14 @@ dimension (the launch grid's x-brick axis times B), not the TPU's
 x-concatenated aprons, and each geometry's cells and sum equal a solo
 launch's bitwise.
 
+K1's block mode (:func:`reinit_step_block`) replaces the TPU kernel's
+``offsets``, ``rms_bounds`` and ``tile_range`` + ``out_init`` arguments: the
+tensor is one shard's halo-padded block of a domain-decomposed grid
+(:class:`BlockGeom` places it), every mask is in global coordinates on all
+three axes, the fused sum counts the owned range only, and a launch may
+cover a sub-box of the brick grid.  A block's cells equal the solo kernel's
+on the whole grid bitwise.
+
 K5 (``csrc/reinit_bwd.cu``) replaces ``weno_pallas.py:_pallas_bwd_padded``
 in its dense mode: the hand-chained adjoint of the step with respect to
 (phi, sign source, dx, h), in two deterministic passes (per-cell stencil
@@ -37,12 +45,18 @@ order.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import cuda_build
-from .stencil import clamped_inner, interior_mask, shift
+from .stencil import (clamped_inner, global_clamped_inner,
+                      global_interior_mask, interior_mask, shift)
 from .weno import default_eps_floor
 
 #: Brick edge in cells: the narrow-band mask granularity and the CUDA
@@ -127,11 +141,14 @@ def _weno5_pair(p0, p1, p2, p3, p4, p5, eps_scale, eps_floor, ratio_floor,
     return common - pwm, common + pwp
 
 
-def _interior_update(phi, sign_src, sc, quirk_y_p5_zero):
-    """Euler-updated values of the interior cells (face cells: garbage)."""
+def _interior_update(phi, sign_src, sc, quirk_y_p5_zero, deep=None):
+    """Euler-updated values of the interior cells (face cells: garbage).
+    ``deep``: the WENO5 region (default: 4 cells inside ``phi``'s own
+    faces; a block of a larger grid passes its global-coordinate mask)."""
     f64 = phi.dtype == torch.float64
     ratio_floor = 1e-70 if f64 else 1e-7
-    deep = interior_mask(phi.shape, 4, phi.device)
+    if deep is None:
+        deep = interior_mask(phi.shape, 4, phi.device)
     pos = sign_src > 0.0
     total = None
     for axis in range(3):
@@ -165,8 +182,54 @@ def brick_grid(shape) -> tuple:
     return tuple(-(-n // BRICK) for n in shape)
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockGeom:
+    """Where one shard's padded block lies in a domain-decomposed grid, and
+    how its brick grid is laid (``csrc/common.cuh:BlockGeom``).  Per axis:
+
+    ``gshape``: the global grid; ``origin``: the global index of the
+    array's cell 0 (negative where a halo reaches past a global face);
+    ``brick_origin``: the array index of brick (0, 0, 0)'s first cell, so
+    that the brick grid and the ``active`` mask are anchored on the owned
+    block, a halo width into the array; ``cover``: cells the brick grid
+    covers from there (None: to the array's end); ``rms_box``: the global
+    half-open box ``(x0, x1, y0, y1, z0, z1)`` whose cells the fused sum
+    counts (None: the whole grid)."""
+    gshape: Tuple[int, int, int]
+    origin: Tuple[int, int, int] = (0, 0, 0)
+    brick_origin: Tuple[int, int, int] = (0, 0, 0)
+    cover: Optional[Tuple[int, int, int]] = None
+    rms_box: Optional[Tuple[int, ...]] = None
+
+    def bricks(self, shape) -> tuple:
+        """The brick grid's dimensions for an array of ``shape``."""
+        cover = self.cover or tuple(n - c for n, c in
+                                    zip(shape, self.brick_origin))
+        return tuple(-(-n // BRICK) for n in cover)
+
+    def box(self) -> tuple:
+        g = self.gshape
+        return tuple(self.rms_box or (0, g[0], 0, g[1], 0, g[2]))
+
+    @functools.lru_cache(maxsize=256)
+    def ints(self, shape, tile_range=None):
+        """The host record a block-mode launch reads (cached: a solve
+        launches the same few records every step); ``tile_range``
+        ``((bx0, by0, bz0), (nbx, nby, nbz))`` is the launch's sub-box of
+        the brick grid (None: all of it)."""
+        nb = self.bricks(shape)
+        t0, tn = tile_range or ((0, 0, 0), nb)
+        if any(a < 0 or n < 1 or a + n > m for a, n, m in zip(t0, tn, nb)):
+            raise ValueError(f"tile range {tile_range} outside the brick "
+                             f"grid {nb}")
+        vals = (*self.gshape, *self.origin, *self.brick_origin, *nb, *t0,
+                *self.box(), *tn)
+        return (ctypes.c_int * len(vals))(*map(int, vals))
+
+
 def tile_activity(phi, dx, radius_cells, margin_cells=0.0,
-                  window="band4") -> torch.Tensor:
+                  window="band4", geom: Optional[BlockGeom] = None
+                  ) -> torch.Tensor:
     """(nbx, nby, nbz) int32 brick activity mask of ``phi``.
 
     The port of ``weno_pallas.tile_activity`` (:1334) at Hopper's
@@ -176,14 +239,31 @@ def tile_activity(phi, dx, radius_cells, margin_cells=0.0,
     ignored.  ``window="owned"``: the brick's own cells (exact for min/max,
     whose update gate is the cell's own value).  ``"band4"``: the own cells
     dilated by 4 in every axis (reinit: every cell feeding an in-band
-    cell's stencil keeps computing)."""
+    cell's stencil keeps computing).
+
+    ``geom`` (the TPU function's ``offsets``): ``phi`` is one shard's
+    padded block; its brick grid starts at ``geom.brick_origin``, cells
+    past a global face are ignored, and freshly exchanged halo cells take
+    part, so a brick at a shard seam sees the band across it."""
     t = np_dtype(phi.dtype)
     thresh = float(t(radius_cells + margin_cells) * t(dx))
-    nb = brick_grid(phi.shape)
+    a = torch.abs(phi)
+    inf = float("inf")
+    if geom is None:
+        nb, lead = brick_grid(phi.shape), (0, 0, 0)
+    else:
+        nb = geom.bricks(phi.shape)
+        lead = tuple(-c for c in geom.brick_origin)
+        if min(lead) < 0:
+            raise ValueError("tile_activity: the brick grid must start at "
+                             "or before the array's first cell")
+        a = torch.where(global_interior_mask(phi.shape, geom.origin,
+                                             geom.gshape, 0, phi.device),
+                        a, torch.full_like(a, inf))
     pad = []
-    for n, b in zip(reversed(phi.shape), reversed(nb)):
-        pad += [0, b * BRICK - n]
-    a = F.pad(torch.abs(phi), pad, value=float("inf"))
+    for n, b, l in zip(reversed(phi.shape), reversed(nb), reversed(lead)):
+        pad += [l, b * BRICK - n - l]
+    a = F.pad(a, pad, value=inf)
     half = BRICK // 2
     m1 = a.reshape(2 * nb[0], half, 2 * nb[1], half, 2 * nb[2], half).amin(
         dim=(1, 3, 5))                          # 4^3 sub-block minima
@@ -191,19 +271,29 @@ def tile_activity(phi, dx, radius_cells, margin_cells=0.0,
         m = m1.reshape(nb[0], 2, nb[1], 2, nb[2], 2).amin(dim=(1, 3, 5))
     elif window == "band4":
         # brick b covers sub-blocks 2b, 2b+1; +-4 cells = 2b-1 .. 2b+2
-        m1p = F.pad(m1, (1, 1, 1, 1, 1, 1), value=float("inf"))
+        m1p = F.pad(m1, (1, 1, 1, 1, 1, 1), value=inf)
         m = -F.max_pool3d(-m1p[None, None], kernel_size=4, stride=2)[0, 0]
     else:
         raise ValueError(f"unknown window {window!r}")
     return (m < thresh).to(torch.int32).contiguous()
 
 
-def brick_cells(active, shape) -> torch.Tensor:
-    """Boolean per-cell view of a brick mask."""
+def brick_cells(active, shape, brick_origin=(0, 0, 0)) -> torch.Tensor:
+    """Boolean per-cell view of a brick mask whose brick (0, 0, 0) starts
+    at array index ``brick_origin``; cells no brick covers are False."""
     m = active.bool()
     for ax in range(3):
         m = m.repeat_interleave(BRICK, dim=ax)
-    return m[:shape[0], :shape[1], :shape[2]]
+    if tuple(brick_origin) == (0, 0, 0):
+        return m[:shape[0], :shape[1], :shape[2]]
+    full = torch.zeros(tuple(shape), dtype=torch.bool, device=active.device)
+    dst, src = [], []
+    for n, c, e in zip(shape, brick_origin, m.shape):
+        lo, hi = max(c, 0), min(c + e, n)
+        dst.append(slice(lo, hi))
+        src.append(slice(lo - c, hi - c))
+    full[tuple(dst)] = m[tuple(src)]
+    return full
 
 
 def finish_plain(res, phi, out, with_rms, base=None):
@@ -230,6 +320,74 @@ def reinit_step_plain(phi, sign_src, dx, h, *, eps_scale=1e-6,
         upd = torch.where(brick_cells(active, phi.shape), upd,
                           phi if mint else out)
     return finish_plain(_ghost_bc(upd, sc["dx"]), phi, out, with_rms)
+
+
+def _range_cells(geom, shape, tile_range, device):
+    """Cells of the bricks ``tile_range`` of ``geom``'s grid (None: all)."""
+    nb = geom.bricks(shape)
+    t0, tn = tile_range or ((0, 0, 0), nb)
+    m = torch.zeros(nb, dtype=torch.int32, device=device)
+    m[t0[0]:t0[0] + tn[0], t0[1]:t0[1] + tn[1], t0[2]:t0[2] + tn[2]] = 1
+    return brick_cells(m, shape, geom.brick_origin)
+
+
+def _box_cells(geom, shape, device):
+    """Cells inside ``geom``'s fused-sum box."""
+    masks = []
+    for ax, (n, o) in enumerate(zip(shape, geom.origin)):
+        idx = o + torch.arange(n, device=device)
+        lo, hi = geom.box()[2 * ax:2 * ax + 2]
+        bshape = [1, 1, 1]
+        bshape[ax] = n
+        masks.append(((idx >= lo) & (idx < hi)).reshape(bshape))
+    return masks[0] & masks[1] & masks[2]
+
+
+def finish_block_plain(res, written, pad, out, with_rms, geom):
+    """Write ``res`` where ``written`` into ``out`` (a copy of ``pad`` when
+    None); with ``with_rms`` also the float64 sum of squared changes over
+    the written cells of ``geom``'s box."""
+    if out is None:
+        out = pad.clone()
+    out.copy_(torch.where(written, res, out))
+    if not with_rms:
+        return out
+    d = torch.where(written & _box_cells(geom, pad.shape, pad.device),
+                    res - pad, torch.zeros_like(pad)).double()
+    return out, (d * d).sum()
+
+
+def reinit_step_block_plain(pad, sign_pad, dx, h, geom: BlockGeom, *,
+                            eps_scale=1e-6, eps_floor=None,
+                            quirk_y_p5_zero=False, active=None,
+                            tile_range=None, out=None, with_rms=False):
+    """The plain version of :func:`reinit_step_block` (same arguments, any
+    dtype, any device): the solo plain step's tensor ops with every mask in
+    global coordinates (``parallel/sharded.py:84-103`` of the JAX package),
+    written where the kernel writes: in-grid cells whose stencil stays
+    inside the array, frozen bricks copied."""
+    sc = step_scalars(pad.dtype, dx, h, eps_scale, eps_floor)
+    shape, dev = pad.shape, pad.device
+    g, o = geom.gshape, geom.origin
+    deep = global_interior_mask(shape, o, g, 4, dev)
+    upd = _interior_update(pad, sign_pad, sc, quirk_y_p5_zero, deep=deep)
+    live = None
+    if active is not None:
+        live = brick_cells(active, shape, geom.brick_origin)
+        upd = torch.where(live, upd, pad)
+    in_grid = global_interior_mask(shape, o, g, 0, dev)
+    face = in_grid & ~global_interior_mask(shape, o, g, 1, dev)
+    res = torch.where(face, global_clamped_inner(upd, o, g) + sc["dx"], upd)
+    # a cell's stencil (radius 3 where deep, else 1) must stay in the array;
+    # a face cell evaluates its clamped inner neighbour's
+    ok3, ok1 = (interior_mask(shape, r, dev) for r in (3, 1))
+    valid = global_clamped_inner(torch.where(deep, ok3, ok1), o, g)
+    written = in_grid & valid
+    if live is not None:
+        written = in_grid & (valid | (~face & ~live))
+    if tile_range is not None:
+        written = written & _range_cells(geom, shape, tile_range, dev)
+    return finish_block_plain(res, written, pad, out, with_rms, geom)
 
 
 # ------------------------- plain version of the VJP ------------------------
@@ -546,6 +704,66 @@ def reinit_step(phi, sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
 
 
 reinit_step.launches = 0
+
+
+def check_block(name, pad, out, active, geom, inputs=()):
+    """Raise on what the block-mode kernels do not take."""
+    check_cuda(name, pad, out, None, inputs)
+    nb = geom.bricks(pad.shape)
+    if active is not None and (
+            active.dtype != torch.int32 or active.device != pad.device
+            or tuple(active.shape) != nb or not active.is_contiguous()):
+        raise ValueError(f"{name}: active must be a contiguous int32 {nb} "
+                         f"tensor on {pad.device}")
+
+
+def block_rms_buffers(pad, geom, tile_range, with_rms):
+    """Per-brick partial sums of one block-mode launch and their sum."""
+    if not with_rms:
+        return None, None
+    tn = tile_range[1] if tile_range else geom.bricks(pad.shape)
+    return (torch.empty(tn[0] * tn[1] * tn[2], dtype=torch.float64,
+                        device=pad.device),
+            torch.empty((), dtype=torch.float64, device=pad.device))
+
+
+def reinit_step_block(pad, sign_pad, dx, h, geom: BlockGeom, *,
+                      eps_scale=1e-6, eps_floor=None, quirk_y_p5_zero=False,
+                      active=None, tile_range=None, out=None,
+                      with_rms=False):
+    """One reinit step of one shard's padded block (K1's block mode).
+
+    ``pad`` and ``sign_pad`` hold the owned cells and the halo; ``geom``
+    places the array in the global grid.  Every in-grid cell whose stencil
+    stays inside the array is written into ``out`` (a copy of ``pad`` when
+    None), the rest of ``out`` is left as it is; bricks with ``active ==
+    0`` copy their cells (global-face cells still take the ghost BC);
+    ``tile_range`` restricts the launch to a sub-box of the brick grid, so
+    that several launches fill one ``out``.  Returns ``out``, or ``(out,
+    dsq)`` with the float64 sum of squared changes over ``geom``'s box."""
+    if pad.device.type == "cpu":
+        return reinit_step_block_plain(
+            pad, sign_pad, dx, h, geom, eps_scale=eps_scale,
+            eps_floor=eps_floor, quirk_y_p5_zero=quirk_y_p5_zero,
+            active=active, tile_range=tile_range, out=out, with_rms=with_rms)
+    if out is None:
+        out = pad.clone()
+    check_block("reinit_step_block", pad, out, active, geom, (sign_pad,))
+    sc = step_scalars(pad.dtype, dx, h, eps_scale, eps_floor)
+    partials, dsq = block_rms_buffers(pad, geom, tile_range, with_rms)
+    with torch.cuda.device(pad.device):
+        cuda_build.launch(
+            "lsf_reinit_step_block_f32", pad.data_ptr(), sign_pad.data_ptr(),
+            out.data_ptr(), *pad.shape, geom.ints(pad.shape, tile_range),
+            sc["dx"], sc["h"], sc["dx2"], sc["inv_dx2"], sc["eps_scale"],
+            sc["eps_floor"], int(quirk_y_p5_zero), ptr(active),
+            ptr(partials), ptr(dsq),
+            torch.cuda.current_stream().cuda_stream)
+    reinit_step_block.launches += 1
+    return (out, dsq) if with_rms else out
+
+
+reinit_step_block.launches = 0
 
 
 def reinit_step_vjp(phi, sign_src, g, dx, h, *, eps_scale=1e-6,

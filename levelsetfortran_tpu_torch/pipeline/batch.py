@@ -178,7 +178,7 @@ def run_batch(inputs: Sequence[MeshLike],
                          f"{', '.join(STRATEGIES)}")
     if data_parallel:
         raise NotImplementedError("data_parallel needs torch.distributed: "
-                                  "ROADMAP Queue 1 item 11")
+                                  "ROADMAP Queue 1 item 11c")
     timer = timer or StageTimer()
     cfg = config
     dtype = cfg.dtype

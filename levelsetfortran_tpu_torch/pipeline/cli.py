@@ -1,8 +1,8 @@
 """Command line: ``python -m levelsetfortran_tpu_torch <mesh.stl> [...]``.
 
 Flags for every field of the port's config (the JAX package's CLI, less
-the sharding, checkpoint, data-parallel and init-mode flags the port
-lacks).  One input runs the pipeline (``run``); several run as one batch
+the checkpoint, data-parallel and init-mode flags the port lacks).  One
+input runs the pipeline (``run``); several run as one batch
 (``run_batch``), one output directory and one printed line per geometry.
 """
 
@@ -50,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="min/max switch threshold (subs.f90:471)")
     p.add_argument("--minmax-avg-halfwidth", type=int,
                    default=d.minmax_avg_halfwidth,
-                   help="halfwidth of the min/max switch average")
+                   help="halfwidth of the min/max switch average (1 only "
+                        "under --mesh-shape)")
     p.add_argument("--band-radius", type=float, default=d.band_radius,
                    help="active narrow band, units of dx (subs.f90:194)")
     p.add_argument("--stencil-band-radius", type=float,
@@ -85,6 +86,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "fallback) or 'cpu' (their plain PyTorch versions)")
     p.add_argument("--out-dir", default=None)
     p.add_argument("--no-outputs", action="store_true")
+    p.add_argument("--no-gather-results", dest="gather_results",
+                   action="store_false", default=d.gather_results,
+                   help="under --mesh-shape: keep the full fields as device "
+                        "blocks in the result instead of gathering them to "
+                        "host numpy")
+    p.add_argument("--mesh-shape", default=None,
+                   help="shard mesh for 3D domain decomposition, e.g. "
+                        "'2,2,1', or 'auto' for one shard per visible "
+                        "device (default: no decomposition); more shards "
+                        "than devices are placed round-robin")
+    p.add_argument("--steps-per-exchange", type=int,
+                   default=d.steps_per_exchange,
+                   help="halo-deep pipelining depth k: k reinit steps per "
+                        "width-3k halo exchange")
+    p.add_argument("--overlap", action="store_true", default=d.overlap,
+                   help="overlap the halo exchange with interior compute: "
+                        "the interior launch runs beside the halo copies, "
+                        "the shell bricks after arrival; needs --narrow-band "
+                        "off and --steps-per-exchange 1")
     return p
 
 
@@ -96,7 +116,12 @@ def config_from_args(args) -> LevelSetConfig:
         if q not in QuirkConfig.__dataclass_fields__:
             raise SystemExit(f"unknown quirk {q!r}; known: "
                              f"{', '.join(QuirkConfig.__dataclass_fields__)}")
+    mesh_shape = (args.mesh_shape if args.mesh_shape == "auto" else
+                  tuple(int(x) for x in args.mesh_shape.split(","))
+                  if args.mesh_shape else None)
     return LevelSetConfig(
+        mesh_shape=mesh_shape, steps_per_exchange=args.steps_per_exchange,
+        overlap=args.overlap, gather_results=args.gather_results,
         dx=args.dx, pad_cells=args.pad_cells,
         init_culling=args.init_culling, init_cull_block=args.init_cull_block,
         reinit_iters=args.reinit_iters, reinit_cfl=args.reinit_cfl,

@@ -45,7 +45,7 @@ def render_from_vertices(vertices, elements, grid: Grid3D, *, eye, target,
     if mesh is not None:
         raise NotImplementedError(
             "the sharded differentiable path (mesh=) is not ported yet: "
-            "ROADMAP Queue 1 item 11, domain decomposition")
+            "ROADMAP Queue 1 item 11b, the sharded differentiable solvers")
     dx = grid.dx
     phi = signed_distance_init(grid, vertices, elements,
                                dtype=vertices.dtype, device=vertices.device,

@@ -1,7 +1,13 @@
 """End-to-end pipeline: STL -> SDF init -> reinit -> min/max smoothing ->
-node advection -> final reinit -> outputs (port of the single-device
-branch of ``levelsetfortran_tpu/pipeline/run.py``; stage order of
-``set3d.f90:85-654``).
+node advection -> final reinit -> outputs (port of the single-device and
+the ``mesh_shape`` branches of ``levelsetfortran_tpu/pipeline/run.py``;
+stage order of ``set3d.f90:85-654``).
+
+With ``config.mesh_shape`` the grid is cut into the blocks of a shard mesh
+and stays in blocks from the init to the outputs: sharded init,
+:class:`~..parallel.sharded.ShardedLevelSet` for the three solver stages,
+sharded advection, ``.vti`` files streamed in z-slabs.  It is the way to
+run a grid that one device does not hold.
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from ..config import LevelSetConfig
 from ..grid import grid as gridmod
 from ..io.s3d import read_s3d, write_s3d
 from ..io.stl import SurfaceMesh, read_stl
-from ..io.vti import write_vti
-from ..ops.init_sign import signed_distance_init
+from ..io.vti import write_vti, write_vti_streaming
+from ..ops.init_sign import signed_distance_init, signed_distance_init_sharded
+from ..parallel.mesh import default_devices, factor3, make_mesh
+from ..parallel.sharded import ShardedLevelSet, advect_nodes_sharded
 from ..solvers.advect import advect_nodes
 from ..solvers.minmax_flow import minmax_flow, minmax_flow_narrowband
 from ..solvers.reinit import reinit, reinit_narrowband, rms_denominator
@@ -28,7 +36,9 @@ from ..utils.logging import StageTimer, log_event
 
 @dataclasses.dataclass
 class PipelineResult:
-    """Pipeline outputs; the three phi fields are host float64 numpy."""
+    """Pipeline outputs.  The three phi fields are host float64 numpy;
+    under a mesh with ``config.gather_results=False`` they stay lists of
+    block tensors in shard order, each on its shard's device."""
     mesh: SurfaceMesh
     grid: gridmod.Grid3D
     phi_init: np.ndarray          # after initial reinit (vti #1 field)
@@ -72,6 +82,14 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+    if cfg.checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoint_dir: checkpointed, resumable solves (with and "
+            "without a mesh) are not ported yet: ROADMAP Queue 1 item 9")
+    if cfg.mesh_shape:
+        return _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
+                                 write_outputs)
 
     # --- grid setup (set3d.f90:89-173) ---
     grid = gridmod.from_surface(mesh.vertices, cfg.dx, cfg.pad_cells)
@@ -145,12 +163,9 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     sync()
     timer.mark("total")                     # set3d.f90:652-654
 
-    def host(t):
-        return t.detach().to("cpu", torch.float64).numpy()
-
     phi_init_h, phi_smoothed_h, phi_final_h = (
-        host(phi_init), host(phi_smoothed), host(rf.phi))
-    advected_h = host(adv.positions)
+        _host(phi_init), _host(phi_smoothed), _host(rf.phi))
+    advected_h = _host(adv.positions)
     log_event("reinit", iterations=r.iterations, rms=r.final_rms,
               diverged=r.diverged)
     log_event("minmax", iterations=m.iterations, rms=m.final_rms,
@@ -173,3 +188,120 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
         reinit_iters=r.iterations, minmax_iters=m.iterations,
         reinit_diverged=r.diverged, minmax_diverged=m.diverged,
         timers=dict(timer.marks))
+
+
+def _host(t):
+    return t.detach().to("cpu", torch.float64).numpy()
+
+
+def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
+                      write_outputs) -> PipelineResult:
+    """The domain-decomposed pipeline (``run.py:108-228, 306-391`` of the
+    JAX package): every O(grid) field is a list of blocks throughout."""
+    dtype = cfg.dtype
+    banded = cfg.narrow_band != "off"
+    if cfg.overlap and (banded or cfg.steps_per_exchange != 1):
+        raise ValueError(
+            "overlap runs the exchange beside the dense single-step "
+            "kernel: it needs narrow_band='off' and steps_per_exchange=1")
+    if cfg.minmax_avg_halfwidth != 1:
+        raise NotImplementedError(
+            "minmax_avg_halfwidth != 1 under mesh_shape: the sharded "
+            "min/max step takes the reference's 3x3x3 average only")
+    devices = default_devices(device)
+    mesh_shape = cfg.mesh_shape
+    if mesh_shape == "auto":
+        mesh_shape = factor3(len(devices))
+    smesh = make_mesh(mesh_shape, devices)
+
+    def sync():
+        for d in set(smesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # --- grid setup: every axis a multiple of the mesh ---
+    grid = gridmod.from_surface(mesh.vertices, cfg.dx, cfg.pad_cells,
+                                smesh.shape)
+    dxx = cfg.dx / gridmod.surface_diag(mesh.vertices)   # set3d.f90:301
+
+    # --- the solver: its constructor checks the blocks' sizes ---
+    solver = ShardedLevelSet(
+        smesh, grid.shape, cfg.dx, eps_scale=cfg.weno_eps_scale,
+        eps_floor=cfg.eps_floor, quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero,
+        steps_per_exchange=cfg.steps_per_exchange, narrow_band=banded,
+        band_radius=cfg.stencil_band_radius, overlap=cfg.overlap)
+    log_event("grid", shape=list(grid.shape), dx=cfg.dx, device=str(device),
+              mesh=list(smesh.shape),
+              devices=sorted({str(d) for d in smesh.devices}),
+              steps_per_exchange=solver.k, narrow_band=banded,
+              overlap=solver.use_overlap)
+
+    # --- sharded exact signed-distance init ---
+    phi0 = signed_distance_init_sharded(
+        grid, mesh.vertices, mesh.elements, smesh, dtype=dtype,
+        culling=None if cfg.init_culling == "off" else "auto",
+        cull_block=cfg.init_cull_block)
+    sync()
+    timer.mark("search")
+
+    # --- the solver stages on the blocks ---
+    phi_init, r_it, r_rms = solver.reinit(
+        phi0, cfg.reinit_cfl * dxx, cfg.reinit_iters, cfg.reinit_tol)
+    sync()
+    timer.mark("initialization")
+
+    phi_smoothed, m_it, m_rms = solver.minmax_flow(
+        phi_init, cfg.minmax_cfl * dxx, cfg.minmax_iters, cfg.minmax_tol,
+        band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
+    sync()
+    timer.mark("minmax")
+
+    # --- node advection: phi stays in blocks, the nodes are replicated ---
+    adv = advect_nodes_sharded(
+        smesh, phi_smoothed, grid,
+        torch.as_tensor(mesh.vertices, dtype=dtype, device=smesh.devices[0]),
+        cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
+        order=cfg.advect_grad_order, stencil_radius=cfg.stencil_band_radius,
+        quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
+    sync()
+    timer.mark("advect")
+
+    # --- asymptotic error from the blocks (set3d.f90:508-521) ---
+    total = 0.0
+    for a, b in zip(phi_smoothed, phi_init):
+        d = a - b
+        total += float(torch.sum(d * d))
+    asym = math.sqrt(total / rms_denominator(grid.shape))
+
+    # --- final reinit (set3d.f90:576-582) ---
+    phi_final, _, f_rms = solver.reinit(
+        phi_smoothed, cfg.final_reinit_cfl * dxx, cfg.final_reinit_iters,
+        cfg.reinit_tol)
+    sync()
+    timer.mark("total")
+
+    advected_h = _host(adv.positions)
+    r_div, m_div = math.isnan(r_rms), math.isnan(m_rms)
+    log_event("reinit", iterations=r_it, rms=r_rms, diverged=r_div)
+    log_event("minmax", iterations=m_it, rms=m_rms, diverged=m_div)
+    log_event("asymptotic_error", rms=asym)
+
+    if write_outputs:
+        os.makedirs(out_dir, exist_ok=True)
+        write_vti_streaming(
+            os.path.join(out_dir, "signedDistanceFunction.vti"), phi_init,
+            grid, smesh)
+        write_vti_streaming(
+            os.path.join(out_dir, "smoothedDistanceFunction.vti"),
+            phi_smoothed, grid, smesh)
+        write_s3d(os.path.join(out_dir, base + ".s3d"), mesh, advected_h)
+        log_event("outputs", dir=out_dir)
+
+    fields = (phi_init, phi_smoothed, phi_final)
+    if cfg.gather_results:
+        fields = tuple(_host(solver.gather(f, "cpu")) for f in fields)
+    return PipelineResult(
+        mesh=mesh, grid=grid, phi_init=fields[0], phi_smoothed=fields[1],
+        phi_final=fields[2], advected=advected_h, asymptotic_error=asym,
+        reinit_iters=r_it, minmax_iters=m_it, reinit_diverged=r_div,
+        minmax_diverged=m_div, timers=dict(timer.marks))

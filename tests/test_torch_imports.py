@@ -36,7 +36,7 @@ def test_every_module_imports_without_jax_or_triton():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 25
+    assert int(r.stdout.split()[-1]) >= 40
 
 
 def test_reference_defaults_round_trip():
@@ -69,10 +69,20 @@ def test_copies_every_field_and_ignores_use_pallas():
 
 
 @pytest.mark.parametrize("field", [
-    dict(mesh_shape=(2, 2, 2)), dict(checkpoint_dir="/nonexistent"),
-    dict(init_mode="reference"), dict(steps_per_exchange=2),
-    dict(gather_results=False), dict(metrics_every=5),
-    dict(dtype=jnp.bfloat16)])
+    dict(mesh_shape=(2, 2, 2)), dict(steps_per_exchange=2),
+    dict(gather_results=False), dict(overlap=True),
+    dict(mesh_shape="auto")])
+def test_carries_the_sharding_fields_across(field):
+    cfg = LevelSetConfig.from_reference_fields(
+        dataclasses.asdict(JaxConfig(**field)))
+    (name, value), = field.items()
+    assert getattr(cfg, name) == value
+    assert cfg == LevelSetConfig(**field)
+
+
+@pytest.mark.parametrize("field", [
+    dict(checkpoint_dir="/nonexistent"), dict(init_mode="reference"),
+    dict(metrics_every=5), dict(dtype=jnp.bfloat16)])
 def test_raises_on_fields_the_port_lacks(field):
     with pytest.raises(ValueError):
         LevelSetConfig.from_reference_fields(
