@@ -50,7 +50,21 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      B's fields, the block-mode counters read around it and the solo
      kernels' counters zero; then its solver stages once more at fixed
      counts, dense, with two steps per exchange and overlapped, bitwise
-     equal to each other and to the solo dense solvers.
+     equal to each other and to the solo dense solvers;
+  7. the block and banded modes of the adjoint kernels K5 and K6 (phase
+     2d): block mode on the bench sphere of ``bench.py:328-363`` (256^3)
+     cut (2,2,1) and on (66, 46, 38) cut (2,2,2), every shard against its
+     plain version and a second launch, the gathered owned cotangents
+     against the solo kernel, bitwise; banded mode on the bench sphere with
+     a real mask, against its plain version and (K6) the dense kernel;
+  8. run G (phase 4b), run D with a (2,2,1) shard mesh on one card: the
+     sharded init, ``reinit_fixed_sharded`` and ``minmax_fixed_sharded``
+     (the block modes of K1/K3/K5/K6), against run D in the same call;
+     then the two sharded solvers alone on run D's own init against the
+     solo solvers, bitwise; and the differentiable narrow-band solves
+     (phase 4c) on the bench sphere: ``reinit_scan_banded`` beside the
+     dense solve, ``minmax_scan(banded=True)`` bitwise the dense one, the
+     banded sharded reinit bitwise the solo banded one.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per run.
 """
@@ -102,6 +116,10 @@ RUN_E_BOXES = ((0.8, 0.8, 0.8), (0.8, 0.5, 0.3), (0.4, 0.8, 0.6),
                (0.6, 0.6, 0.8))
 #: The pack kernels' checks: B geometries, geometry FROZEN not stepping.
 PACK_B, FROZEN = 8, 3
+#: The JAX package's banded-gradient bench (``bench.py:328-363``): |x| - 0.6
+#: on 256^3 points of [-1, 1]^3, h = 0.1 dx.
+BENCH_N, BENCH_R = 256, 0.6
+BENCH_DX = 2.0 / (BENCH_N - 1)
 
 
 def phase(name, msg):
@@ -500,7 +518,10 @@ def run_d_phase(ball, card, record, n=256):
         p = wc.reinit_step(p, phi0, dx, 0.1 * dx)
     adjoint_checks(record, p, phi0, split["phi1"], dx, 0.1 * dx,
                    0.01 * dx * dx, False, label=" run D's inputs")
-    return launches
+    del p, split["phi1"]
+    torch.cuda.empty_cache()
+    return launches, {"loss": loss, "grad": grad, "wall": wall, "peak": peak,
+                      "phi0": phi0, "grid": grid, "kw": kw}
 
 
 def stage_split(v, elements, grid, target, kw):
@@ -1075,6 +1096,426 @@ def run_f_phase(ball, ball_sdf, res_b, card, tmp):
     return launches
 
 
+def owned_near(geom, reach):
+    """Cells of the global grid within ``reach`` of ``geom``'s owned box:
+    the cells whose stencil cotangents a block-mode K5 evaluates (reach 3),
+    or the owned cells (reach 0)."""
+    box, n = geom.box(), 1
+    for a, g in enumerate(geom.gshape):
+        n *= min(box[2 * a + 1] + reach, g) - max(box[2 * a] - reach, 0)
+    return n
+
+
+def band_cells_owned(block, geom, dx, radius=4.1):
+    """Owned cells of a block that a min/max step updates: in band and
+    inside the global grid's faces."""
+    from levelsetfortran_tpu_torch.ops.stencil import global_interior_mask
+    origin = tuple(geom.box()[2 * a] for a in range(3))
+    band = block.abs() < float(np.float32(radius) * np.float32(dx))
+    return int((band & global_interior_mask(block.shape, origin, geom.gshape,
+                                             1, block.device)).sum())
+
+
+def rel_errs(k, p, nf):
+    """Field cotangents relative to the plain version's max |cot|, the
+    scalars relative to themselves."""
+    fields = [err(a, b) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(k[:nf], p[:nf])]
+    scalars = [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+               for a, b in zip(k[nf:], p[nf:])]
+    return fields, max(scalars)
+
+
+def block_adjoint_holds(kid, mesh, shape, fields, width, geoms, kern, plain,
+                        solo, tol):
+    """One block-mode adjoint on every shard: against a second launch
+    (bitwise) and its plain version (relative to max|cot|, and its
+    max_abs_err), the gathered owned cotangents against the solo kernel on
+    the whole grid (bitwise) and the shards' scalar sums, added in shard
+    order, against the solo ones.  Returns (max_abs_err, scalar rel vs
+    solo, pads)."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel.halo import halo_exchange
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         split_blocks)
+    pads = [halo_exchange(split_blocks(mesh, f), width, mesh) for f in fields]
+    e, outs = 0.0, []
+    nf = len(solo) - 2
+    for args in zip(*pads, geoms):
+        k, k2, p = kern(*args), kern(*args), plain(*args)
+        check(all(torch.equal(a, b) for a, b in zip(k, k2)),
+              f"{kid} block {shape}: two launches differ")
+        rels, srel = rel_errs(k, p, nf)
+        check(max(rels) <= tol and srel <= ADJ_TOL["scalars"],
+              f"{kid} block {shape}: rel errors {rels}, scalars {srel:.3g} "
+              f"against the plain version")
+        e = max(e, *(err(a, b) for a, b in zip(k[:nf], p[:nf])))
+        outs.append(k)
+    for i in range(nf):
+        whole = gather_blocks(mesh, [o[i] for o in outs])
+        check(torch.equal(whole, solo[i]),
+              f"{kid} block {shape}: gathered field cotangent {i} differs "
+              f"from the solo kernel's ({err(whole, solo[i]):.3g})")
+    srel = 0.0
+    for i in range(nf, len(solo)):
+        total = 0.0
+        for o in outs:
+            total += float(o[i])
+        srel = max(srel, abs(total - float(solo[i]))
+                   / max(abs(float(solo[i])), 1e-30))
+    check(srel <= 1e-9, f"{kid} block {shape}: shard sums rel {srel:.3g}")
+    return e, srel, pads
+
+
+def adjoint_mode_phase(record):
+    """Phase 2d: the block and banded modes of K5 and K6 on the card.
+    Block: the bench sphere (256^3) cut (2,2,1) and (66,46,38) cut (2,2,2),
+    each shard against its plain version and a second launch, the gathered
+    owned cotangents against the solo kernel, bitwise.  Banded: the bench
+    sphere with a real mask, against the plain version and (K6) the dense
+    kernel, bitwise."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
+
+    for shape, mshape, dx in (((BENCH_N,) * 3, (2, 2, 1), BENCH_DX),
+                              ((66, 46, 38), (2, 2, 2), 0.05)):
+        main = shape[0] == BENCH_N
+        mesh = make_mesh(mshape, ["cuda"])
+        phi, sgn = sphere(shape, dx, BENCH_R), sphere(shape, dx,
+                                                      1.1 * BENCH_R)
+        h, h1 = 0.1 * dx, 0.01 * dx * dx
+        g = torch.tensor(np.random.default_rng(7).standard_normal(shape),
+                         dtype=torch.float32, device="cuda")
+        mphi = wc.reinit_step(phi, sgn, dx, h)
+        w5, w6 = (sh.sharded_widths(mesh, wc.VJP_HALO[k])
+                  for k in ("reinit", "minmax"))
+        g5, g6 = sh.reinit_geoms(mesh, shape, w5), sh.minmax_geoms(
+            mesh, shape, w6)
+        e5, s5, p5 = block_adjoint_holds(
+            "K5", mesh, shape, (phi, sgn, g), w5, g5,
+            lambda a, b, c, ge: wc.reinit_step_block_vjp(a, b, c, dx, h, ge),
+            lambda a, b, c, ge: wc.reinit_step_block_vjp_plain(
+                a, b, c, dx, h, ge),
+            wc.reinit_step_vjp(phi, sgn, g, dx, h), ADJ_TOL["K5"])
+        e6, s6, p6 = block_adjoint_holds(
+            "K6", mesh, shape, (mphi, g), w6, g6,
+            lambda a, c, ge: mc.minmax_step_block_vjp(a, c, dx, h1, ge),
+            lambda a, c, ge: mc.minmax_step_block_vjp_plain(a, c, dx, h1,
+                                                            ge),
+            mc.minmax_step_vjp(mphi, g, dx, h1), ADJ_TOL["K6"])
+        record["reinit_step_block_vjp"]["max_abs_err"] = max(
+            record["reinit_step_block_vjp"]["max_abs_err"], e5)
+        record["minmax_step_block_vjp"]["max_abs_err"] = max(
+            record["minmax_step_block_vjp"]["max_abs_err"], e6)
+        phase("kernels", f"K5 block / K6 block {shape} on {mshape}, padded "
+              f"blocks {tuple(p5[0][0].shape)} / {tuple(p6[0][0].shape)}: "
+              f"max_abs_err vs plain {e5:.3g} / {e6:.3g} (tol "
+              f"{ADJ_TOL['K5']:g} / {ADJ_TOL['K6']:g} of max|cot|), two "
+              f"launches bitwise equal, gathered owned cotangents bitwise "
+              f"equal to the solo kernel's, shard sums rel {s5:.3g} / "
+              f"{s6:.3g} (tol 1e-9)")
+        if main:
+            scratch = torch.empty((21,) + tuple(p5[0][0].shape),
+                                  device="cuda")
+            a5 = [x[0] for x in p5] + [g5[0]]
+            b5 = [[x[i] for x in p5] + [g5[i]] for i in range(len(g5))]
+            rec = record["reinit_step_block_vjp"]
+            rec["ms"] = median_ms(lambda: wc.reinit_step_block_vjp(
+                *a5[:3], dx, h, a5[3], scratch=scratch), 20)
+            rec["plain_ms"] = median_ms(lambda: wc.reinit_step_block_vjp_plain(
+                *a5[:3], dx, h, a5[3]), 3)
+            rec["all_blocks_ms"] = median_ms(lambda: [
+                wc.reinit_step_block_vjp(*b[:3], dx, h, b[3], scratch=scratch)
+                for b in b5], 20)
+            rec["solo_ms"] = median_ms(lambda: wc.reinit_step_vjp(
+                phi, sgn, g, dx, h), 20)
+            near, own = owned_near(g5[0], 3), owned_near(g5[0], 0)
+            rec["shape"], rec["cells"] = list(p5[0][0].shape), (near, own)
+            rec.update(bound(12 * in_grid_cells(p5[0][0], g5[0]) + 8 * own,
+                             OPS["reinit_vjp"] * near))
+            a6 = [x[0] for x in p6] + [g6[0]]
+            b6 = [[x[i] for x in p6] + [g6[i]] for i in range(len(g6))]
+            rec = record["minmax_step_block_vjp"]
+            rec["ms"] = median_ms(lambda: mc.minmax_step_block_vjp(
+                *a6[:2], dx, h1, a6[2]), 20)
+            rec["plain_ms"] = median_ms(lambda: mc.minmax_step_block_vjp_plain(
+                *a6[:2], dx, h1, a6[2]), 10)
+            rec["all_blocks_ms"] = median_ms(lambda: [
+                mc.minmax_step_block_vjp(*b[:2], dx, h1, b[2]) for b in b6],
+                20)
+            rec["solo_ms"] = median_ms(lambda: mc.minmax_step_vjp(
+                mphi, g, dx, h1), 20)
+            own = owned_near(g6[0], 0)
+            owned_block = p6[0][0][tuple(
+                slice(w, w + n) for w, n in zip(w6, mesh.block_shape(shape)))]
+            rec["shape"], rec["cells"] = list(p6[0][0].shape), (own, own)
+            rec.update(bound(8 * in_grid_cells(p6[0][0], g6[0]) + 4 * own,
+                             OPS["minmax_vjp_band"] * band_cells_owned(
+                                 owned_block, g6[0], dx)
+                             + OPS["minmax_vjp"] * own))
+            del scratch, a5, b5, a6, b6
+            banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1)
+        del p5, p6, phi, sgn, mphi, g
+        torch.cuda.empty_cache()
+    for name in ("reinit_step_block_vjp", "minmax_step_block_vjp"):
+        rec = record[name]
+        phase("kernels", f"{name}, one padded block {tuple(rec['shape'])} "
+              f"of {(BENCH_N,) * 3} on (2, 2, 1): kernel {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']}; {rec['cells'][0]} cells evaluated, "
+              f"{rec['cells'][1]} owned); the 4 blocks "
+              f"{rec['all_blocks_ms']:.4f} ms vs one solo launch on the "
+              f"whole grid {rec['solo_ms']:.4f} ms")
+    for name in ("reinit_step_vjp_banded", "minmax_step_vjp_banded"):
+        rec = record[name]
+        phase("kernels", f"{name} at {(BENCH_N,) * 3}: kernel "
+              f"{rec['ms']:.4f} ms (dense {rec['dense_ms']:.4f} ms), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}; {rec['active_cells']} cells in active "
+              f"bricks)")
+
+
+def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
+    """The banded K5 and K6 at the bench's setting (``bench.py:328-363``):
+    K5 with the band4 mask of a chunk of 5 steps (band radius 8.1, margin
+    5 h / dx), K6 with the band4 mask of its own input; each against its
+    plain version and a second launch, K6 also against the dense kernel,
+    bitwise (fields and sums)."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+
+    act5 = wc.tile_activity(phi, dx, 8.1, 5 * h / dx, window="band4")
+    act6 = wc.tile_activity(mphi, dx, 4.1, window="band4")
+    cells = phi.numel()
+    for name, kid, act, kern, dense, plain, nf, tol in (
+            ("reinit_step_vjp_banded", "K5", act5,
+             lambda: wc.reinit_step_vjp_banded(phi, sgn, g, dx, h, act5),
+             lambda: wc.reinit_step_vjp(phi, sgn, g, dx, h),
+             lambda: wc.reinit_step_vjp_plain(phi, sgn, g, dx, h,
+                                              active=act5), 2, ADJ_TOL["K5"]),
+            ("minmax_step_vjp_banded", "K6", act6,
+             lambda: mc.minmax_step_vjp_banded(mphi, g, dx, h1, act6),
+             lambda: mc.minmax_step_vjp(mphi, g, dx, h1),
+             lambda: mc.minmax_step_vjp_plain(mphi, g, dx, h1, active=act6),
+             1, ADJ_TOL["K6"])):
+        frozen = int(act.numel() - act.sum())
+        check(0 < frozen < act.numel(), f"{kid} banded: the mask skips "
+              f"nothing or everything ({frozen}/{act.numel()})")
+        k, k2, p = kern(), kern(), plain()
+        check(all(torch.equal(a, b) for a, b in zip(k, k2)),
+              f"{kid} banded: two launches differ")
+        rels, srel = rel_errs(k, p, nf)
+        e = max(err(a, b) for a, b in zip(k[:nf], p[:nf]))
+        check(max(rels) <= tol and srel <= ADJ_TOL["scalars"],
+              f"{kid} banded: rel errors {rels}, scalars {srel:.3g}")
+        same = ""
+        if kid == "K6":
+            check(all(torch.equal(a, b) for a, b in zip(k, dense())),
+                  "K6 banded differs from the dense kernel")
+            same = ", bitwise equal to the dense kernel (field and sums)"
+        live = int(wc.brick_cells(act, phi.shape).sum())
+        rec = record[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        rec["ms"] = median_ms(kern, 20)
+        rec["dense_ms"] = median_ms(dense, 20)
+        rec["plain_ms"] = median_ms(plain, 3)
+        rec["active_cells"] = live
+        if kid == "K5":
+            rec.update(bound(4 * cells + 8 * live + 8 * cells,
+                             OPS["reinit_vjp"] * live))
+        else:
+            rec.update(bound(4 * cells + 4 * live + 4 * cells,
+                             OPS["minmax_vjp_band"] * band_cells(mphi, dx)
+                             + OPS["minmax_vjp"] * live))
+        phase("kernels", f"{kid} banded {tuple(phi.shape)}: {frozen}/"
+              f"{act.numel()} bricks frozen; rel errors "
+              f"{', '.join(f'{r:.3g}' for r in rels)} (tol {tol:g} of "
+              f"max|cot|), max_abs_err {e:.3g}, scalars rel {srel:.3g}, two "
+              f"launches bitwise equal{same}")
+
+
+def run_g_phase(ball, card, run_d):
+    """Phase 4b, run G: run D's configuration with a (2,2,1) shard mesh on
+    one card, against run D in the same call; then the two sharded solvers
+    alone on run D's own init, against the solo solvers, bitwise."""
+    import torch
+    from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import reverse
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh,
+                                                         split_blocks)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
+        minmax_flow_fixed
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+
+    grid = run_d["grid"]
+    mesh = make_mesh((2, 2, 1), ["cuda"])
+    kw = dict(run_d["kw"], culling="auto", mesh=mesh)
+    v = torch.tensor(ball.vertices, dtype=torch.float32, device="cuda")
+    target = torch.zeros((64, 64), device="cuda")
+    solo = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
+            wc.reinit_step_vjp, mc.minmax_step_vjp, wc.reinit_step_vjp_banded,
+            mc.minmax_step_vjp_banded)
+    blocky = (wc.reinit_step_block, mc.minmax_step_block,
+              wc.reinit_step_block_vjp, mc.minmax_step_block_vjp)
+    reverse.last_branch.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in solo + blocky:
+        c.launches = 0
+    (loss, grad), wall = sync_time(lambda: image_loss_and_vertex_grad(
+        v, ball.elements, grid, target, **kw))
+    launches = {c.__name__: c.launches for c in solo + blocky}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    branches = dict(reverse.last_branch)
+    gmax = float(grad.abs().max())
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
+          "run G: non-finite loss or gradient")
+    check(gmax > 0.0, "run G: zero vertex gradient")
+    check(all(launches[c.__name__] > 0 for c in blocky),
+          f"run G: a block-mode kernel never launched {launches}")
+    check(all(launches[c.__name__] == 0 for c in solo),
+          f"run G: solo kernels launched under a mesh {launches}")
+    check(branches == {"reinit_fixed_sharded": "flat",
+                       "minmax_fixed_sharded": "flat"},
+          f"run G: reverse branches {branches}")
+    lrel = abs(float(loss) - float(run_d["loss"])) / abs(float(run_d["loss"]))
+    gd = run_d["grad"]
+    gerr = float((grad - gd).abs().max())
+    dmax = float(gd.abs().max())
+    check(lrel <= 1e-4 and torch.allclose(grad, gd, atol=1e-4 * dmax,
+                                          rtol=1e-3),
+          f"run G vs run D: loss rel {lrel:.3g}, grad max err {gerr:.3g}")
+    blk = mesh.block_shape(grid.shape)
+    mib = 4 * blk[0] * blk[1] * blk[2] / 2 ** 20
+    phase("run G", f"run D with mesh (2, 2, 1) on 1 card, blocks {blk}: loss "
+          f"{float(loss):.6g} (run D {float(run_d['loss']):.6g}, rel "
+          f"{lrel:.3g}, tol 1e-4), max|grad| {gmax:.6g}, grad max err vs "
+          f"run D {gerr:.3g} (atol 1e-4 of {dmax:.4g}, rtol 1e-3); launches "
+          f"{launches}; reverse branches per shard ({mib:.1f} MiB blocks) "
+          f"{branches}; peak {peak:.2f} GiB (run D {run_d['peak']:.2f}); "
+          f"forward+backward wall {wall:.3f} s (run D {run_d['wall']:.3f} s; "
+          f"the sharded init builds its culling per block inside it); card "
+          f"{card}")
+
+    # the solvers alone on run D's own init: solo and sharded, bitwise
+    dx = grid.dx
+    phi0 = run_d["phi0"]
+    wgt = torch.tensor(np.random.default_rng(11).standard_normal(
+        grid.shape), dtype=torch.float32, device="cuda")
+    steps = (kw["reinit_steps"], kw["minmax_steps"])
+
+    def solo_solve():
+        x = phi0.clone().requires_grad_(True)
+        p1 = reinit_fixed(x, dx, 0.1 * dx, steps[0])
+        p2 = minmax_flow_fixed(p1, dx, 0.01 * dx * dx, steps[1])
+        torch.sum(wgt * p2).backward()
+        return p1.detach(), p2.detach(), x.grad
+
+    def sharded_solve():
+        xs = [b.requires_grad_(True) for b in split_blocks(mesh, phi0)]
+        p1 = sh.reinit_fixed_sharded(mesh, xs, dx, 0.1 * dx, steps[0])
+        p2 = sh.minmax_fixed_sharded(mesh, p1, dx, 0.01 * dx * dx, steps[1])
+        torch.sum(wgt * gather_blocks(mesh, p2)).backward()
+        return (gather_blocks(mesh, [p.detach() for p in p1]),
+                gather_blocks(mesh, [p.detach() for p in p2]),
+                gather_blocks(mesh, [x.grad for x in xs]))
+
+    ref, t_solo = sync_time(solo_solve)
+    got, t_sh = sync_time(sharded_solve)
+    for i, what in enumerate(("reinit output", "min/max output",
+                              "gradient")):
+        check(torch.equal(got[i], ref[i]),
+              f"run G solvers: sharded {what} differs from the solo "
+              f"solvers' ({err(got[i], ref[i]):.3g})")
+    phase("run G", f"the sharded solvers alone on run D's init ({steps[0]} "
+          f"reinit + {steps[1]} min/max steps, a normal cotangent): reinit "
+          f"and min/max outputs and the gradient bitwise equal to the solo "
+          f"reinit_fixed / minmax_flow_fixed; forward+backward wall "
+          f"{t_sh:.3f} s vs solo {t_solo:.3f} s; card {card}")
+    return launches
+
+
+def banded_solves_phase(card):
+    """Phase 4c: the differentiable narrow-band solves on the bench sphere
+    (256^3): reinit_scan_banded (20 steps, masks every 5) beside the dense
+    reinit_fixed, minmax_scan(banded=True) bitwise the dense one, and the
+    banded sharded reinit on (2,2,1) bitwise the solo banded one."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh,
+                                                         split_blocks)
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+
+    shape, dx = (BENCH_N,) * 3, BENCH_DX
+    phi = sphere(shape, dx, BENCH_R)
+    h, h1 = 0.1 * dx, 0.01 * dx * dx
+    wgt = torch.tensor(np.random.default_rng(12).standard_normal(shape),
+                       dtype=torch.float32, device="cuda")
+    counters = (wc.reinit_step_vjp_banded, mc.minmax_step_vjp_banded,
+                wc.reinit_step_block_vjp)
+    for c in counters:
+        c.launches = 0
+
+    def timed(fn):
+        """Forward (recording the graph) and backward walls, the output and
+        the gradient."""
+        x = phi.clone().requires_grad_(True)
+        out, t_f = sync_time(lambda: fn(x))
+        _, t_b = sync_time(lambda: torch.sum(wgt * out).backward())
+        return out.detach(), x.grad, t_f, t_b
+
+    rb = timed(lambda x: wc.reinit_scan_banded(x, dx, h, 20, band_radius=8.1,
+                                               refresh_every=5))
+    rd = timed(lambda x: reinit_fixed(x, dx, h, 20))
+    check(all(bool(torch.isfinite(t).all()) for t in rb[:2])
+          and float(rb[1].abs().max()) > 0, "banded reinit: gradient")
+    act = wc.tile_activity(phi, dx, 8.1, 5 * h / dx, window="band4")
+    frozen = int(act.numel() - act.sum())
+    mb = timed(lambda x: mc.minmax_scan(x, dx, h1, 20, banded=True))
+    md = timed(lambda x: mc.minmax_scan(x, dx, h1, 20))
+    check(torch.equal(mb[0], md[0]) and torch.equal(mb[1], md[1]),
+          f"banded min/max differs from dense: {err(mb[0], md[0]):.3g}, "
+          f"gradient {err(mb[1], md[1]):.3g}")
+    mesh = make_mesh((2, 2, 1), ["cuda"])
+
+    def sharded(x):
+        return gather_blocks(mesh, sh.reinit_fixed_sharded(
+            mesh, split_blocks(mesh, x), dx, h, 20, band_radius=8.1,
+            refresh_every=8))
+
+    sb = timed(sharded)
+    ob = timed(lambda x: wc.reinit_scan_banded(x, dx, h, 20, band_radius=8.1,
+                                               refresh_every=8))
+    check(torch.equal(sb[0], ob[0]) and torch.equal(sb[1], ob[1]),
+          f"banded sharded reinit differs from the solo banded one: "
+          f"{err(sb[0], ob[0]):.3g}, gradient {err(sb[1], ob[1]):.3g}")
+    launches = {c.__name__: c.launches for c in counters}
+    check(all(v > 0 for v in launches.values()),
+          f"banded solves: a kernel never launched {launches}")
+    phase("banded", f"{shape} sphere (bench.py:328-363), 20 steps, "
+          f"forward / backward walls: reinit_scan_banded (masks every 5, "
+          f"{frozen}/{act.numel()} bricks frozen at the start) {rb[2]:.3f} / "
+          f"{rb[3]:.3f} s vs dense reinit_fixed {rd[2]:.3f} / {rd[3]:.3f} s; "
+          f"minmax_scan banded {mb[2]:.3f} / {mb[3]:.3f} s vs dense "
+          f"{md[2]:.3f} / {md[3]:.3f} s, values and gradient bitwise equal; "
+          f"reinit_fixed_sharded(band_radius=8.1, refresh_every=8) on "
+          f"(2, 2, 1) {sb[2]:.3f} / {sb[3]:.3f} s, values and gradient "
+          f"bitwise equal to the solo reinit_scan_banded ({ob[2]:.3f} / "
+          f"{ob[3]:.3f} s); launches {launches}; card {card}")
+    return launches
+
+
 def box_caps(v, half_extent):
     edge = np.isclose(np.abs(v), np.float32(half_extent)).sum(1) >= 2
     return np.where(edge, 2.0, 1.5) * RUN_E_DX
@@ -1308,12 +1749,21 @@ def main() -> int:
             weno + "1938 (offsets, rms_bounds, tile_range + out_init)"),
         "minmax_step_block": (csrc + "minmax_step.cu",
                               mm + "309 (offsets)"),
+        "reinit_step_block_vjp": (csrc + "reinit_bwd.cu",
+                                  weno + "1850 (offsets)"),
+        "minmax_step_block_vjp": (csrc + "minmax_bwd.cu",
+                                  mm + "975 (offsets)"),
+        "reinit_step_vjp_banded": (csrc + "reinit_bwd.cu",
+                                   weno + "1850 (active)"),
+        "minmax_step_vjp_banded": (csrc + "minmax_bwd.cu",
+                                   mm + "975 (active)"),
     }
     record = {n: {"max_abs_err": 0.0, "library_ms": None} for n in names}
     kernel_phase(record)
     packed_phase(record, common_shape_grids(run_e_meshes()[0], RUN_E_DX,
                                             10)[0].shape)
     block_phase(record)
+    adjoint_mode_phase(record)
 
     cubes = analytic.two_cubes_mesh()
     ball = analytic.icosphere_mesh(subdivisions=5)
@@ -1342,7 +1792,11 @@ def main() -> int:
             count(launches)
         count(run_f_phase(ball, ball_sdf, results["B"], card, tmp))
         count(run_e_phase(card, tmp))
-    count(run_d_phase(ball, card, record))
+    launches, run_d = run_d_phase(ball, card, record)
+    count(launches)
+    count(run_g_phase(ball, card, run_d))
+    del run_d
+    count(banded_solves_phase(card))
     small_holds()
 
     kernels = []

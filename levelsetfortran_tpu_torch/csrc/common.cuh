@@ -80,6 +80,20 @@ inline dim3 block_launch_grid(const int* v) {
   return dim3(v[23], v[22], v[21]);          // blockIdx.x walks z
 }
 
+// The record of a solo grid as a block: the array is the whole grid, the
+// brick grid starts at its cell 0 and the owned box is the whole grid.
+inline void solo_geom(int nx, int ny, int nz, int* v) {
+  const int n[3] = {nx, ny, nz};
+  for (int a = 0; a < 3; ++a) {
+    const int nb = (n[a] + BRICK - 1) / BRICK;
+    v[a] = n[a];
+    v[3 + a] = v[6 + a] = v[12 + a] = 0;
+    v[9 + a] = v[21 + a] = nb;
+    v[15 + 2 * a] = 0;
+    v[16 + 2 * a] = n[a];
+  }
+}
+
 // Whether the brick holding array cell (i, j, k) steps (no mask: all do).
 __device__ __forceinline__ bool block_brick_active(
     const int* __restrict__ active, const BlockGeom& q, int i, int j, int k) {

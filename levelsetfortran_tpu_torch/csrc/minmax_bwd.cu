@@ -22,6 +22,22 @@
 // Face rule, as in K3: face cells never update (their cot is g) and an
 // interior cell's +-1 reads never leave the grid.
 //
+// Banded mode (`active`, one int32 per 8^3 brick): an inactive brick is a
+// pure cotangent passthrough, cot_phi = g (+ 0.0f, the dense kernel's
+// rounding of its zero terms) with zero partials.  The caller's mask is the
+// band4 dilation of the chunk-start iterate: a cell out of band never
+// updates (the gate is its own value), so no cell within 4 of an inactive
+// brick updates in the chunk, and the banded adjoint is the dense one.
+//
+// Block mode (lsf_minmax_bwd_block_f32, the TPU kernel's `offsets`): the
+// arrays are one shard's block padded with 2 neighbour cells on its
+// sharded axes (phi and the exchanged upstream cotangent g), every mask is
+// in global coordinates, the brick grid covers the owned box and cot_phi
+// has the owned box's shape.  An owned cell gathers the neighbour cells'
+// cot_lap from the halo, in the solo order, so it equals the solo kernel's
+// cell bitwise; the sums count the owned cells.  A solo grid is the block
+// whose array and owned box are the whole grid.
+//
 // What bounds it on the H100: bytes at heart (~80 float operations per cell
 // against 12 bytes of unique traffic); the seven recomputed stencils re-read
 // phi and g through L1 within the 8^3 brick.
@@ -33,26 +49,23 @@ using lsf::BRICK;
 using lsf::NT;
 
 struct MinmaxBwdParams {
-  int nx, ny, nz;
+  int nx, ny, nz;        // the array's dimensions (padded for a block)
   float h1, inv_dx2, band_dx, threshold;
 };
 
-__device__ __forceinline__ bool interior(int i, int j, int k,
-                                         const MinmaxBwdParams& p) {
-  return i >= 1 && i <= p.nx - 2 && j >= 1 && j <= p.ny - 2 && k >= 1
-         && k <= p.nz - 2;
-}
-
-// cot_lap of cell (i, j, k) for the output cotangent g; also its lap and
-// the update's cotangent of h1 (F g where the cell updates, else 0).
+// cot_lap of the cell at array offset s, global index (gi, gj, gk), for the
+// output cotangent g; also its lap and the update's cotangent of h1 (F g
+// where the cell updates, else 0).
 __device__ __forceinline__ float cell_cot_lap(
-    const float* __restrict__ phi, const float* __restrict__ g, int i, int j,
-    int k, const MinmaxBwdParams& p, float& lap, float& cot_h1) {
+    const float* __restrict__ phi, const float* __restrict__ g, long long s,
+    int gi, int gj, int gk, const MinmaxBwdParams& p, const lsf::BlockGeom& q,
+    float& lap, float& cot_h1) {
   lap = 0.0f;
   cot_h1 = 0.0f;
-  if (!interior(i, j, k, p)) return 0.0f;
+  if (!(gi >= 1 && gi <= q.g[0] - 2 && gj >= 1 && gj <= q.g[1] - 2
+        && gk >= 1 && gk <= q.g[2] - 2))
+    return 0.0f;
   const long long sx = (long long)p.ny * p.nz, sy = p.nz;
-  const long long s = i * sx + j * sy + k;
   const float c = __ldg(phi + s);
   if (!(fabsf(c) < p.band_dx)) return 0.0f;
   const float sum6 = ((((__ldg(phi + s - sx) + __ldg(phi + s + sx))
@@ -72,27 +85,41 @@ __device__ __forceinline__ float cell_cot_lap(
 __global__ void __launch_bounds__(NT)
 minmax_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ g,
                   float* __restrict__ cot_phi, MinmaxBwdParams p,
+                  lsf::BlockGeom q, const int* __restrict__ active,
                   double* __restrict__ partials) {
   __shared__ double red[NT];
-  const int k = blockIdx.x * BRICK + threadIdx.x;
-  const int j = blockIdx.y * BRICK + threadIdx.y;
-  const int i = blockIdx.z * BRICK + threadIdx.z;
+  const int i = q.c[0] + (q.t0[0] + (int)blockIdx.z) * BRICK + threadIdx.z;
+  const int j = q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK + threadIdx.y;
+  const int k = q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK + threadIdx.x;
+  const int gi = q.o[0] + i, gj = q.o[1] + j, gk = q.o[2] + k;
   double cdx = 0.0, ch = 0.0;
-  if (i < p.nx && j < p.ny && k < p.nz) {
-    const long long s = ((long long)i * p.ny + j) * p.nz + k;
-    float lap, cot_h1, unused_lap, unused_h1;
-    const float cot_lap = cell_cot_lap(phi, g, i, j, k, p, lap, cot_h1);
-    // neighbours in the order x+, x-, y+, y-, z-, z+ (the TPU kernel's)
-    const int di[6] = {1, -1, 0, 0, 0, 0};
-    const int dj[6] = {0, 0, 1, -1, 0, 0};
-    const int dk[6] = {0, 0, 0, 0, -1, 1};
-    float acc = g[s] - (6.0f * p.inv_dx2) * cot_lap;
-    for (int n = 0; n < 6; ++n)
-      acc = acc + cell_cot_lap(phi, g, i + di[n], j + dj[n], k + dk[n], p,
-                               unused_lap, unused_h1) * p.inv_dx2;
-    cot_phi[s] = acc;
-    cdx = (double)(cot_lap * lap);
-    ch = (double)cot_h1;
+  if (i >= 0 && i < p.nx && j >= 0 && j < p.ny && k >= 0 && k < p.nz
+      && gi >= 0 && gi < q.g[0] && gj >= 0 && gj < q.g[1] && gk >= 0
+      && gk < q.g[2] && lsf::in_rms_box(q, gi, gj, gk)) {
+    const long long sx = (long long)p.ny * p.nz, sy = p.nz;
+    const long long s = i * sx + j * sy + k;
+    const long long ow =
+        ((long long)(gi - q.rms[0]) * (q.rms[3] - q.rms[2]) + (gj - q.rms[2]))
+            * (q.rms[5] - q.rms[4]) + (gk - q.rms[4]);
+    if (!lsf::block_brick_active(active, q, i, j, k)) {
+      cot_phi[ow] = g[s] + 0.0f;               // frozen: passthrough
+    } else {
+      float lap, cot_h1, unused_lap, unused_h1;
+      const float cot_lap = cell_cot_lap(phi, g, s, gi, gj, gk, p, q, lap,
+                                         cot_h1);
+      // neighbours in the order x+, x-, y+, y-, z-, z+ (the TPU kernel's)
+      const int di[6] = {1, -1, 0, 0, 0, 0};
+      const int dj[6] = {0, 0, 1, -1, 0, 0};
+      const int dk[6] = {0, 0, 0, 0, -1, 1};
+      float acc = g[s] - (6.0f * p.inv_dx2) * cot_lap;
+      for (int n = 0; n < 6; ++n)
+        acc = acc + cell_cot_lap(phi, g, s + di[n] * sx + dj[n] * sy + dk[n],
+                                 gi + di[n], gj + dj[n], gk + dk[n], p, q,
+                                 unused_lap, unused_h1) * p.inv_dx2;
+      cot_phi[ow] = acc;
+      cdx = (double)(cot_lap * lap);
+      ch = (double)cot_h1;
+    }
   }
   const long long nbricks = (long long)gridDim.x * gridDim.y * gridDim.z;
   const long long brick = lsf::brick_id();
@@ -105,25 +132,52 @@ minmax_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ g,
   }
 }
 
-}  // namespace
-
-extern "C" int lsf_minmax_bwd_f32(const void* phi, const void* g,
-                                  void* cot_phi, int nx, int ny, int nz,
-                                  float h1, float inv_dx2, float band_dx,
-                                  float threshold, void* partials, void* sums,
-                                  void* stream) {
-  const MinmaxBwdParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
-  const dim3 grid = lsf::brick_grid(nx, ny, nz);
+int launch_minmax_bwd(const void* phi, const void* g, void* cot_phi,
+                      const MinmaxBwdParams& p, const int* geom,
+                      const void* active, void* partials, void* sums,
+                      void* stream) {
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const dim3 grid = lsf::block_launch_grid(geom);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   double* part = static_cast<double*>(partials);
   double* out = static_cast<double*>(sums);
   minmax_bwd_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
       static_cast<const float*>(phi), static_cast<const float*>(g),
-      static_cast<float*>(cot_phi), p, part);
+      static_cast<float*>(cot_phi), p, q, static_cast<const int*>(active),
+      part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long nb = (long long)grid.x * grid.y * grid.z;
   lsf::reduce_partials<<<1, 1024, 0, st>>>(part, nb, out);
   lsf::reduce_partials<<<1, 1024, 0, st>>>(part + nb, nb, out + 1);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Solo grid, dense (active == nullptr) or banded.
+extern "C" int lsf_minmax_bwd_f32(const void* phi, const void* g,
+                                  void* cot_phi, int nx, int ny, int nz,
+                                  float h1, float inv_dx2, float band_dx,
+                                  float threshold, const void* active,
+                                  void* partials, void* sums, void* stream) {
+  const MinmaxBwdParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_minmax_bwd(phi, g, cot_phi, p, geom, active, partials, sums,
+                           stream);
+}
+
+// Block mode: geom: BLOCK_GEOM_INTS host ints; nx, ny, nz: the padded
+// array's dimensions (the owned box and 2 cells around it inside the
+// global grid); cot_phi has the owned box's shape.
+extern "C" int lsf_minmax_bwd_block_f32(const void* phi, const void* g,
+                                        void* cot_phi, int nx, int ny, int nz,
+                                        const int* geom, float h1,
+                                        float inv_dx2, float band_dx,
+                                        float threshold, void* partials,
+                                        void* sums, void* stream) {
+  const MinmaxBwdParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
+  return launch_minmax_bwd(phi, g, cot_phi, p, geom, nullptr, partials, sums,
+                           stream);
 }

@@ -32,6 +32,25 @@
 // shared memory, would recompute each axis's adjoint 1.75x and is left to
 // later speed work.
 //
+// Banded mode (`active`, one int32 per 8^3 brick; the TPU kernel's
+// `active`): the exact transpose of K1's banded mode.  A frozen brick's
+// interior cells were copied, so their update cotangent passes through and
+// they write no stencil or sign cotangent; its global-face cells still took
+// the ghost BC, so their transpose stays (see reinit_bwd_cells).
+//
+// Block mode (lsf_reinit_bwd_block_f32; the TPU kernel's `offsets`): one
+// shard's block, padded on its sharded axes with 6 neighbour cells of phi,
+// the sign source and the upstream cotangent g.  Unlike the TPU route,
+// which scatters onto the halo and sends it back with a transpose exchange,
+// the gather form is kept: pass 1 evaluates q on every cell within 3 of the
+// owned box (its stencil reaches 3 more, hence 6), pass 2 gathers each
+// owned cell in the solo order, so an owned cell's cotangent is the solo
+// kernel's bitwise and no transpose exchange is needed.  Every mask is in
+// global coordinates; the direct and sign cotangents are pointwise, written
+// for the owned cells only (outputs in the owned box's shape); the sums
+// count the owned cells.  A solo grid runs as the block whose array and
+// owned box are the whole grid.
+//
 // What bounds it on the H100: arithmetic.  A cell's forward costs ~400
 // float operations and its adjoint about three times that, against 12
 // bytes in, 8 out and 168 bytes of scratch traffic.  Every intermediate
@@ -222,114 +241,175 @@ __device__ float axis_bwd(const float* __restrict__ phi, long long s,
   return cot_ef;
 }
 
-// The face cotangents that reach interior cell (i, j, k) through the ghost
-// BC, summed in the order of the plain version's transpose of the clamped
-// gather: z faces onto the cell's column first, then y, then x, each an
-// add of the low face then the high one.  Interior cells contribute 0.
-__device__ __forceinline__ float face_g(const float* __restrict__ g, int a,
-                                        int b, int c, const BwdParams& p) {
-  const bool inner = a >= 1 && a <= p.nx - 2 && b >= 1 && b <= p.ny - 2
-                     && c >= 1 && c <= p.nz - 2;
-  return inner ? 0.0f : g[((long long)a * p.ny + b) * p.nz + c];
+// The face cotangents that reach interior cell (i, j, k) — GLOBAL indices —
+// through the ghost BC, summed in the order of the plain version's
+// transpose of the clamped gather: z faces onto the cell's column first,
+// then y, then x, each an add of the low face then the high one.  Interior
+// cells contribute 0.  g is read at the array cell of each global index.
+struct GhostView {
+  const float* g;
+  int o[3], gn[3];       // the array's global origin, the global grid
+  long long sx, sy;      // the array's strides
+};
+
+__device__ __forceinline__ float face_g(const GhostView& v, int a, int b,
+                                        int c) {
+  const bool inner = a >= 1 && a <= v.gn[0] - 2 && b >= 1
+                     && b <= v.gn[1] - 2 && c >= 1 && c <= v.gn[2] - 2;
+  return inner ? 0.0f
+               : v.g[(a - v.o[0]) * v.sx + (b - v.o[1]) * v.sy + (c - v.o[2])];
 }
 
-__device__ __forceinline__ float ghost_z(const float* __restrict__ g, int a,
-                                         int b, int k, const BwdParams& p) {
-  float v = face_g(g, a, b, k, p);
-  if (k == 1) v = v + face_g(g, a, b, 0, p);
-  if (k == p.nz - 2) v = v + face_g(g, a, b, p.nz - 1, p);
-  return v;
+__device__ __forceinline__ float ghost_z(const GhostView& v, int a, int b,
+                                         int k) {
+  float r = face_g(v, a, b, k);
+  if (k == 1) r = r + face_g(v, a, b, 0);
+  if (k == v.gn[2] - 2) r = r + face_g(v, a, b, v.gn[2] - 1);
+  return r;
 }
 
-__device__ __forceinline__ float ghost_yz(const float* __restrict__ g, int a,
-                                          int j, int k, const BwdParams& p) {
-  float v = ghost_z(g, a, j, k, p);
-  if (j == 1) v = v + ghost_z(g, a, 0, k, p);
-  if (j == p.ny - 2) v = v + ghost_z(g, a, p.ny - 1, k, p);
-  return v;
+__device__ __forceinline__ float ghost_yz(const GhostView& v, int a, int j,
+                                          int k) {
+  float r = ghost_z(v, a, j, k);
+  if (j == 1) r = r + ghost_z(v, a, 0, k);
+  if (j == v.gn[1] - 2) r = r + ghost_z(v, a, v.gn[1] - 1, k);
+  return r;
 }
 
-__device__ __forceinline__ float ghost_gather(const float* __restrict__ g,
-                                             int i, int j, int k,
-                                             const BwdParams& p) {
-  float v = ghost_yz(g, i, j, k, p);
-  if (i == 1) v = v + ghost_yz(g, 0, j, k, p);
-  if (i == p.nx - 2) v = v + ghost_yz(g, p.nx - 1, j, k, p);
-  return v;
+__device__ __forceinline__ float ghost_gather(const GhostView& v, int i, int j,
+                                             int k) {
+  float r = ghost_yz(v, i, j, k);
+  if (i == 1) r = r + ghost_yz(v, 0, j, k);
+  if (i == v.gn[0] - 2) r = r + ghost_yz(v, v.gn[0] - 1, j, k);
+  return r;
 }
 
-// Pass 1: per cell, the direct and sign cotangents, the 21 stencil
-// cotangents (q laid out [axis * 7 + k + 3][cell]) and the scalar partials
+// A cell of the launch: its array index (i, j, k), offset s, global index
+// (gi, gj, gk), and its offset in the owned box (the outputs' layout).
+struct Cell {
+  int i, j, k, gi, gj, gk;
+  long long s, ow;
+  bool in_grid, owned;
+};
+
+__device__ __forceinline__ Cell locate(const BwdParams& p,
+                                       const lsf::BlockGeom& q) {
+  Cell c;
+  c.i = q.c[0] + (q.t0[0] + (int)blockIdx.z) * BRICK + threadIdx.z;
+  c.j = q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK + threadIdx.y;
+  c.k = q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK + threadIdx.x;
+  c.gi = q.o[0] + c.i;
+  c.gj = q.o[1] + c.j;
+  c.gk = q.o[2] + c.k;
+  c.in_grid = c.i >= 0 && c.i < p.nx && c.j >= 0 && c.j < p.ny && c.k >= 0
+              && c.k < p.nz && c.gi >= 0 && c.gi < q.g[0] && c.gj >= 0
+              && c.gj < q.g[1] && c.gk >= 0 && c.gk < q.g[2];
+  c.owned = c.in_grid && lsf::in_rms_box(q, c.gi, c.gj, c.gk);
+  c.s = ((long long)c.i * p.ny + c.j) * p.nz + c.k;
+  c.ow = ((long long)(c.gi - q.rms[0]) * (q.rms[3] - q.rms[2])
+          + (c.gj - q.rms[2])) * (q.rms[5] - q.rms[4]) + (c.gk - q.rms[4]);
+  return c;
+}
+
+// Pass 1: for every in-grid cell within 3 of the owned box (the cells whose
+// stencil cotangents an owned cell gathers), the 21 stencil cotangents (q
+// laid out [axis * 7 + k + 3][array cell]); for the owned cells also the
+// direct and sign cotangents (owned-box layout) and the scalar partials
 // (partials[brick]: cot_dx, partials[nbricks + brick]: cot_h).
+//
+// Banded (active != nullptr): an interior cell of a frozen brick was copied
+// by the forward, so its update's cotangent passes through as `direct`, its
+// stencil and sign cotangents are 0 and it adds nothing to the scalars.  A
+// global-face cell takes the ghost BC in every brick (K1's banded mode), so
+// its transpose — the face cotangent onto the clamped inner neighbour and
+// into cot_dx — is kept whatever its brick.
 __global__ void __launch_bounds__(NT)
 reinit_bwd_cells(const float* __restrict__ phi,
                  const float* __restrict__ sgn_src,
                  const float* __restrict__ g, float* __restrict__ direct,
                  float* __restrict__ cot_sign, float* __restrict__ qbuf,
-                 BwdParams p, double* __restrict__ partials) {
+                 BwdParams p, lsf::BlockGeom q, const int* __restrict__ active,
+                 double* __restrict__ partials) {
   __shared__ double red[NT];
-  const int i = blockIdx.z * BRICK + threadIdx.z;
-  const int j = blockIdx.y * BRICK + threadIdx.y;
-  const int k = blockIdx.x * BRICK + threadIdx.x;
+  const Cell cl = locate(p, q);
   const long long sx = (long long)p.ny * p.nz, sy = p.nz;
-  const long long ncell = (long long)p.nx * sx;
-  const long long s = i * sx + j * sy + k;
-  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
-  const bool interior = in_grid && i >= 1 && i <= p.nx - 2 && j >= 1
-                        && j <= p.ny - 2 && k >= 1 && k <= p.nz - 2;
+  const long long na = (long long)p.nx * sx;
+  const long long s = cl.s;
+  const bool near = cl.in_grid && cl.gi >= q.rms[0] - 3
+                    && cl.gi < q.rms[1] + 3 && cl.gj >= q.rms[2] - 3
+                    && cl.gj < q.rms[3] + 3 && cl.gk >= q.rms[4] - 3
+                    && cl.gk < q.rms[5] + 3;
+  const bool interior = cl.gi >= 1 && cl.gi <= q.g[0] - 2 && cl.gj >= 1
+                        && cl.gj <= q.g[1] - 2 && cl.gk >= 1
+                        && cl.gk <= q.g[2] - 2;
   double cdx = 0.0, ch = 0.0;
-  if (in_grid && !interior) {
-    direct[s] = 0.0f;
-    cot_sign[s] = 0.0f;
-    for (int m = 0; m < 21; ++m) qbuf[m * ncell + s] = 0.0f;
-    cdx = (double)g[s];                     // face = inner + dx
-  } else if (interior) {
+  if (near && !interior) {
+    for (int m = 0; m < 21; ++m) qbuf[m * na + s] = 0.0f;
+    if (cl.owned) {
+      direct[cl.ow] = 0.0f;
+      cot_sign[cl.ow] = 0.0f;
+      cdx = (double)g[s];                   // face = inner + dx
+    }
+  } else if (near) {
     // this update's cotangent: its own cell and every face clamping onto it
-    const float big_g = g[s] + ghost_gather(g, i, j, k, p);
+    const GhostView gv{g, {q.o[0], q.o[1], q.o[2]}, {q.g[0], q.g[1], q.g[2]},
+                       sx, sy};
+    const float big_g = g[s] + ghost_gather(gv, cl.gi, cl.gj, cl.gk);
+    if (!lsf::block_brick_active(active, q, cl.i, cl.j, cl.k)) {
+      for (int m = 0; m < 21; ++m) qbuf[m * na + s] = 0.0f;
+      if (cl.owned) {
+        direct[cl.ow] = big_g;
+        cot_sign[cl.ow] = 0.0f;
+      }
+    } else {
+      // forward: the three selected derivatives (K1's order)
+      const float c = __ldg(phi + s);
+      const float src = __ldg(sgn_src + s);
+      const bool pos = src > 0.0f;
+      const bool deep = cl.gi >= 4 && cl.gi <= q.g[0] - 5 && cl.gj >= 4
+                        && cl.gj <= q.g[1] - 5 && cl.gk >= 4
+                        && cl.gk <= q.g[2] - 5;
+      const bool p5y = p.p5_zero_y != 0;
+      const float g0 = axis_g(phi, s, sx, c, deep, pos, p, false);
+      const float g1 = axis_g(phi, s, sy, c, deep, pos, p, p5y);
+      const float g2 = axis_g(phi, s, 1, c, deep, pos, p, false);
+      const float gsum = (g0 * g0 + g1 * g1) + g2 * g2;
 
-    // forward: the three selected derivatives (K1's order)
-    const float c = __ldg(phi + s);
-    const float src = __ldg(sgn_src + s);
-    const bool pos = src > 0.0f;
-    const bool deep = i >= 4 && i <= p.nx - 5 && j >= 4 && j <= p.ny - 5
-                      && k >= 4 && k <= p.nz - 5;
-    const bool p5y = p.p5_zero_y != 0;
-    const float g0 = axis_g(phi, s, sx, c, deep, pos, p, false);
-    const float g1 = axis_g(phi, s, sy, c, deep, pos, p, p5y);
-    const float g2 = axis_g(phi, s, 1, c, deep, pos, p, false);
-    const float gsum = (g0 * g0 + g1 * g1) + g2 * g2;
+      // guarded tail: res = c + (h sg)(1 - gm)
+      const bool nzm = gsum > 0.0f;
+      const float gm_safe = sqrtf((nzm ? gsum : 1.0f) * p.inv_dx2);
+      const float gm = nzm ? gm_safe : 0.0f;
+      const float d2 = src * src + p.dx2 * gm;
+      const float m = fmaxf(d2, SIGN_FLOOR);
+      const float sq = sqrtf(m);
+      const float sg = src / sq;
+      const float cot_hs = big_g * (1.0f - gm);
+      ch = (double)(cot_hs * sg);
+      const float cot_sg = cot_hs * p.h;
+      const float cot_m = cot_sg * ((-0.5f * sg) / m);
+      const float cot_d2 = d2 > SIGN_FLOOR ? cot_m
+                           : (d2 == SIGN_FLOOR ? 0.5f * cot_m : 0.0f);
+      const float cot_gm = -((p.h * sg) * big_g) + p.dx2 * cot_d2;
+      const float cot_u = nzm ? cot_gm * (0.5f / gm_safe) : 0.0f;
+      const float cot_gs = cot_u * p.inv_dx2;
+      cdx = (2.0 * (double)p.dx) * (double)(gm * cot_d2)
+            - (2.0 * (double)p.dx * (double)p.inv_dx2 * (double)p.inv_dx2)
+              * (double)(cot_u * gsum);
+      if (cl.owned) {
+        direct[cl.ow] = big_g;
+        cot_sign[cl.ow] = cot_sg / sq + (2.0f * src) * cot_d2;
+      }
 
-    // guarded tail: res = c + (h sg)(1 - gm)
-    const bool nzm = gsum > 0.0f;
-    const float gm_safe = sqrtf((nzm ? gsum : 1.0f) * p.inv_dx2);
-    const float gm = nzm ? gm_safe : 0.0f;
-    const float d2 = src * src + p.dx2 * gm;
-    const float m = fmaxf(d2, SIGN_FLOOR);
-    const float sq = sqrtf(m);
-    const float sg = src / sq;
-    const float cot_hs = big_g * (1.0f - gm);
-    ch = (double)(cot_hs * sg);
-    const float cot_sg = cot_hs * p.h;
-    const float cot_m = cot_sg * ((-0.5f * sg) / m);
-    const float cot_d2 = d2 > SIGN_FLOOR ? cot_m
-                         : (d2 == SIGN_FLOOR ? 0.5f * cot_m : 0.0f);
-    cot_sign[s] = cot_sg / sq + (2.0f * src) * cot_d2;
-    const float cot_gm = -((p.h * sg) * big_g) + p.dx2 * cot_d2;
-    const float cot_u = nzm ? cot_gm * (0.5f / gm_safe) : 0.0f;
-    const float cot_gs = cot_u * p.inv_dx2;
-    cdx = (2.0 * (double)p.dx) * (double)(gm * cot_d2)
-          - (2.0 * (double)p.dx * (double)p.inv_dx2 * (double)p.inv_dx2)
-            * (double)(cot_u * gsum);
-    direct[s] = big_g;
-
-    // per-axis adjoints into the scratch
-    const long long strides[3] = {sx, sy, 1};
-    for (int a = 0; a < 3; ++a) {
-      float qs[7];
-      const float cot_ef = axis_bwd(phi, s, strides[a], c, deep, pos, cot_gs,
-                                    p, a == 1 && p5y, qs);
-      cdx += (double)p.ef_dx * (double)cot_ef;
-      for (int m2 = 0; m2 < 7; ++m2) qbuf[(a * 7 + m2) * ncell + s] = qs[m2];
+      // per-axis adjoints into the scratch
+      const long long strides[3] = {sx, sy, 1};
+      for (int a = 0; a < 3; ++a) {
+        float qs[7];
+        const float cot_ef = axis_bwd(phi, s, strides[a], c, deep, pos,
+                                      cot_gs, p, a == 1 && p5y, qs);
+        cdx += (double)p.ef_dx * (double)cot_ef;
+        for (int m2 = 0; m2 < 7; ++m2) qbuf[(a * 7 + m2) * na + s] = qs[m2];
+      }
+      if (!cl.owned) cdx = ch = 0.0;          // a neighbour shard's cell
     }
   }
   const long long nbricks = (long long)gridDim.x * gridDim.y * gridDim.z;
@@ -343,55 +423,47 @@ reinit_bwd_cells(const float* __restrict__ phi,
   }
 }
 
-// Pass 2: cot_phi[t] = direct[t] + sum over axes and shifts of q_k(t - k e).
-// cot_phi holds direct[t] on entry; each thread reads and writes only t.
+// Pass 2: for every owned cell, cot_phi[t] = direct[t] + sum over axes and
+// shifts of q_k(t - k e), the sources inside the global grid only.
+// cot_phi (owned-box layout) holds direct[t] on entry; each thread reads
+// and writes only t.
 __global__ void __launch_bounds__(NT)
 reinit_bwd_gather(const float* __restrict__ qbuf, float* __restrict__ cot_phi,
-                  int nx, int ny, int nz) {
-  const int i = blockIdx.z * BRICK + threadIdx.z;
-  const int j = blockIdx.y * BRICK + threadIdx.y;
-  const int k = blockIdx.x * BRICK + threadIdx.x;
-  if (i >= nx || j >= ny || k >= nz) return;
-  const long long sx = (long long)ny * nz, sy = nz;
-  const long long ncell = (long long)nx * sx;
-  const long long t = i * sx + j * sy + k;
-  const int pos[3] = {i, j, k};
-  const int n[3] = {nx, ny, nz};
+                  BwdParams p, lsf::BlockGeom q) {
+  const Cell cl = locate(p, q);
+  if (!cl.owned) return;
+  const long long sx = (long long)p.ny * p.nz, sy = p.nz;
+  const long long na = (long long)p.nx * sx;
+  const int pos[3] = {cl.gi, cl.gj, cl.gk};
   const long long st[3] = {sx, sy, 1};
-  float acc = cot_phi[t];
+  float acc = cot_phi[cl.ow];
   for (int a = 0; a < 3; ++a) {
     for (int m = 0; m < 7; ++m) {
       const int src = pos[a] - (m - 3);        // the center s = t - k e
-      if (src >= 0 && src < n[a])
-        acc = acc + __ldg(qbuf + (a * 7 + m) * ncell + t - (m - 3) * st[a]);
+      if (src >= 0 && src < q.g[a])
+        acc = acc + __ldg(qbuf + (a * 7 + m) * na + cl.s - (m - 3) * st[a]);
     }
   }
-  cot_phi[t] = acc;
+  cot_phi[cl.ow] = acc;
 }
 
-}  // namespace
-
-extern "C" int lsf_reinit_bwd_f32(const void* phi, const void* sgn_src,
-                                  const void* g, void* cot_phi,
-                                  void* cot_sign, void* qbuf, int nx, int ny,
-                                  int nz, float dx, float h, float dx2,
-                                  float inv_dx2, float eps_scale,
-                                  float eps_floor, float ef_dx, int p5_zero_y,
-                                  void* partials, void* sums, void* stream) {
-  const BwdParams p{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
-                    ef_dx, p5_zero_y};
-  const dim3 grid = lsf::brick_grid(nx, ny, nz);
+int launch_bwd(const void* phi, const void* sgn_src, const void* g,
+               void* cot_phi, void* cot_sign, void* qbuf, const BwdParams& p,
+               const int* geom, const void* active, void* partials,
+               void* sums, void* stream) {
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const dim3 grid = lsf::block_launch_grid(geom);
   const dim3 block(BRICK, BRICK, BRICK);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* direct = static_cast<float*>(cot_phi);   // pass 1 writes it here
-  float* q = static_cast<float*>(qbuf);
+  float* qs = static_cast<float*>(qbuf);
   reinit_bwd_cells<<<grid, block, 0, st>>>(
       static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
-      static_cast<const float*>(g), direct, static_cast<float*>(cot_sign), q,
-      p, static_cast<double*>(partials));
+      static_cast<const float*>(g), direct, static_cast<float*>(cot_sign), qs,
+      p, q, static_cast<const int*>(active), static_cast<double*>(partials));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  reinit_bwd_gather<<<grid, block, 0, st>>>(q, direct, nx, ny, nz);
+  reinit_bwd_gather<<<grid, block, 0, st>>>(qs, direct, p, q);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long nb = (long long)grid.x * grid.y * grid.z;
@@ -400,4 +472,44 @@ extern "C" int lsf_reinit_bwd_f32(const void* phi, const void* sgn_src,
   lsf::reduce_partials<<<1, 1024, 0, st>>>(part, nb, out);
   lsf::reduce_partials<<<1, 1024, 0, st>>>(part + nb, nb, out + 1);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Solo grid (dense, or banded with `active`): a block whose array is the
+// whole grid and whose owned box is the whole grid.
+extern "C" int lsf_reinit_bwd_f32(const void* phi, const void* sgn_src,
+                                  const void* g, void* cot_phi,
+                                  void* cot_sign, void* qbuf, int nx, int ny,
+                                  int nz, float dx, float h, float dx2,
+                                  float inv_dx2, float eps_scale,
+                                  float eps_floor, float ef_dx, int p5_zero_y,
+                                  const void* active, void* partials,
+                                  void* sums, void* stream) {
+  const BwdParams p{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
+                    ef_dx, p5_zero_y};
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_bwd(phi, sgn_src, g, cot_phi, cot_sign, qbuf, p, geom, active,
+                    partials, sums, stream);
+}
+
+// Block mode: one shard's padded block.  geom: BLOCK_GEOM_INTS host ints;
+// nx, ny, nz: the padded array's dimensions, which must hold the owned box
+// and 6 cells around it inside the global grid; cot_phi and cot_sign have
+// the owned box's shape.
+extern "C" int lsf_reinit_bwd_block_f32(const void* phi, const void* sgn_src,
+                                        const void* g, void* cot_phi,
+                                        void* cot_sign, void* qbuf, int nx,
+                                        int ny, int nz, const int* geom,
+                                        float dx, float h, float dx2,
+                                        float inv_dx2, float eps_scale,
+                                        float eps_floor, float ef_dx,
+                                        int p5_zero_y, const void* active,
+                                        void* partials, void* sums,
+                                        void* stream) {
+  const BwdParams p{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
+                    ef_dx, p5_zero_y};
+  return launch_bwd(phi, sgn_src, g, cot_phi, cot_sign, qbuf, p, geom, active,
+                    partials, sums, stream);
 }

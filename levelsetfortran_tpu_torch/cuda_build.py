@@ -68,13 +68,22 @@ SIGNATURES = {
     "lsf_minmax_fusedk_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
                               _P, _I, _P, _P, _P],
     # phi, sign, g, cot_phi, cot_sign, q scratch, nx, ny, nz, dx, h, dx2,
-    # inv_dx2, eps_scale, eps_floor, ef_dx, p5_zero_y, partials, sums, stream
+    # inv_dx2, eps_scale, eps_floor, ef_dx, p5_zero_y, active, partials,
+    # sums, stream
     "lsf_reinit_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                           _F, _F, _F, _F, _I, _P, _P, _P],
-    # phi, g, cot_phi, nx, ny, nz, h1, inv_dx2, band_dx, threshold,
+                           _F, _F, _F, _F, _I, _P, _P, _P, _P],
+    # the same with the block geometry (host ints) after the padded nx, ny,
+    # nz
+    "lsf_reinit_bwd_block_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _F,
+                                 _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
+    # phi, g, cot_phi, nx, ny, nz, h1, inv_dx2, band_dx, threshold, active,
     # partials, sums, stream
     "lsf_minmax_bwd_f32": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
-                           _P],
+                           _P, _P],
+    # phi, g, cot_phi, padded nx, ny, nz, block geometry (host ints), h1,
+    # inv_dx2, band_dx, threshold, partials, sums, stream
+    "lsf_minmax_bwd_block_f32": [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
+                                 _P, _P, _P],
 }
 
 

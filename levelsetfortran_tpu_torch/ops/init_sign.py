@@ -526,7 +526,10 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     shard runs the same init on its own block of grid points, on its own
     device, with the triangles replicated and the candidate culling built
     per block; the full grid is never on one device.  Returns the list of
-    blocks.  ``culling``: ``"auto"`` or None.
+    blocks.  ``culling``: ``"auto"`` or None; an :class:`InitCulling`
+    raises.  Every block takes ``vertices.to(device)``, so a vertex tensor
+    that requires grad gets the cotangents of every shard, added by
+    autograd.
 
     A block's points are bitwise the whole grid's (the global origin plus
     dx times the global index); its culling blocks are anchored on the
@@ -536,6 +539,11 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     on the surface, ROADMAP H8).  The JAX package's rebalancing of uneven
     candidate counts (``_overflow_split``) is not ported."""
     from ..parallel.halo import local_offsets
+    if not (culling is None or (isinstance(culling, str)
+                                and culling == "auto")):
+        raise ValueError(f"signed_distance_init_sharded: culling must be "
+                         f"'auto' or None (each block builds its own "
+                         f"candidate lists), got {culling!r}")
     b = mesh.block_shape(grid.shape)
     blocks = []
     for off, dev in zip(local_offsets(mesh, b), mesh.devices):

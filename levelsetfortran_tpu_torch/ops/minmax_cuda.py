@@ -20,7 +20,11 @@ and the fused sum's box in global coordinates.
 
 K6 (``csrc/minmax_bwd.cu``) replaces ``minmax_pallas.py:minmax_bwd_padded``:
 the gather-form adjoint, one thread per cell recomputing its six
-neighbours' Laplacian cotangents.
+neighbours' Laplacian cotangents; its banded mode
+(:func:`minmax_step_vjp_banded`) passes frozen bricks through, its block
+mode (:func:`minmax_step_block_vjp`) gathers one shard's owned cells from a
+2-cell halo.  :func:`minmax_scan` is the differentiable fixed-step scan,
+dense or banded (bitwise the same values and gradients).
 
 The wrappers run the plain version only for a CPU tensor; for a CUDA tensor
 they launch the kernel or raise.  K4 is bitwise equal to K launches of K3
@@ -32,12 +36,15 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
+from . import reverse
 from .stencil import global_interior_mask, interior_mask, shift
-from .weno_cuda import (BlockGeom, block_rms_buffers, brick_cells,
-                        brick_grid, check_block, check_cuda, check_packed,
-                        finish_block_plain, finish_plain, live_vector,
-                        np_dtype, packed_rms_buffers, packed_vector, ptr,
-                        rms_buffers, run_packed_plain)
+from .weno_cuda import (VJP_HALO, BlockGeom, block_rms_buffers, box_cells,
+                        brick_cells, brick_grid, check_adjoint_geom,
+                        check_block, check_cuda, check_inputs, check_packed,
+                        chunk_lengths, finish_block_plain, finish_plain,
+                        live_vector, np_dtype, owned_slices,
+                        packed_rms_buffers, packed_vector, ptr, rms_buffers,
+                        run_packed_plain, tile_activity)
 
 
 def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
@@ -241,20 +248,20 @@ def minmax_step_packed(phi, dx, h1, live, band_radius=4.1, threshold=0.0, *,
 minmax_step_packed.launches = 0
 
 
-def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
-    """The plain version of :func:`minmax_step_vjp` (any dtype, any device),
-    the gather-form adjoint of ``minmax_pallas._make_bwd_kernel`` (:742-757):
-    ``cot_phi = g - 6/dx^2 cot_lap + gather_6(cot_lap / dx^2)`` with
-    ``d min(lap, 0)/d lap`` = 1, 0.5 at ``lap == 0``, else 0 (JAX's
-    convention for ``lax.min``; ``torch.clamp`` would give 1 at the tie)."""
-    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
+def _vjp_plain(phi, g, sc, origin, gshape, live, owned):
+    """The gather-form VJP of one step on an array whose cell 0 lies at
+    global ``origin`` of a ``gshape`` grid (the face rule in global
+    coordinates); ``live``: the cells of active bricks, which gather (None:
+    all; the others pass ``g`` through), ``owned``: the cells the sums
+    count.  Array-shaped ``cot_phi``, right where the neighbours lie in the
+    array."""
     sum6 = (shift(phi, 0, -1) + shift(phi, 0, 1) + shift(phi, 1, -1)
             + shift(phi, 1, 1) + shift(phi, 2, 1) + shift(phi, 2, -1))
     lap = (sum6 - 6.0 * phi) * sc["inv_dx2"]
     sel_min = (sum6 + phi) * (1.0 / 7.0) < sc["threshold"]
     f = torch.where(sel_min, torch.clamp_max(lap, 0.0),
                     torch.clamp_min(lap, 0.0))
-    gate = (interior_mask(phi.shape, 1, phi.device)
+    gate = (global_interior_mask(phi.shape, origin, gshape, 1, phi.device)
             & (torch.abs(phi) < sc["band_dx"]))
     zero = torch.zeros_like(phi)
     tie = torch.where(lap == 0.0, 0.5 + zero, zero)
@@ -265,9 +272,62 @@ def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
     cot_phi = (g - (6.0 * sc["inv_dx2"]) * cot_lap
                + shift(cs6, 0, 1) + shift(cs6, 0, -1) + shift(cs6, 1, 1)
                + shift(cs6, 1, -1) + shift(cs6, 2, -1) + shift(cs6, 2, 1))
-    cot_dx = (-2.0 / sc["dx"]) * (cot_lap * lap).double().sum()
-    cot_h1 = torch.where(gate, f * g, zero).double().sum()
+    counted = gate
+    if live is not None:
+        cot_phi = torch.where(live, cot_phi, g + 0.0)
+        counted = counted & live
+    if owned is not None:
+        counted = counted & owned
+    cot_dx = (-2.0 / sc["dx"]) * torch.where(counted, cot_lap * lap,
+                                             zero).double().sum()
+    cot_h1 = torch.where(counted, f * g, zero).double().sum()
     return cot_phi, cot_dx, cot_h1
+
+
+def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0, *,
+                          active=None):
+    """The plain version of :func:`minmax_step_vjp` and, with ``active``, of
+    :func:`minmax_step_vjp_banded` (any dtype, any device), the gather-form
+    adjoint of ``minmax_pallas._make_bwd_kernel`` (:742-757):
+    ``cot_phi = g - 6/dx^2 cot_lap + gather_6(cot_lap / dx^2)`` with
+    ``d min(lap, 0)/d lap`` = 1, 0.5 at ``lap == 0``, else 0 (JAX's
+    convention for ``lax.min``; ``torch.clamp`` would give 1 at the tie);
+    an inactive brick passes ``g`` through."""
+    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
+    live = None if active is None else brick_cells(active, phi.shape)
+    return _vjp_plain(phi, g, sc, (0, 0, 0), tuple(phi.shape), live, None)
+
+
+def _minmax_vjp_cuda(name, phi, g, dx, h1, band_radius, threshold, geom,
+                     active):
+    """Launch K6 on a solo grid (``geom`` None) or on one shard's padded
+    block; ``cot_phi`` has the owned box's shape."""
+    nb = brick_grid(phi.shape) if geom is None else geom.bricks(phi.shape)
+    check_inputs(name, phi, (g,), active, nb)
+    if geom is not None:
+        check_adjoint_geom(name, phi.shape, geom, VJP_HALO["minmax"], 0)
+    owned = phi.shape if geom is None else tuple(
+        s.stop - s.start for s in owned_slices(geom))
+    cot_phi = torch.empty(owned, dtype=phi.dtype, device=phi.device)
+    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
+    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
+                           device=phi.device)
+    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
+    scal = (sc["h1"], sc["inv_dx2"], sc["band_dx"], sc["threshold"])
+    with torch.cuda.device(phi.device):
+        if geom is None:
+            cuda_build.launch(
+                "lsf_minmax_bwd_f32", phi.data_ptr(), g.data_ptr(),
+                cot_phi.data_ptr(), *phi.shape, *scal, ptr(active),
+                partials.data_ptr(), sums.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        else:
+            cuda_build.launch(
+                "lsf_minmax_bwd_block_f32", phi.data_ptr(), g.data_ptr(),
+                cot_phi.data_ptr(), *phi.shape, geom.ints(tuple(phi.shape)),
+                *scal, partials.data_ptr(), sums.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    return cot_phi, (-2.0 / sc["dx"]) * sums[0], sums[1]
 
 
 def minmax_step_vjp(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
@@ -280,21 +340,131 @@ def minmax_step_vjp(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
     and are not returned."""
     if phi.device.type == "cpu":
         return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold)
-    cot_phi = torch.empty_like(phi)
-    check_cuda("minmax_step_vjp", phi, cot_phi, None, (g,))
-    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
-    nb = brick_grid(phi.shape)
-    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
-                           device=phi.device)
-    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
-    with torch.cuda.device(phi.device):
-        cuda_build.launch(
-            "lsf_minmax_bwd_f32", phi.data_ptr(), g.data_ptr(),
-            cot_phi.data_ptr(), *phi.shape, sc["h1"], sc["inv_dx2"],
-            sc["band_dx"], sc["threshold"], partials.data_ptr(),
-            sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    res = _minmax_vjp_cuda("minmax_step_vjp", phi, g, dx, h1, band_radius,
+                           threshold, None, None)
     minmax_step_vjp.launches += 1
-    return cot_phi, (-2.0 / sc["dx"]) * sums[0], sums[1]
+    return res
 
 
 minmax_step_vjp.launches = 0
+
+
+def minmax_step_vjp_banded(phi, g, dx, h1, active, band_radius=4.1,
+                           threshold=0.0):
+    """K6's banded mode (the TPU kernel's ``active``): bricks with
+    ``active == 0`` pass ``g`` through.  With the ``band4`` mask of the
+    chunk-start iterate of a banded min/max solve it equals
+    :func:`minmax_step_vjp` bitwise (no cell within 4 of a frozen brick
+    updates in the chunk).  Returns what :func:`minmax_step_vjp` returns."""
+    if phi.device.type == "cpu":
+        return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold,
+                                     active=active)
+    res = _minmax_vjp_cuda("minmax_step_vjp_banded", phi, g, dx, h1,
+                           band_radius, threshold, None, active)
+    minmax_step_vjp_banded.launches += 1
+    return res
+
+
+minmax_step_vjp_banded.launches = 0
+
+
+def minmax_step_block_vjp_plain(pad, g_pad, dx, h1, geom: BlockGeom,
+                                band_radius=4.1, threshold=0.0):
+    """The plain version of :func:`minmax_step_block_vjp` (any dtype, any
+    device): the solo plain VJP with the face rule in global coordinates,
+    cropped to the owned box; the sums count the owned cells."""
+    check_adjoint_geom("minmax_step_block_vjp", pad.shape, geom,
+                       VJP_HALO["minmax"], 0)
+    sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
+    cot_phi, cdx, ch = _vjp_plain(pad, g_pad, sc, geom.origin, geom.gshape,
+                                  None, box_cells(geom, pad.shape,
+                                                   pad.device))
+    return cot_phi[owned_slices(geom)].contiguous(), cdx, ch
+
+
+def minmax_step_block_vjp(pad, g_pad, dx, h1, geom: BlockGeom,
+                          band_radius=4.1, threshold=0.0):
+    """VJP of one block-mode min/max step at one shard's padded block (K6's
+    block mode, the TPU kernel's ``offsets``), in gather form: ``pad`` and
+    the exchanged upstream cotangent ``g_pad`` hold the owned box and
+    ``VJP_HALO["minmax"]`` cells around it, ``geom`` places the array and
+    lays the brick grid over the owned box.  Returns ``(cot_phi, cot_dx,
+    cot_h1)`` for the owned cells, each cell bitwise the solo kernel's."""
+    if pad.device.type == "cpu":
+        return minmax_step_block_vjp_plain(pad, g_pad, dx, h1, geom,
+                                           band_radius, threshold)
+    res = _minmax_vjp_cuda("minmax_step_block_vjp", pad, g_pad, dx, h1,
+                           band_radius, threshold, geom, None)
+    minmax_step_block_vjp.launches += 1
+    return res
+
+
+minmax_step_block_vjp.launches = 0
+
+
+# ---------------------- differentiable fixed-step scan ----------------------
+
+class _MinmaxScanBanded(torch.autograd.Function):
+    """``steps`` min/max steps with bricks skipped in both sweeps
+    (``minmax_pallas.py:_banded_scan_mm``): forward chunks step with the
+    ``owned`` mask of the chunk-start iterate (exact: a cell updates only
+    when its own value is in band), the backward recomputes each chunk's
+    trajectory and runs K6's banded mode with the ``band4`` mask of the same
+    iterate.  Values and gradients equal the dense solve's bitwise."""
+
+    @staticmethod
+    def forward(ctx, phi0, dx, h1, band_radius, threshold, steps,
+                refresh_every):
+        args = (float(dx), float(h1), float(band_radius), float(threshold))
+        ctx.chunks = chunk_lengths(steps, refresh_every)
+        ctx.starts = []
+        p = phi0
+        for n in ctx.chunks:
+            ctx.starts.append(p)
+            active = tile_activity(p, args[0], args[2], window="owned")
+            for _ in range(n):
+                p = minmax_step(p, *args, active=active)
+        ctx.args = args
+        ctx.meta = tuple(reverse.scalar_meta(x)
+                         for x in (dx, h1, band_radius, threshold))
+        return p if ctx.chunks else phi0.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.args
+        zero = torch.zeros((), dtype=torch.float64, device=g.device)
+        gp, cdx, ch = g.contiguous(), zero, zero
+        for p, n in zip(reversed(ctx.starts), reversed(ctx.chunks)):
+            act_f = tile_activity(p, args[0], args[2], window="owned")
+            act_b = tile_activity(p, args[0], args[2], window="band4")
+            traj = [p]
+            for _ in range(n - 1):
+                traj.append(minmax_step(traj[-1], *args, active=act_f))
+            for p_in in reversed(traj):
+                gp, cdxi, chi = minmax_step_vjp_banded(p_in, gp, args[0],
+                                                       args[1], act_b,
+                                                       *args[2:])
+                cdx, ch = cdx + cdxi, ch + chi
+        ctx.starts = None
+        # band_radius and threshold enter through comparisons only
+        return (gp, reverse.scalar_cotangent(ctx.meta[0], cdx),
+                reverse.scalar_cotangent(ctx.meta[1], ch),
+                reverse.scalar_cotangent(ctx.meta[2], zero),
+                reverse.scalar_cotangent(ctx.meta[3], zero), None, None)
+
+
+def minmax_scan(phi0, dx, h1, steps: int, *, band_radius=4.1, threshold=0.0,
+                banded=False, refresh_every: int = 16):
+    """``steps`` min/max steps, reverse-mode differentiable — the port of
+    ``minmax_pallas.py:minmax_scan_pallas``.  Dense: the fixed-step solver
+    :func:`..solvers.minmax_flow.minmax_flow_fixed` (K3 forward, K6
+    backward).  ``banded=True``: the same values and gradients, with
+    frozen bricks skipped in both sweeps (:class:`_MinmaxScanBanded`, the
+    banded modes of K3 and K6), the masks refreshed every
+    ``refresh_every`` steps."""
+    if not banded:
+        from ..solvers.minmax_flow import minmax_flow_fixed
+        return minmax_flow_fixed(phi0, dx, h1, steps,
+                                 band_radius=band_radius, threshold=threshold)
+    return _MinmaxScanBanded.apply(phi0, dx, h1, band_radius, threshold,
+                                   int(steps), int(refresh_every))

@@ -7,6 +7,9 @@ iterate ("flat"); a larger one keeps only segment-start iterates and
 recomputes each segment in reverse order ("sqrtn"), so peak memory is about
 ``2 sqrt(steps)`` fields at the cost of one extra forward pass.  The
 threshold is the JAX package's, so both packages take the same branch.
+An iterate is a tensor or, for a sharded solve, the list of a field's
+blocks: the branch is then decided per shard, from one block's bytes, as
+under ``shard_map``.
 """
 
 from __future__ import annotations
@@ -27,10 +30,18 @@ def flat_fits(steps: int, item_bytes: int) -> bool:
     return steps * item_bytes <= _FLAT_TRAJ_BYTES
 
 
+def shard_bytes(p) -> int:
+    """Bytes of one iterate on one shard: a tensor's, or the largest block's
+    of a list."""
+    if isinstance(p, (list, tuple)):
+        return max(shard_bytes(b) for b in p)
+    return p.numel() * p.element_size()
+
+
 def run_forward(fstep, p0, steps: int):
     """``steps`` forward steps from ``p0``: ``(p_steps, traj)``, ``traj``
     the stashed input iterates when the flat stash fits, else None."""
-    traj = [] if flat_fits(steps, p0.numel() * p0.element_size()) else None
+    traj = [] if flat_fits(steps, shard_bytes(p0)) else None
     p = p0
     for _ in range(steps):
         if traj is not None:
@@ -50,7 +61,7 @@ def run_reverse(name, fstep, bstep, p0, carry, steps: int, traj):
         return carry
     last_branch[name] = "sqrtn"
     return checkpointed_reverse(fstep, bstep, p0, carry, steps,
-                                p0.numel() * p0.element_size())
+                                shard_bytes(p0))
 
 
 def _segments(steps: int) -> list:

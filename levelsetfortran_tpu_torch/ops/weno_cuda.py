@@ -29,10 +29,15 @@ three axes, the fused sum counts the owned range only, and a launch may
 cover a sub-box of the brick grid.  A block's cells equal the solo kernel's
 on the whole grid bitwise.
 
-K5 (``csrc/reinit_bwd.cu``) replaces ``weno_pallas.py:_pallas_bwd_padded``
-in its dense mode: the hand-chained adjoint of the step with respect to
-(phi, sign source, dx, h), in two deterministic passes (per-cell stencil
-cotangents, then a gather).
+K5 (``csrc/reinit_bwd.cu``) replaces ``weno_pallas.py:_pallas_bwd_padded``:
+the hand-chained adjoint of the step with respect to (phi, sign source, dx,
+h), in two deterministic passes (per-cell stencil cotangents, then a
+gather).  Its banded mode (:func:`reinit_step_vjp_banded`, the TPU
+kernel's ``active``) is the transpose of K1's banded mode; its block mode
+(:func:`reinit_step_block_vjp`, the TPU kernel's ``offsets``) gathers each
+owned cell of one shard's block from a 6-cell halo, bitwise the solo
+kernel's.  :func:`reinit_scan_banded` is the differentiable narrow-band
+scan that runs the banded modes of K1 and K5.
 
 :func:`reinit_step` and :func:`reinit_step_vjp` run the plain version only
 for a CPU tensor; for a CUDA tensor they launch the kernel or raise.  K1
@@ -55,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda_build
+from . import reverse
 from .stencil import (clamped_inner, global_clamped_inner,
                       global_interior_mask, interior_mask, shift)
 from .weno import default_eps_floor
@@ -331,7 +337,7 @@ def _range_cells(geom, shape, tile_range, device):
     return brick_cells(m, shape, geom.brick_origin)
 
 
-def _box_cells(geom, shape, device):
+def box_cells(geom, shape, device):
     """Cells inside ``geom``'s fused-sum box."""
     masks = []
     for ax, (n, o) in enumerate(zip(shape, geom.origin)):
@@ -352,7 +358,7 @@ def finish_block_plain(res, written, pad, out, with_rms, geom):
     out.copy_(torch.where(written, res, out))
     if not with_rms:
         return out
-    d = torch.where(written & _box_cells(geom, pad.shape, pad.device),
+    d = torch.where(written & box_cells(geom, pad.shape, pad.device),
                     res - pad, torch.zeros_like(pad)).double()
     return out, (d * d).sum()
 
@@ -546,31 +552,39 @@ def _axis_diffs(phi, axis):
     return [v[i + 1] - v[i] for i in range(6)]
 
 
-def _clamp_transpose(g, axis):
-    """Transpose of gathering at ``clamp(i, 1, n-2)`` along ``axis``."""
-    n = g.shape[axis]
+def _clamp_transpose(g, axis, origin, gshape):
+    """Transpose of gathering at the GLOBAL index ``clamp(i, 1, n-2)`` along
+    ``axis`` (``g``: one block of the grid, cell 0 at global ``origin``):
+    each global face cell in the block adds onto its inner neighbour, then
+    is zeroed."""
+    n, o, gn = g.shape[axis], origin[axis], gshape[axis]
     out = g.clone()
-    out.narrow(axis, 1, 1).add_(g.narrow(axis, 0, 1))
-    out.narrow(axis, n - 2, 1).add_(g.narrow(axis, n - 1, 1))
-    out.narrow(axis, 0, 1).zero_()
-    out.narrow(axis, n - 1, 1).zero_()
+    for face, inner in ((0, 1), (gn - 1, gn - 2)):
+        if 0 <= face - o < n and 0 <= inner - o < n:
+            out.narrow(axis, inner - o, 1).add_(g.narrow(axis, face - o, 1))
+    for face in (0, gn - 1):
+        if 0 <= face - o < n:
+            out.narrow(axis, face - o, 1).zero_()
     return out
 
 
-def reinit_step_vjp_plain(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
-                          eps_floor=None, quirk_y_p5_zero=False):
-    """The plain version of :func:`reinit_step_vjp` (any dtype, any
-    device): the VJP of the dense step, hand-chained as the TPU kernel K5
-    routes it — ghost-BC transpose, guarded tail, per-axis Godunov and
-    WENO-pair adjoints, stencil transpose as seven shifted adds per axis.
-    Not autograd of :func:`reinit_step_plain`: autograd splits ties and
-    differentiates ``sqrt`` at 0 where the kernel's rules do not."""
-    sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
+def _vjp_plain(phi, sign_src, g, sc, quirk_y_p5_zero, origin, gshape, live,
+               owned):
+    """The VJP of one step on an array whose cell 0 lies at global
+    ``origin`` of a ``gshape`` grid (every mask in global coordinates), as
+    the kernel K5 routes it; ``live``: the cells of active bricks (None:
+    all), ``owned``: the cells the scalar sums count (None: all).  Returns
+    the array-shaped ``(cot_phi, cot_sign, cot_dx, cot_h)``; ``cot_phi`` is
+    right where every stencil source lies in the array."""
     f64 = phi.dtype == torch.float64
     ratio_floor = 1e-70 if f64 else 1e-7
     sm_floor = 1e-30 if f64 else 1e-20
-    interior = interior_mask(phi.shape, 1, phi.device)
-    deep = interior_mask(phi.shape, 4, phi.device)
+    shape, dev = phi.shape, phi.device
+    in_grid = global_interior_mask(shape, origin, gshape, 0, dev)
+    interior = global_interior_mask(shape, origin, gshape, 1, dev)
+    deep = global_interior_mask(shape, origin, gshape, 4, dev)
+    stepped = interior if live is None else interior & live
+    counted = stepped if owned is None else stepped & owned
     pos = sign_src > 0.0
     zero = torch.zeros_like(phi)
 
@@ -589,11 +603,13 @@ def reinit_step_vjp_plain(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
         gsum = gsq if gsum is None else gsum + gsq
 
     # ghost BC: face = clamped inner neighbour's updated value + dx
-    gf = torch.where(interior, zero, g)
+    face = in_grid & ~interior
+    gf = torch.where(face, g, zero)
     for axis in (2, 1, 0):
-        gf = _clamp_transpose(gf, axis)
+        gf = _clamp_transpose(gf, axis, origin, gshape)
     big_g = torch.where(interior, g, zero) + gf
-    cot_dx = torch.where(interior, zero, g).double().sum()
+    cot_dx = torch.where(face if owned is None else face & owned, g,
+                         zero).double().sum()
 
     # guarded tail: res = c + (h sg)(1 - gm), sg = s / sqrt(max(d2, floor))
     nzm = gsum > 0.0
@@ -604,12 +620,13 @@ def reinit_step_vjp_plain(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
     sq = torch.sqrt(m)
     sg = sign_src / sq
     cot_hs = big_g * (1.0 - gm)
-    cot_h = (cot_hs * sg).double().sum()
+    cot_h = torch.where(counted, cot_hs * sg, zero).double().sum()
     cot_sg = cot_hs * sc["h"]
     cot_m = cot_sg * ((-0.5 * sg) / m)
     cot_d2 = torch.where(d2 > sm_floor, cot_m,
                          torch.where(d2 == sm_floor, 0.5 * cot_m, zero))
-    cot_sign = cot_sg / sq + (2.0 * sign_src) * cot_d2
+    cot_sign = torch.where(stepped, cot_sg / sq + (2.0 * sign_src) * cot_d2,
+                           zero)
     cot_gm = -((sc["h"] * sg) * big_g) + sc["dx2"] * cot_d2
     cot_u = torch.where(nzm, cot_gm * (0.5 / gm_safe), zero)
     cot_gs = cot_u * sc["inv_dx2"]
@@ -629,33 +646,110 @@ def reinit_step_vjp_plain(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
         cps[3] = cps[3] + torch.where(deep, zero, cot_dp)
         qs = [-cps[0]] + [cps[i] - cps[i + 1] for i in range(5)] + [cps[5]]
         for k, q in zip(range(-3, 4), qs):
-            cot_phi = cot_phi + shift(q, axis, -k)
+            cot_phi = cot_phi + shift(torch.where(stepped, q, zero), axis,
+                                      -k)
+    cdx = torch.where(counted, cdx, torch.zeros_like(cdx))
     return cot_phi, cot_sign, cot_dx + cdx.sum(), cot_h
+
+
+def reinit_step_vjp_plain(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
+                          eps_floor=None, quirk_y_p5_zero=False, active=None):
+    """The plain version of :func:`reinit_step_vjp` and, with ``active``,
+    of :func:`reinit_step_vjp_banded` (any dtype, any device): the VJP of
+    the step, hand-chained as the TPU kernel K5 routes it — ghost-BC
+    transpose, guarded tail, per-axis Godunov and WENO-pair adjoints,
+    stencil transpose as seven shifted adds per axis.  Not autograd of
+    :func:`reinit_step_plain`: autograd splits ties and differentiates
+    ``sqrt`` at 0 where the kernel's rules do not.  A frozen brick's
+    interior cells pass their cotangent through; face cells keep the
+    ghost-BC transpose in every brick."""
+    sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
+    live = None if active is None else brick_cells(active, phi.shape)
+    return _vjp_plain(phi, sign_src, g, sc, quirk_y_p5_zero, (0, 0, 0),
+                      tuple(phi.shape), live, None)
+
+
+def owned_slices(geom: BlockGeom) -> tuple:
+    """The owned box of ``geom`` as array slices."""
+    box = geom.box()
+    return tuple(slice(box[2 * a] - o, box[2 * a + 1] - o)
+                 for a, o in enumerate(geom.origin))
+
+
+def check_adjoint_geom(name, shape, geom: BlockGeom, reach, near):
+    """Raise unless the padded array holds the owned box and ``reach``
+    cells around it (inside the global grid), and the brick grid covers the
+    owned box and ``near`` cells around it."""
+    box, nb = geom.box(), geom.bricks(shape)
+    for a, (n, o, c, g) in enumerate(zip(shape, geom.origin,
+                                         geom.brick_origin, geom.gshape)):
+        lo, hi = box[2 * a], box[2 * a + 1]
+        if not (o <= max(lo - reach, 0) and o + n >= min(hi + reach, g)
+                and o + c <= max(lo - near, 0)
+                and o + c + BRICK * nb[a] >= min(hi + near, g)):
+            raise ValueError(f"{name}: the padded block {tuple(shape)} at "
+                             f"{geom.origin} must hold the owned box and "
+                             f"{reach} cells around it, its brick grid the "
+                             f"box and {near} cells around it (axis {a})")
+
+
+#: Halo cells the block-mode adjoints read: K5 evaluates the stencil
+#: cotangents of the cells within 3 of the owned box (radius 3 on radius 3),
+#: K6 the Laplacian cotangents of the owned cells' neighbours (1 on 1).
+VJP_HALO = {"reinit": 6, "minmax": 2}
+
+
+def reinit_step_block_vjp_plain(pad, sign_pad, g_pad, dx, h, geom, *,
+                                active=None, eps_scale=1e-6, eps_floor=None,
+                                quirk_y_p5_zero=False):
+    """The plain version of :func:`reinit_step_block_vjp` (any dtype, any
+    device): the solo plain VJP on the padded block with every mask in
+    global coordinates, cropped to the owned box; the sums count the owned
+    cells."""
+    check_adjoint_geom("reinit_step_block_vjp", pad.shape, geom,
+                       VJP_HALO["reinit"], 3)
+    sc = step_scalars(pad.dtype, dx, h, eps_scale, eps_floor)
+    live = None if active is None else brick_cells(active, pad.shape,
+                                                   geom.brick_origin)
+    cot_phi, cot_sign, cdx, ch = _vjp_plain(
+        pad, sign_pad, g_pad, sc, quirk_y_p5_zero, geom.origin, geom.gshape,
+        live, box_cells(geom, pad.shape, pad.device))
+    sl = owned_slices(geom)
+    return cot_phi[sl].contiguous(), cot_sign[sl].contiguous(), cdx, ch
 
 
 # ------------------------------ kernel wrapper -----------------------------
 
-def check_cuda(name, phi, out, active, inputs=()):
-    """Raise on what the CUDA kernels do not take."""
+def check_inputs(name, phi, inputs, active=None, nb=None):
+    """Raise on what the CUDA kernels do not take: ``phi`` and ``inputs``
+    contiguous float32 grids of one shape on one device, ``active`` a
+    contiguous int32 mask of ``nb`` bricks (default: ``phi``'s brick
+    grid)."""
     if phi.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32 only, got "
                         f"{phi.dtype} (float64 runs on the CPU)")
     if phi.dim() != 3 or min(phi.shape) < 3 or phi.numel() >= 2 ** 31:
         raise ValueError(f"{name}: unsupported grid shape {tuple(phi.shape)}")
-    for t in (phi, *inputs, out):
+    for t in (phi, *inputs):
         if (t.dtype != torch.float32 or t.shape != phi.shape
                 or t.device != phi.device or not t.is_contiguous()):
             raise ValueError(f"{name}: every field must be a contiguous "
                              f"float32 tensor of shape {tuple(phi.shape)} "
                              f"on {phi.device}")
-    if any(out.data_ptr() == t.data_ptr() for t in (phi, *inputs)):
-        raise ValueError(f"{name}: out must not alias an input")
+    nb = brick_grid(phi.shape) if nb is None else tuple(nb)
     if active is not None and (
             active.dtype != torch.int32 or active.device != phi.device
-            or tuple(active.shape) != brick_grid(phi.shape)
-            or not active.is_contiguous()):
-        raise ValueError(f"{name}: active must be a contiguous int32 "
-                         f"{brick_grid(phi.shape)} tensor on {phi.device}")
+            or tuple(active.shape) != nb or not active.is_contiguous()):
+        raise ValueError(f"{name}: active must be a contiguous int32 {nb} "
+                         f"tensor on {phi.device}")
+
+
+def check_cuda(name, phi, out, active, inputs=()):
+    """Raise on what the CUDA kernels do not take, or on an ``out`` that
+    aliases an input."""
+    check_inputs(name, phi, (*inputs, out), active)
+    if any(out.data_ptr() == t.data_ptr() for t in (phi, *inputs)):
+        raise ValueError(f"{name}: out must not alias an input")
 
 
 def ptr(t):
@@ -709,12 +803,7 @@ reinit_step.launches = 0
 def check_block(name, pad, out, active, geom, inputs=()):
     """Raise on what the block-mode kernels do not take."""
     check_cuda(name, pad, out, None, inputs)
-    nb = geom.bricks(pad.shape)
-    if active is not None and (
-            active.dtype != torch.int32 or active.device != pad.device
-            or tuple(active.shape) != nb or not active.is_contiguous()):
-        raise ValueError(f"{name}: active must be a contiguous int32 {nb} "
-                         f"tensor on {pad.device}")
+    check_inputs(name, pad, (), active, geom.bricks(pad.shape))
 
 
 def block_rms_buffers(pad, geom, tile_range, with_rms):
@@ -766,6 +855,46 @@ def reinit_step_block(pad, sign_pad, dx, h, geom: BlockGeom, *,
 reinit_step_block.launches = 0
 
 
+def _reinit_vjp_cuda(name, phi, sign_src, g, dx, h, geom, active, scratch,
+                     eps_scale, eps_floor, quirk_y_p5_zero):
+    """Launch K5 on a solo grid (``geom`` None) or on one shard's padded
+    block; the outputs have the owned box's shape."""
+    nb = brick_grid(phi.shape) if geom is None else geom.bricks(phi.shape)
+    check_inputs(name, phi, (sign_src, g), active, nb)
+    if geom is not None:
+        check_adjoint_geom(name, phi.shape, geom, VJP_HALO["reinit"], 3)
+    owned = phi.shape if geom is None else tuple(
+        s.stop - s.start for s in owned_slices(geom))
+    cot_phi = torch.empty(owned, dtype=phi.dtype, device=phi.device)
+    cot_sign = torch.empty_like(cot_phi)
+    # 21 per-cell stencil cotangents (3 axes x 7 shifts) between the passes
+    qshape = (21,) + tuple(phi.shape)
+    if scratch is None:
+        scratch = torch.empty(qshape, dtype=phi.dtype, device=phi.device)
+    elif (tuple(scratch.shape) != qshape or scratch.dtype != phi.dtype
+          or scratch.device != phi.device or not scratch.is_contiguous()):
+        raise ValueError(f"{name}: scratch must be a contiguous {qshape} "
+                         f"float32 tensor on {phi.device}")
+    sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
+    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
+                           device=phi.device)
+    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
+    args = [phi.data_ptr(), sign_src.data_ptr(), g.data_ptr(),
+            cot_phi.data_ptr(), cot_sign.data_ptr(), scratch.data_ptr(),
+            *phi.shape]
+    if geom is not None:
+        args.append(geom.ints(tuple(phi.shape)))
+    with torch.cuda.device(phi.device):
+        cuda_build.launch(
+            "lsf_reinit_bwd_f32" if geom is None
+            else "lsf_reinit_bwd_block_f32", *args, sc["dx"], sc["h"],
+            sc["dx2"], sc["inv_dx2"], sc["eps_scale"], sc["eps_floor"],
+            sc["ef_dx"], int(quirk_y_p5_zero), ptr(active),
+            partials.data_ptr(), sums.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    return cot_phi, cot_sign, sums[0], sums[1]
+
+
 def reinit_step_vjp(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
                     eps_floor=None, quirk_y_p5_zero=False):
     """VJP of the dense :func:`reinit_step` at ``(phi, sign_src, dx, h)``
@@ -777,30 +906,64 @@ def reinit_step_vjp(phi, sign_src, g, dx, h, *, eps_scale=1e-6,
         return reinit_step_vjp_plain(
             phi, sign_src, g, dx, h, eps_scale=eps_scale,
             eps_floor=eps_floor, quirk_y_p5_zero=quirk_y_p5_zero)
-    cot_phi = torch.empty_like(phi)
-    check_cuda("reinit_step_vjp", phi, cot_phi, None, (sign_src, g))
-    cot_sign = torch.empty_like(phi)
-    sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
-    nb = brick_grid(phi.shape)
-    # 21 per-cell stencil cotangents (3 axes x 7 shifts) between the passes
-    q = torch.empty((21,) + tuple(phi.shape), dtype=phi.dtype,
-                    device=phi.device)
-    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
-                           device=phi.device)
-    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
-    with torch.cuda.device(phi.device):
-        cuda_build.launch(
-            "lsf_reinit_bwd_f32", phi.data_ptr(), sign_src.data_ptr(),
-            g.data_ptr(), cot_phi.data_ptr(), cot_sign.data_ptr(),
-            q.data_ptr(), *phi.shape, sc["dx"], sc["h"], sc["dx2"],
-            sc["inv_dx2"], sc["eps_scale"], sc["eps_floor"], sc["ef_dx"],
-            int(quirk_y_p5_zero), partials.data_ptr(), sums.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    res = _reinit_vjp_cuda("reinit_step_vjp", phi, sign_src, g, dx, h, None,
+                           None, None, eps_scale, eps_floor, quirk_y_p5_zero)
     reinit_step_vjp.launches += 1
-    return cot_phi, cot_sign, sums[0], sums[1]
+    return res
 
 
 reinit_step_vjp.launches = 0
+
+
+def reinit_step_vjp_banded(phi, sign_src, g, dx, h, active, *,
+                           eps_scale=1e-6, eps_floor=None,
+                           quirk_y_p5_zero=False):
+    """VJP of the banded :func:`reinit_step` (``active``, mint) — K5's
+    banded mode, the TPU kernel's ``active`` argument: a frozen brick's
+    interior cells pass ``g`` through and write no stencil or sign
+    cotangent; face cells keep the ghost-BC transpose, as K1's banded mode
+    keeps the BC.  Returns what :func:`reinit_step_vjp` returns."""
+    if phi.device.type == "cpu":
+        return reinit_step_vjp_plain(
+            phi, sign_src, g, dx, h, eps_scale=eps_scale,
+            eps_floor=eps_floor, quirk_y_p5_zero=quirk_y_p5_zero,
+            active=active)
+    res = _reinit_vjp_cuda("reinit_step_vjp_banded", phi, sign_src, g, dx, h,
+                           None, active, None, eps_scale, eps_floor,
+                           quirk_y_p5_zero)
+    reinit_step_vjp_banded.launches += 1
+    return res
+
+
+reinit_step_vjp_banded.launches = 0
+
+
+def reinit_step_block_vjp(pad, sign_pad, g_pad, dx, h, geom: BlockGeom, *,
+                          active=None, scratch=None, eps_scale=1e-6,
+                          eps_floor=None, quirk_y_p5_zero=False):
+    """VJP of one block-mode step at one shard's padded block (K5's block
+    mode, the TPU kernel's ``offsets``; with ``active`` also its banded
+    mode): ``pad``, ``sign_pad`` and ``g_pad`` (the upstream cotangent)
+    hold the owned box and ``VJP_HALO["reinit"]`` exchanged cells around
+    it; ``geom`` places the array and anchors the brick grid of ``active``.
+
+    Returns ``(cot_phi, cot_sign, cot_dx, cot_h)`` for the OWNED cells:
+    fields of the owned box's shape, each cell bitwise the solo kernel's on
+    the whole grid, and float64 sums over the owned cells.  ``scratch``: a
+    reusable ``(21,) + pad.shape`` buffer between the two passes."""
+    if pad.device.type == "cpu":
+        return reinit_step_block_vjp_plain(
+            pad, sign_pad, g_pad, dx, h, geom, active=active,
+            eps_scale=eps_scale, eps_floor=eps_floor,
+            quirk_y_p5_zero=quirk_y_p5_zero)
+    res = _reinit_vjp_cuda("reinit_step_block_vjp", pad, sign_pad, g_pad, dx,
+                           h, geom, active, scratch, eps_scale, eps_floor,
+                           quirk_y_p5_zero)
+    reinit_step_block_vjp.launches += 1
+    return res
+
+
+reinit_step_block_vjp.launches = 0
 
 
 # -------------------------------- pack mode --------------------------------
@@ -949,3 +1112,78 @@ def reinit_scan_packed(phis, dx, h, steps: int, *, eps_scale=1e-6,
                                eps_scale=eps_scale, eps_floor=eps_floor,
                                quirk_y_p5_zero=quirk_y_p5_zero)
     return p if steps else phis.clone()
+
+
+# ---------------------- differentiable narrow-band scan ---------------------
+
+def chunk_lengths(steps: int, refresh_every: int) -> list:
+    """Steps per mask refresh: chunks of ``min(refresh_every, steps)``, the
+    remainder last (``weno_pallas.py:2412-2413``)."""
+    if steps <= 0:
+        return []
+    r = min(int(refresh_every), int(steps))
+    return [r] * (steps // r) + ([steps % r] if steps % r else [])
+
+
+class _ReinitScanBanded(torch.autograd.Function):
+    """``steps`` banded K1 steps, the mask refreshed per chunk from the
+    chunk-start iterate (8^3 ``band4`` bricks, drift margin ``nsteps h /
+    dx`` cells), the sign source frozen at ``phi0``.  The forward keeps the
+    chunk-start iterates; the backward recomputes each chunk's mask and
+    trajectory, last chunk first, and runs K5's banded mode per step in
+    reverse (``weno_pallas.py:2403-2489``)."""
+
+    @staticmethod
+    def forward(ctx, phi0, dx, h, steps, refresh_every, band_radius, kw):
+        dxf, hf = float(dx), float(h)
+        ctx.chunks = chunk_lengths(steps, refresh_every)
+        ctx.starts = []
+        p = phi0
+        for n in ctx.chunks:
+            ctx.starts.append(p)
+            active = tile_activity(p, dxf, band_radius, n * hf / dxf,
+                                   window="band4")
+            for _ in range(n):
+                p = reinit_step(p, phi0, dxf, hf, active=active, **kw)
+        ctx.save_for_backward(phi0)
+        ctx.args = (dxf, hf, band_radius, kw)
+        ctx.meta = (reverse.scalar_meta(dx), reverse.scalar_meta(h))
+        return p if ctx.chunks else phi0.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        phi0, = ctx.saved_tensors
+        dxf, hf, band_radius, kw = ctx.args
+        zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
+        gp, cs, cdx, ch = g.contiguous(), torch.zeros_like(phi0), zero, zero
+        for p, n in zip(reversed(ctx.starts), reversed(ctx.chunks)):
+            active = tile_activity(p, dxf, band_radius, n * hf / dxf,
+                                   window="band4")
+            traj = [p]
+            for _ in range(n - 1):
+                traj.append(reinit_step(traj[-1], phi0, dxf, hf,
+                                        active=active, **kw))
+            for p_in in reversed(traj):
+                gp, csi, cdxi, chi = reinit_step_vjp_banded(
+                    p_in, phi0, gp, dxf, hf, active, **kw)
+                cs, cdx, ch = cs + csi, cdx + cdxi, ch + chi
+        ctx.starts = None
+        # the sign source IS phi0: both cotangent paths land on it
+        return (gp + cs, reverse.scalar_cotangent(ctx.meta[0], cdx),
+                reverse.scalar_cotangent(ctx.meta[1], ch), None, None, None,
+                None)
+
+
+def reinit_scan_banded(phi0, dx, h, steps: int, *, band_radius=8.1,
+                       refresh_every: int = 8, eps_scale=1e-6,
+                       eps_floor=None, quirk_y_p5_zero=False):
+    """Differentiable narrow-band fixed-step reinit — the port of
+    ``weno_pallas.py:reinit_scan_pallas_banded`` at 8^3-brick granularity:
+    the banded forward kernel (K1, frozen bricks copy their cells, face
+    cells keep the ghost BC) and its exact transpose (K5's banded mode),
+    reverse-mode differentiable in ``phi0`` and (as 0-d tensors) ``dx`` and
+    ``h``.  Gradients are exact for the banded forward."""
+    kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
+              quirk_y_p5_zero=quirk_y_p5_zero)
+    return _ReinitScanBanded.apply(phi0, dx, h, int(steps),
+                                   int(refresh_every), float(band_radius), kw)

@@ -13,6 +13,8 @@ Axes are exchanged one after the other on the already padded arrays, which
 also fills the edge and corner halos.  A shard on a global face has no
 neighbour there: its halo is zero-filled, which is harmless because the
 solvers' global-coordinate masks never read those cells.
+:func:`halo_exchange_transpose` is the exchange's exact linear transpose
+(halo cotangents go back onto the neighbours' cells).
 """
 
 from __future__ import annotations
@@ -64,6 +66,44 @@ def halo_exchange(blocks, width, mesh: ShardMesh, periodic: bool = False):
             new.append(torch.cat([parts[0], x, parts[1]], dim=axis))
         blocks = new
     return blocks
+
+
+def halo_exchange_axis_transpose(cots, width: int, axis: int,
+                                 mesh: ShardMesh):
+    """Linear transpose of one axis of :func:`halo_exchange` (non-periodic;
+    ``halo.py:135`` of the JAX package): every padded cotangent block loses
+    its halo along ``axis``, its centre passes through, and its low halo's
+    cotangent is added onto the last ``width`` cells of the shard before it,
+    its high halo's onto the first ``width`` cells of the shard after it.
+    A global face's zero-filled halo has no sender, and its cotangent is
+    dropped."""
+    out = []
+    for coord, y in zip(mesh.coords(), cots):
+        o = y.narrow(axis, width, y.shape[axis] - 2 * width).clone()
+        n = o.shape[axis]
+        nb = _neighbour(mesh, coord, axis, 1, False)
+        if nb is not None:       # the next shard's low halo: my last cells
+            o.narrow(axis, n - width, width).add_(
+                cots[nb].narrow(axis, 0, width).to(o.device))
+        nb = _neighbour(mesh, coord, axis, -1, False)
+        if nb is not None:       # the previous shard's high halo: my first
+            size = cots[nb].shape[axis]
+            o.narrow(axis, 0, width).add_(
+                cots[nb].narrow(axis, size - width, width).to(o.device))
+        out.append(o)
+    return out
+
+
+def halo_exchange_transpose(cots, width, mesh: ShardMesh):
+    """Transpose of :func:`halo_exchange`: fold padded-block cotangents back
+    onto the blocks.  The forward pads the axes one after the other, so the
+    transpose peels them in reverse order."""
+    widths = _widths(width)
+    for axis in reversed(range(len(widths))):
+        if widths[axis]:
+            cots = halo_exchange_axis_transpose(cots, widths[axis], axis,
+                                                mesh)
+    return cots
 
 
 def refresh_halos(pads, width, mesh: ShardMesh) -> None:

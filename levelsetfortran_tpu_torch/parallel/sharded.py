@@ -1,6 +1,6 @@
 """Domain-decomposed solver steps: reinitialization and min/max flow on a
-grid cut into blocks, with halo exchange between the blocks (port of the
-forward half of ``levelsetfortran_tpu/parallel/sharded.py``).
+grid cut into blocks, with halo exchange between the blocks (port of
+``levelsetfortran_tpu/parallel/sharded.py``).
 
 The 3-D grid is block-sharded over a :class:`~.mesh.ShardMesh`; a sharded
 field is a list of block tensors, each on its shard's device.  Every mask
@@ -10,7 +10,7 @@ sharded step equals the single-device step cell for cell; only the fused
 convergence sum is added in another order (per shard, then over the shards
 on the host in float64).
 
-Two families of steps:
+Three families of steps:
 
 * the plain block steps ``reinit_step_local``, ``reinit_k_steps_local``,
   ``reinit_step_local_overlap`` and ``minmax_step_local``: exchange, then
@@ -23,14 +23,23 @@ Two families of steps:
   (:func:`~..ops.weno_cuda.reinit_step_block`,
   :func:`~..ops.minmax_cuda.minmax_step_block`; on CPU tensors their plain
   versions).  :class:`ShardedLevelSet` runs these and nothing else: there
-  is no second route to fall back to.
+  is no second route to fall back to;
+* the differentiable fixed-step solvers :func:`reinit_fixed_sharded` (dense
+  and banded) and :func:`minmax_fixed_sharded`: K1/K3 block mode forward,
+  the block modes of the adjoint kernels K5/K6 backward, in gather form
+  (the upstream cotangent exchanged, each owned cell's cotangent gathered
+  in the solo kernel's order), so values and gradients are the solo fixed
+  solvers' bitwise; the scalar cotangents are per-shard sums added in
+  shard order.
 
 Departures from the JAX package: origins on three axes (z may be sharded
 with the kernels, which keep no axis whole); the overlap step's shell is up
 to six slabs of bricks, not four strips of tiles; the min/max halo is one
 cell wide; the solver loops are Python loops with one host read of the
-global sum per check.  Left out: the in-loop metrics stream, the sharded
-fixed-step (differentiable) solvers and ``dryrun``.
+global sum per check; the adjoints gather from a wider halo (6 cells for
+K5, 2 for K6) where the JAX route scatters onto the halo and sends it back
+with :func:`~.halo.halo_exchange_transpose`.  Left out: the in-loop metrics
+stream and ``dryrun``.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops import minmax_cuda, weno_cuda
+from ..ops import minmax_cuda, reverse, weno_cuda
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
 from .halo import crop, halo_exchange, local_offsets, refresh_halos
@@ -509,6 +518,283 @@ class ShardedLevelSet:
             if rms < tol or math.isnan(rms):
                 break
         return [crop(p, self.mwidths).contiguous() for p in pads], n, rms
+
+
+# ------------------ differentiable fixed-step solvers ------------------
+
+def _global_shape(mesh: ShardMesh, blocks) -> tuple:
+    return tuple(int(b) * m for b, m in zip(blocks[0].shape, mesh.shape))
+
+
+def _check_block_sizes(mesh: ShardMesh, gshape, width, what):
+    for g, m in zip(gshape, mesh.shape):
+        if m > 1 and g // m < width:
+            raise ValueError(f"{what}: shard blocks need >= {width} cells "
+                             f"along sharded axes (axis has {g // m}): the "
+                             f"halo of one exchange comes from the adjacent "
+                             f"shard only")
+
+
+def _shard_order_sum(parts):
+    """Per-shard float64 sums added in shard order, on the first shard's
+    device."""
+    dev = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
+
+
+def _scratch_for(cache, pad):
+    """K5's (21,) + pad.shape scratch, one per device and shape for a whole
+    backward sweep (the launches on one card run in order on its stream);
+    None on the CPU, whose plain version needs none."""
+    if pad.device.type != "cuda":
+        return None
+    key = (pad.device, tuple(pad.shape))
+    if key not in cache:
+        cache[key] = torch.empty((21,) + tuple(pad.shape), dtype=pad.dtype,
+                                 device=pad.device)
+    return cache[key]
+
+
+def _adjoint_masks(actives, mesh: ShardMesh):
+    """The backward brick masks of a banded sharded chunk.  Each shard's
+    forward mask is right on its OWNED bricks only (a halo brick's band4
+    window reaches past the exchanged cells); the adjoint evaluates stencil
+    cotangents on halo cells too, where the neighbour's forward ran with
+    the neighbour's mask.  So every shard's owned bricks go to the
+    neighbours by an exchange one brick wide.  Needs blocks that are
+    multiples of 8 on the sharded axes: then the brick grids of neighbours
+    coincide, and the forward (halo 4) and backward (halo 6) brick grids of
+    a shard start at the same global cell, 8 before the owned origin."""
+    owned = []
+    for a in actives:
+        for ax, m in enumerate(mesh.shape):
+            if m > 1:
+                a = a.narrow(ax, 1, a.shape[ax] - 2)
+        owned.append(a)
+    return halo_exchange(owned, sharded_widths(mesh, 1), mesh)
+
+
+class _ReinitFixedSharded(torch.autograd.Function):
+    """``steps`` K1 block-mode steps on every shard (halo ``HALO``), the
+    sign source frozen at the input blocks; the backward runs K5's block
+    mode per shard per step in reverse, in gather form: the iterate, the
+    sign source and the upstream cotangent exchanged ``VJP_HALO["reinit"]``
+    wide, each owned cell's cotangent gathered as the solo kernel gathers
+    it, so the gradient is the solo solve's bitwise and no transpose
+    exchange runs.  Dense: the flat stash or the sqrt-N recompute, decided
+    from one block's bytes (``reverse.last_branch["reinit_fixed_sharded"]``).
+    Banded: per chunk masks from the freshly exchanged chunk start,
+    recomputed in the backward, K5 in block + banded mode
+    (``sharded.py:949-1139`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, dx, h, spec, *blocks):
+        mesh, gshape, steps, band_radius, refresh_every, kw = spec
+        dxf, hf = float(dx), float(h)
+        wf = sharded_widths(mesh, HALO)
+        geoms = reinit_geoms(mesh, gshape, wf)
+        spads = halo_exchange(blocks, wf, mesh)
+
+        def fstep(p, actives=(None,) * len(geoms)):
+            return [crop(weno_cuda.reinit_step_block(
+                pad, sp, dxf, hf, g, active=a, **kw), wf).contiguous()
+                for pad, sp, g, a in zip(halo_exchange(p, wf, mesh), spads,
+                                         geoms, actives)]
+
+        def masks(p, n):
+            return [weno_cuda.tile_activity(pad, dxf, band_radius,
+                                            n * hf / dxf, window="band4",
+                                            geom=g)
+                    for pad, g in zip(halo_exchange(p, wf, mesh), geoms)]
+
+        p = list(blocks)
+        if band_radius is None:
+            p, ctx.traj = reverse.run_forward(fstep, p, steps)
+        else:
+            ctx.chunks = weno_cuda.chunk_lengths(steps, refresh_every)
+            ctx.starts = []
+            for n in ctx.chunks:
+                ctx.starts.append(p)
+                actives = masks(p, n)
+                for _ in range(n):
+                    p = fstep(p, actives)
+        ctx.fns = (fstep, masks)
+        ctx.save_for_backward(*blocks)
+        ctx.args = (spec, dxf, hf)
+        ctx.meta = (reverse.scalar_meta(dx), reverse.scalar_meta(h))
+        return tuple(p) if steps else tuple(b.clone() for b in blocks)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        blocks = ctx.saved_tensors
+        (mesh, gshape, steps, band_radius, _, kw), dxf, hf = ctx.args
+        fstep, masks = ctx.fns
+        wb = sharded_widths(mesh, weno_cuda.VJP_HALO["reinit"])
+        geoms = reinit_geoms(mesh, gshape, wb)
+        spads = halo_exchange(blocks, wb, mesh)
+        scratch = {}
+
+        def bstep(carry, p_in, actives=(None,) * len(geoms)):
+            gp, cs, cdx, ch = carry
+            out = [[], [], [], []]
+            for i, (pad, sp, gpad, g, a) in enumerate(zip(
+                    halo_exchange(p_in, wb, mesh), spads,
+                    halo_exchange(gp, wb, mesh), geoms, actives)):
+                cp, csi, cdxi, chi = weno_cuda.reinit_step_block_vjp(
+                    pad, sp, gpad, dxf, hf, g, active=a,
+                    scratch=_scratch_for(scratch, pad), **kw)
+                for acc, v in zip(out, (cp, cs[i] + csi, cdx[i] + cdxi,
+                                        ch[i] + chi)):
+                    acc.append(v)
+            return tuple(out)
+
+        zeros = [torch.zeros((), dtype=torch.float64, device=b.device)
+                 for b in blocks]
+        carry = ([g.contiguous() for g in gs],
+                 [torch.zeros_like(b) for b in blocks], zeros, zeros)
+        if band_radius is None:
+            carry = reverse.run_reverse("reinit_fixed_sharded", fstep, bstep,
+                                        list(blocks), carry, steps, ctx.traj)
+            ctx.traj = None
+        else:
+            for p, n in zip(reversed(ctx.starts), reversed(ctx.chunks)):
+                actives = masks(p, n)
+                back = _adjoint_masks(actives, mesh)
+                traj = [p]
+                for _ in range(n - 1):
+                    traj.append(fstep(traj[-1], actives))
+                for p_in in reversed(traj):
+                    carry = bstep(carry, p_in, back)
+            ctx.starts = None
+        gp, cs, cdx, ch = carry
+        # the sign source IS the input: both cotangent paths land on it
+        return (reverse.scalar_cotangent(ctx.meta[0], _shard_order_sum(cdx)),
+                reverse.scalar_cotangent(ctx.meta[1], _shard_order_sum(ch)),
+                None, *(a + b for a, b in zip(gp, cs)))
+
+
+def reinit_fixed_sharded(mesh: ShardMesh, blocks, dx, h, steps: int, *,
+                         eps_scale=1e-6, eps_floor=None,
+                         quirk_y_p5_zero=False, band_radius=None,
+                         refresh_every: int = 8) -> list:
+    """``steps`` reinit steps of a sharded field (a list of blocks, one per
+    shard of ``mesh``), reverse-mode differentiable in the blocks and (as
+    0-d tensors) ``dx`` and ``h`` — the port of
+    ``parallel/sharded.py:reinit_fixed_sharded`` of the JAX package on its
+    fused-kernel route.  Forward: K1's block mode per shard per step;
+    backward: K5's block mode, each owned cell's cotangent bitwise the solo
+    :func:`~..solvers.reinit.reinit_fixed`'s.
+
+    ``band_radius`` runs the banded x sharded x differentiable composition:
+    8^3-brick masks per chunk of ``refresh_every`` steps from each shard's
+    exchanged chunk start, frozen bricks copying forward and passing
+    cotangents through backward (K5 in block + banded mode); on blocks that
+    are multiples of 8 it equals :func:`~..ops.weno_cuda.reinit_scan_banded`
+    bitwise.  Needs blocks of >= 6 cells on the sharded axes, and multiples
+    of 8 with ``band_radius``."""
+    gshape = _global_shape(mesh, blocks)
+    _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["reinit"],
+                       "reinit_fixed_sharded")
+    if band_radius is not None and any(
+            m > 1 and (g // m) % BRICK for g, m in zip(gshape, mesh.shape)):
+        raise ValueError(f"reinit_fixed_sharded(band_radius=...): blocks "
+                         f"{mesh.block_shape(gshape)} must be multiples of "
+                         f"{BRICK} on the sharded axes of {mesh.shape}, so "
+                         f"that the shards' brick masks coincide")
+    kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
+              quirk_y_p5_zero=quirk_y_p5_zero)
+    spec = (mesh, gshape, int(steps),
+            None if band_radius is None else float(band_radius),
+            int(refresh_every), kw)
+    return list(_ReinitFixedSharded.apply(dx, h, spec, *blocks))
+
+
+class _MinmaxFixedSharded(torch.autograd.Function):
+    """``steps`` K3 block-mode steps on every shard (halo 1); the backward
+    runs K6's block mode per shard per step in reverse, in gather form: the
+    iterate and the upstream cotangent exchanged ``VJP_HALO["minmax"]``
+    wide, each owned cell's cotangent the solo kernel's bitwise
+    (``sharded.py:1182-1267`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, dx, h1, band_radius, threshold, spec, *blocks):
+        mesh, gshape, steps = spec
+        args = (float(dx), float(h1), float(band_radius), float(threshold))
+        wf = sharded_widths(mesh, 1)
+        geoms = minmax_geoms(mesh, gshape, wf)
+
+        def fstep(p):
+            return [crop(minmax_cuda.minmax_step_block(
+                pad, args[0], args[1], g, *args[2:]), wf).contiguous()
+                for pad, g in zip(halo_exchange(p, wf, mesh), geoms)]
+
+        p, ctx.traj = reverse.run_forward(fstep, list(blocks), steps)
+        ctx.fstep = fstep
+        ctx.save_for_backward(*blocks)
+        ctx.args = (spec, args)
+        ctx.meta = tuple(reverse.scalar_meta(x)
+                         for x in (dx, h1, band_radius, threshold))
+        return tuple(p) if steps else tuple(b.clone() for b in blocks)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        blocks = ctx.saved_tensors
+        (mesh, gshape, steps), args = ctx.args
+        wb = sharded_widths(mesh, weno_cuda.VJP_HALO["minmax"])
+        geoms = minmax_geoms(mesh, gshape, wb)
+
+        def bstep(carry, p_in):
+            gp, cdx, ch = carry
+            out = [[], [], []]
+            for i, (pad, gpad, g) in enumerate(zip(
+                    halo_exchange(p_in, wb, mesh),
+                    halo_exchange(gp, wb, mesh), geoms)):
+                cp, cdxi, chi = minmax_cuda.minmax_step_block_vjp(
+                    pad, gpad, args[0], args[1], g, *args[2:])
+                for acc, v in zip(out, (cp, cdx[i] + cdxi, ch[i] + chi)):
+                    acc.append(v)
+            return tuple(out)
+
+        zeros = [torch.zeros((), dtype=torch.float64, device=b.device)
+                 for b in blocks]
+        gp, cdx, ch = reverse.run_reverse(
+            "minmax_fixed_sharded", ctx.fstep, bstep, list(blocks),
+            ([g.contiguous() for g in gs], zeros, zeros), steps, ctx.traj)
+        ctx.traj = None
+        zero = zeros[0]
+        # band_radius and threshold enter through comparisons only
+        return (reverse.scalar_cotangent(ctx.meta[0], _shard_order_sum(cdx)),
+                reverse.scalar_cotangent(ctx.meta[1], _shard_order_sum(ch)),
+                reverse.scalar_cotangent(ctx.meta[2], zero),
+                reverse.scalar_cotangent(ctx.meta[3], zero), None, *gp)
+
+
+def minmax_fixed_sharded(mesh: ShardMesh, blocks, dx, h1, steps: int, *,
+                         band_radius=4.1, threshold=0.0,
+                         avg_halfwidth=1) -> list:
+    """``steps`` min/max steps of a sharded field, reverse-mode
+    differentiable in the blocks and (as 0-d tensors) ``dx``, ``h1``,
+    ``band_radius`` and ``threshold`` — the port of
+    ``parallel/sharded.py:minmax_fixed_sharded`` on its fused-kernel route:
+    K3's block mode forward, K6's block mode backward (gather form), each
+    owned cell bitwise the solo :func:`~..solvers.minmax_flow.
+    minmax_flow_fixed`'s.  Needs blocks of >= 2 cells on the sharded axes;
+    an average half-width other than 1 has no kernel and raises."""
+    if avg_halfwidth != 1:
+        raise NotImplementedError(
+            f"minmax_fixed_sharded: avg_halfwidth={avg_halfwidth} has no "
+            f"kernel; the sharded min/max runs the default half-width 1 "
+            f"(ROADMAP Queue 1 item 8: the non-default options of the fixed "
+            f"solvers)")
+    gshape = _global_shape(mesh, blocks)
+    _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["minmax"],
+                       "minmax_fixed_sharded")
+    return list(_MinmaxFixedSharded.apply(dx, h1, band_radius, threshold,
+                                          (mesh, gshape, int(steps)),
+                                          *blocks))
 
 
 # ------------------------- sharded advection -------------------------

@@ -5,7 +5,12 @@ at 24^3 (reinit 5, min/max 3, 12x12), and its finite-difference gate.
 
 Tolerances: float64 loss rtol 1e-12 and gradient 1e-9 relative to
 max |grad| (measured 1.2e-11 of 5.8: summation order only); float32 loss
-rtol 1e-4, gradient atol 1e-4 and rtol 1e-3 (measured 3.3e-6).
+rtol 1e-4, gradient atol 1e-4 and rtol 1e-3 (measured 3.3e-6).  The sharded
+path (``mesh=``, four blocks on the CPU) against the JAX package's sharded
+path on four virtual devices and against the port's own solo path: the
+JAX package's sharded-vs-single gates, loss rtol 1e-4, gradient atol 1e-4
+and rtol 1e-3 (``tests/test_render.py:132-155``; the per-block init may
+break a tie the other way, ROADMAP H8).
 """
 
 import jax.numpy as jnp
@@ -14,11 +19,13 @@ import pytest
 import torch
 
 from levelsetfortran_tpu.grid.grid import Grid3D as JGrid
+from levelsetfortran_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from levelsetfortran_tpu.pipeline import differentiable as jdiff
 from levelsetfortran_tpu_torch import (image_loss_and_vertex_grad,
                                        render_from_vertices)
 from levelsetfortran_tpu_torch.grid.grid import Grid3D
 from levelsetfortran_tpu_torch.ops.init_sign import signed_distance_init
+from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
 from levelsetfortran_tpu_torch.render.sphere_trace import (camera_rays,
                                                            trace_depth)
 from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
@@ -81,8 +88,11 @@ def test_end_to_end_vertex_gradient_and_culling():
     assert float(lc) == pytest.approx(float(loss), rel=1e-6)
     np.testing.assert_allclose(gc.numpy(), grad.numpy(), atol=1e-6,
                                rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        render_from_vertices(vt, f, tg, mesh=object(), **KW)
+    # mesh= runs: the sharded path renders the same image
+    om = render_from_vertices(vt, f, tg, mesh=make_mesh((2, 2, 1), ["cpu"]),
+                              **KW)
+    np.testing.assert_allclose(om.image.numpy(), out.image.numpy(),
+                               atol=1e-5)
 
 
 def test_vertex_gradient_finite_difference():
@@ -113,3 +123,25 @@ def test_vertex_gradient_finite_difference():
         num = (float(loss(base + eps * d)) - float(loss(base - eps * d))) \
             / (2 * eps)
     assert abs(ana - num) < 0.15 * max(1.0, abs(num))
+
+
+def test_sharded_loss_and_vertex_grad_match_jax_and_solo(eight_devices):
+    """``image_loss_and_vertex_grad(mesh=...)``: sharded init, then the
+    sharded fixed-step solvers, gathered for the renderer, on a (2, 2, 1)
+    mesh of four CPU blocks."""
+    v, f = _octahedron()
+    tg, jg = _grids()
+    lj, gj = jdiff.image_loss_and_vertex_grad(
+        jnp.asarray(v, jnp.float32), jnp.asarray(f), jg,
+        jnp.zeros((12, 12), jnp.float32), use_pallas=False,
+        mesh=jax_make_mesh((2, 2, 1), eight_devices[:4]), **KW)
+    gj = np.asarray(gj)
+    vt = torch.tensor(v, dtype=torch.float32)
+    target = torch.zeros((12, 12))
+    lm, gm = image_loss_and_vertex_grad(
+        vt, f, tg, target, mesh=make_mesh((2, 2, 1), ["cpu"] * 4), **KW)
+    ls, gs = image_loss_and_vertex_grad(vt, f, tg, target, **KW)
+    assert np.abs(gj).max() > 0 and gm.shape == (6, 3)
+    for loss, grad in ((float(lj), gj), (float(ls), gs.numpy())):
+        np.testing.assert_allclose(float(lm), loss, rtol=1e-4)
+        np.testing.assert_allclose(gm.numpy(), grad, atol=1e-4, rtol=1e-3)

@@ -2,7 +2,9 @@
 (``levelsetfortran_tpu_torch/parallel/{mesh,halo}.py``) against slices of a
 zero- or wrap-padded global array and against the JAX package's functions
 under ``shard_map`` on virtual CPU devices.  Copies only: every comparison
-is exact."""
+is exact.  Its transpose, ``halo_exchange_transpose``, holds the
+dot-product identity in float64 to 1e-12 relative (adds in another order)
+and equals the JAX transpose exactly."""
 
 import math
 
@@ -105,6 +107,41 @@ def test_refresh_halos_equals_exchange_and_jax(eight_devices, mesh_shape):
 
     ref = _jax_blocks(jax_refresh, x, mesh_shape, eight_devices)
     np.testing.assert_array_equal(mesh.gather_blocks(m, pads).numpy(), ref)
+
+
+@pytest.mark.parametrize("width", [(3, 2, 1), 2])
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 1), (2, 2, 2), (3, 1, 2)])
+def test_halo_exchange_transpose_dot_product_identity(mesh_shape, width):
+    """<halo_exchange(x), y> = <x, halo_exchange_transpose(y)> for random
+    blocks x and padded blocks y, float64."""
+    shape = (18, 12, 16)
+    m = mesh.make_mesh(mesh_shape, ["cpu"])
+    rng = np.random.default_rng(5)
+    xs = mesh.split_blocks(m, torch.tensor(rng.standard_normal(shape)))
+    pads = halo.halo_exchange(xs, width, m)
+    ys = [torch.tensor(rng.standard_normal(p.shape)) for p in pads]
+    back = halo.halo_exchange_transpose(ys, width, m)
+    assert [b.shape for b in back] == [x.shape for x in xs]
+    lhs = sum(float(torch.sum(p * y)) for p, y in zip(pads, ys))
+    rhs = sum(float(torch.sum(x * b)) for x, b in zip(xs, back))
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 1), (2, 2, 2)])
+def test_halo_exchange_transpose_equals_jax_under_shard_map(eight_devices,
+                                                            mesh_shape):
+    """Padded cotangent blocks laid side by side, folded back by the JAX
+    transpose under shard_map and by the port's."""
+    width = (3, 2, 1)
+    b = tuple(n // k for n, k in zip(SHAPE, mesh_shape))
+    padded = tuple(k * (n + 2 * w) for k, n, w in zip(mesh_shape, b, width))
+    y = np.random.default_rng(6).standard_normal(padded)
+    ref = _jax_blocks(lambda c: jhalo.halo_exchange_transpose(
+        c, width, mesh_shape), y, mesh_shape, eight_devices)
+    m = mesh.make_mesh(mesh_shape, ["cpu"])
+    back = halo.halo_exchange_transpose(
+        mesh.split_blocks(m, torch.tensor(y)), width, m)
+    np.testing.assert_array_equal(mesh.gather_blocks(m, back).numpy(), ref)
 
 
 def test_halo_exchange_carries_a_channel_axis():
