@@ -10,7 +10,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. build: compile the CUDA kernels from levelsetfortran_tpu_torch/csrc;
   2. kernels: each kernel against its plain PyTorch version on the card at
      (67, 45, 39) and (222, 222, 222), dense, with the fused sum and banded
-     with a real mask; K4 also against 4 launches of K3, bitwise; the
+     with a real mask; K4 also against 4 launches of K3, bitwise, and
+     timed beside them (dense and banded; at 222^3 and, after run A, on
+     run A's own field and band mask at 262x42x42); the
      adjoint kernels K5 (with a sign source unlike phi) and K6 (on a field
      after a K1 step) against their plain versions and against a second
      launch, bitwise; median times from CUDA events; the pack modes of K1
@@ -120,6 +122,9 @@ PACK_B, FROZEN = 8, 3
 #: on 256^3 points of [-1, 1]^3, h = 0.1 dx.
 BENCH_N, BENCH_R = 256, 0.6
 BENCH_DX = 2.0 / (BENCH_N - 1)
+#: The card's name and power limit as nvidia-smi prints them (set by
+#: start()), printed beside every time.
+CARD = "nvidia-smi not read"
 
 
 def phase(name, msg):
@@ -174,6 +179,42 @@ def band_cells(phi, dx, radius=4.1):
     min/max step (or its adjoint) updates, over the last three axes."""
     band = (phi.abs() < float(np.float32(radius) * np.float32(dx)))
     return int(band[..., 1:-1, 1:-1, 1:-1].sum())
+
+
+def fused_against_k3(tag, phi, dx, h1, active):
+    """K4 (4 fused steps) against 4 K3 launches on the same input, dense
+    and banded with ``active``: bitwise (fields and the last step's sum),
+    then both timed in turns (medians of 20, the lesser of two)."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+
+    def k4(act):
+        return mc.minmax_fusedk(phi, dx, h1, ksteps=4, active=act,
+                                with_rms=True)
+
+    def k3x4(act):
+        q = phi
+        for s in range(4):
+            q = mc.minmax_step(q, dx, h1, active=act, with_rms=s == 3)
+        return q
+
+    t = {}
+    for name, act in (("dense", None), ("banded", active)):
+        f, fd = k4(act)
+        q, qd = k3x4(act)
+        check(torch.equal(f, q) and float(fd) == float(qd),
+              f"K4 {tag} {name}: not bitwise equal to 4 K3 launches "
+              f"({err(f, q):.3g}, sums {float(fd)!r} / {float(qd)!r})")
+        a = median_ms(lambda: k4(act), 20)
+        b = median_ms(lambda: k3x4(act), 20)
+        t[name] = (min(a, median_ms(lambda: k4(act), 20)),
+                   min(b, median_ms(lambda: k3x4(act), 20)))
+    frozen = int(active.numel() - active.sum())
+    phase("kernels", f"K4 vs 4 K3 launches {tag} {tuple(phi.shape)}: "
+          f"bitwise equal (fields and sums); dense {t['dense'][0]:.4f} ms "
+          f"vs {t['dense'][1]:.4f} ms, banded ({frozen}/{active.numel()} "
+          f"bricks frozen) {t['banded'][0]:.4f} ms vs {t['banded'][1]:.4f} "
+          f"ms; card {CARD}")
 
 
 def kernel_phase(record):
@@ -277,6 +318,8 @@ def kernel_phase(record):
                              + OPS["rms"] * phi.numel()))
         phase("kernels", f"K4 {shape}: bitwise equal to 4 K3 launches, "
               f"max_abs_err vs plain {e4:.3g} (tol 1e-7)")
+        if main:
+            fused_against_k3("sphere", phi, dx, h1, act_m)
         del k, p, kb, pb, kc
         # K5: a sign source whose sign and value differ from phi's (a
         # sphere 10% larger); K6: a field after one K1 step
@@ -292,7 +335,7 @@ def kernel_phase(record):
                   if "banded_ms" in rec else "")
         phase("kernels", f"{name} at {MAIN_SHAPE}: kernel {rec['ms']:.4f} ms"
               f"{banded}, plain {rec['plain_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); card {CARD}")
 
 
 def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
@@ -424,6 +467,21 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
         check(all(v == 0 for n, v in launches.items() if n not in want),
               f"run {label}: solo kernels launched under a mesh {launches}")
     return launches, res
+
+
+def run_a_fused(res, mesh, dx=0.05):
+    """K4 against 4 K3 launches at run A's grid (262x42x42) on its own
+    phi_init, with the step and the band mask of its banded min/max
+    solve."""
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig
+    from levelsetfortran_tpu_torch.grid import grid as gridmod
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    cfg = LevelSetConfig()
+    phi = torch.tensor(res.phi_init, dtype=torch.float32, device="cuda")
+    h1 = cfg.minmax_cfl * dx / gridmod.surface_diag(mesh.vertices)
+    act = wc.tile_activity(phi, dx, cfg.band_radius, window="owned")
+    fused_against_k3("run A", phi, dx, h1, act)
 
 
 def cube_grid(vertices, n):
@@ -744,7 +802,8 @@ def packed_phase(record, run_e_shape):
                   f"unchanged with dsq 0, two launches bitwise equal, "
                   f"max_abs_err vs plain {e:.3g} (tol 0), dsq rel {rel:.3g} "
                   f"(tol 1e-5); all {PACK_B} live: one packed launch "
-                  f"{t_pack:.4f} ms vs {PACK_B} solo launches {t_solo:.4f} ms")
+                  f"{t_pack:.4f} ms vs {PACK_B} solo launches "
+                  f"{t_solo:.4f} ms; card {CARD}")
         del phi, sgn, mm_phi
         torch.cuda.empty_cache()
     for rname in ("reinit_step_packed", "minmax_step_packed"):
@@ -753,7 +812,8 @@ def packed_phase(record, run_e_shape):
               f"kernel "
               f"{rec['ms']:.4f} ms, {PACK_B} solo launches "
               f"{rec['solo_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); card "
+              f"{CARD}")
 
 
 def in_grid_cells(pad, geom):
@@ -978,7 +1038,7 @@ def block_phase(record):
               f"{rec['cells'][1]} stepped, {rec['cells'][2]} owned); the 4 "
               f"blocks {rec['all_blocks_ms']:.4f}"
               f" ms vs one solo launch on the whole grid "
-              f"{rec['solo_ms']:.4f} ms")
+              f"{rec['solo_ms']:.4f} ms; card {CARD}")
 
 
 def run_f_phase(ball, ball_sdf, res_b, card, tmp):
@@ -1218,8 +1278,7 @@ def adjoint_mode_phase(record):
               f"equal to the solo kernel's, shard sums rel {s5:.3g} / "
               f"{s6:.3g} (tol 1e-9)")
         if main:
-            scratch = torch.empty((21,) + tuple(p5[0][0].shape),
-                                  device="cuda")
+            scratch = torch.empty_like(p5[0][0])
             a5 = [x[0] for x in p5] + [g5[0]]
             b5 = [[x[i] for x in p5] + [g5[i]] for i in range(len(g5))]
             rec = record["reinit_step_block_vjp"]
@@ -1268,14 +1327,14 @@ def adjoint_mode_phase(record):
               f"ms ({rec['bound_by']}; {rec['cells'][0]} cells evaluated, "
               f"{rec['cells'][1]} owned); the 4 blocks "
               f"{rec['all_blocks_ms']:.4f} ms vs one solo launch on the "
-              f"whole grid {rec['solo_ms']:.4f} ms")
+              f"whole grid {rec['solo_ms']:.4f} ms; card {CARD}")
     for name in ("reinit_step_vjp_banded", "minmax_step_vjp_banded"):
         rec = record[name]
         phase("kernels", f"{name} at {(BENCH_N,) * 3}: kernel "
               f"{rec['ms']:.4f} ms (dense {rec['dense_ms']:.4f} ms), plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}; {rec['active_cells']} cells in active "
-              f"bricks)")
+              f"bricks); card {CARD}")
 
 
 def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
@@ -1710,6 +1769,8 @@ def start():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         "nvidia-smi unavailable"
     print(card, flush=True)
+    global CARD
+    CARD = card
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     phase("device", f"{torch.cuda.get_device_name(0)}; torch "
@@ -1723,15 +1784,9 @@ def start():
     return card
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    card = start()
-    from levelsetfortran_tpu_torch.models import analytic
-    from levelsetfortran_tpu_torch.pipeline.batch import common_shape_grids
-
+def kernel_names():
+    """Each kernel entry of the record: its source and the TPU kernel (file
+    and line of its ``pallas_call`` function) it replaces."""
     csrc = "levelsetfortran_tpu_torch/csrc/"
     weno, mm = ("levelsetfortran_tpu/ops/weno_pallas.py:",
                 "levelsetfortran_tpu/ops/minmax_pallas.py:")
@@ -1758,6 +1813,19 @@ def main() -> int:
         "minmax_step_vjp_banded": (csrc + "minmax_bwd.cu",
                                    mm + "975 (active)"),
     }
+    return names
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = start()
+    from levelsetfortran_tpu_torch.models import analytic
+    from levelsetfortran_tpu_torch.pipeline.batch import common_shape_grids
+
+    names = kernel_names()
     record = {n: {"max_abs_err": 0.0, "library_ms": None} for n in names}
     kernel_phase(record)
     packed_phase(record, common_shape_grids(run_e_meshes()[0], RUN_E_DX,
@@ -1790,6 +1858,7 @@ def main() -> int:
             launches, results[label] = run_phase(label, mesh, truth, dx,
                                                  extra, tmp)
             count(launches)
+        run_a_fused(results["A"], cubes)
         count(run_f_phase(ball, ball_sdf, results["B"], card, tmp))
         count(run_e_phase(card, tmp))
     launches, run_d = run_d_phase(ball, card, record)

@@ -12,21 +12,28 @@
 // never leave the grid, so neither the TPU kernel's edge clamp nor the jnp
 // path's wrap is needed here: nothing outside the grid is ever read.
 //
-// K4 runs K <= 4 steps in one pass: a block loads its brick widened by K
-// cells into shared memory and steps the window K times, the computed
-// region shrinking by one cell per step, so every owned cell sees exactly
-// the neighbours K single steps would give it.  Both kernels call the same
+// K4 runs K <= 4 steps in one pass.  Both kernels call the same
 // minmax_update(), and the library is built with --fmad=false, so K4 is
-// bitwise equal to K launches of K3.
+// bitwise equal to K launches of K3, its fused sum (the last step's) too.
 //
 // What bounds it on the H100: bytes.  K3 does ~15 float operations per
-// cell against 8 bytes of device-memory traffic; K4 moves the same bytes
-// for K steps (plus the (1 + 2K/8)^3 window re-read, through L2).  The
-// narrow band skips whole inactive bricks: `active` holds one int32 per
-// brick; an inactive brick copies its cells (copy_inactive, the mint step)
-// or writes nothing (the ping-pong buffer already holds its values).  The
-// update gate is the cell's own value, so a brick with no in-band cell can
-// never change: the banded solve equals the dense one bitwise.
+// cell against 8 bytes of device-memory traffic; K4 moves the same 8 bytes
+// for K steps.  The first port gave K4 one 8^3 brick per block widened by
+// K on every side: 4,096 loads for 512 cells at K = 4, 5,984 updates (2.9x
+// four K3 steps), a runtime divide per update and 36 KB of shared memory,
+// so four fused steps took as long as four K3 launches.  The wavefront
+// below widens a 16 x 32 column by K in y and z only and walks x once: at
+// K = 4 it reads 1.9x the owned cells (through L2) and makes 1.4x the
+// updates of four K3 steps, from per-thread cell indices fixed for the
+// walk, with one barrier per plane.
+//
+// The narrow band skips whole inactive bricks: `active` holds one int32
+// per brick; an inactive brick copies its cells (copy_inactive, the mint
+// step) or writes nothing (the ping-pong buffer already holds its values),
+// and writes a zero partial.  The update gate is the cell's own value, so a
+// brick with no in-band cell can never change: the banded solve equals the
+// dense one bitwise, and K4 skips the runs of slabs whose bricks are all
+// frozen.
 //
 // Block mode of K3 (minmax_step_block_kernel, the TPU kernel's `offsets`
 // argument): the tensor is one shard's block of a domain-decomposed grid
@@ -36,6 +43,8 @@
 // updates only where its +-1 reads stay inside the array, which every owned
 // cell's do; a frozen brick copies its cells.  Same minmax_update(), so a
 // block's cells equal the solo kernel's on the whole grid bit for bit.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -190,69 +199,233 @@ minmax_step_block_kernel(const float* __restrict__ phi,
   }
 }
 
+// K4's wavefront.  A block owns a (FK_TY x FK_TZ) column of cells and a
+// run of x-slabs (whole bricks); it walks x one plane per step.  Level 0 is
+// phi; level s is level s-1 after one more step.  At step t the block loads
+// level-0 plane t and computes level s at plane t - 2s (s = 1..K), whose
+// three input planes t-2s-1 .. t-2s+1 of level s-1 were done by step t-1:
+// one barrier per step, and a ring of 4 planes per level (the planes read
+// and the one being written are 4 consecutive ones).  Each plane is the
+// column widened by K cells in y and z; level s is computed on the column
+// widened by K - s, so level K is the owned column, and in x a run reads K
+// planes beyond each end (none past a face: a face plane never changes).
+// The x-tree of lsf::block_sum (x-planes i with i+4, i+2, i+1) runs in each
+// thread's registers over the 8 planes of a brick, the y- and z-trees in
+// shared memory and shuffles once the brick's last plane is done, so the
+// partial is the K3 launch's bitwise.
+constexpr int FK_TY = 16, FK_TZ = 32, FK_NT = FK_TY * FK_TZ;
+
 template <int K>
-__global__ void __launch_bounds__(NT)
+constexpr int fk_plane() { return (FK_TY + 2 * K) * (FK_TZ + 2 * K); }
+
+template <int K>
+constexpr size_t fk_smem() {
+  return sizeof(float) * K * 4 * fk_plane<K>() + sizeof(double) * FK_NT;
+}
+
+// Whether x-slab bx of the block's column holds an active brick.
+__device__ __forceinline__ bool slab_live(const int* __restrict__ active,
+                                          int bx, int by0, int bz0, int nby,
+                                          int nbz) {
+  if (active == nullptr) return true;
+  bool live = false;
+  for (int b = 0; b < (FK_TY / BRICK) * (FK_TZ / BRICK); ++b) {
+    const int by = by0 + b / (FK_TZ / BRICK), bz = bz0 + b % (FK_TZ / BRICK);
+    if (by < nby && bz < nbz)
+      live |= active[((long long)bx * nby + by) * nbz + bz] != 0;
+  }
+  return live;
+}
+
+template <int K>
+__global__ void __launch_bounds__(FK_NT, 2)
 minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
                      MinmaxParams p, const int* __restrict__ active,
-                     int copy_inactive, double* __restrict__ partials) {
-  constexpr int W = BRICK + 2 * K;        // window edge: brick +- K
-  constexpr int W3 = W * W * W;
-  __shared__ float buf[2][W3];
-  __shared__ double red[NT];
-  const int tid = lsf::thread_rank();
-  const int x0 = blockIdx.z * BRICK;
-  const int y0 = blockIdx.y * BRICK;
-  const int z0 = blockIdx.x * BRICK;
-  const long long brick = lsf::brick_id();
-  if (active != nullptr && active[brick] == 0) {      // uniform per block
-    const int i = x0 + threadIdx.z, j = y0 + threadIdx.y, k = z0 + threadIdx.x;
-    if (copy_inactive && i < p.nx && j < p.ny && k < p.nz) {
-      const long long idx = ((long long)i * p.ny + j) * p.nz + k;
-      out[idx] = phi[idx];
+                     int copy_inactive, double* __restrict__ partials,
+                     int chunk) {
+  constexpr int EY = FK_TY + 2 * K, EZ = FK_TZ + 2 * K, P = EY * EZ;
+  constexpr int NB = (FK_TY / BRICK) * (FK_TZ / BRICK);   // bricks per slab
+  constexpr int NL = (P + FK_NT - 1) / FK_NT;     // level-0 cells a thread
+  constexpr int NC = ((EY - 2) * (EZ - 2) + FK_NT - 1) / FK_NT;  // level >= 1
+  constexpr int NS = K > 1 ? K - 1 : 1;
+  extern __shared__ double fk_shared[];
+  double* red = fk_shared;                                // FK_NT
+  float* ring = reinterpret_cast<float*>(fk_shared + FK_NT);  // [K][4][P]
+  const int tid = threadIdx.x;
+  const int ty = tid / FK_TZ, tz = tid % FK_TZ;
+  const int y0 = blockIdx.y * FK_TY, z0 = blockIdx.x * FK_TZ;
+  const int nbx = (p.nx + BRICK - 1) / BRICK, nby = (p.ny + BRICK - 1) / BRICK;
+  const int nbz = (p.nz + BRICK - 1) / BRICK;
+  const int by0 = y0 / BRICK, bz0 = z0 / BRICK;
+  const int bx0 = blockIdx.z * chunk, bx1 = min(bx0 + chunk, nbx);
+  const long long sy = p.nz, sx = (long long)p.ny * p.nz;
+  const int j = y0 + ty, k = z0 + tz;                     // owned column
+  const bool col_in = j < p.ny && k < p.nz;
+
+  // this thread's cells of each level, fixed for the whole walk: level 0
+  // (the loads), levels 1 .. K-1 (the widened columns), level K (owned)
+  long long goff[NL];
+  bool gin[NL];
+#pragma unroll
+  for (int r = 0; r < NL; ++r) {
+    const int q = tid + r * FK_NT;
+    const int gj = y0 - K + q / EZ, gk = z0 - K + q % EZ;
+    gin[r] = q < P && gj >= 0 && gj < p.ny && gk >= 0 && gk < p.nz;
+    goff[r] = gj * sy + gk;
+  }
+  int lw[NS][NC];
+  bool lin[NS][NC], lok[NS][NC];
+#pragma unroll
+  for (int s = 1; s < K; ++s) {
+    const int rz = EZ - 2 * s, n = (EY - 2 * s) * rz;
+#pragma unroll
+    for (int r = 0; r < NC; ++r) {
+      const int q = tid + r * FK_NT;
+      const int wy = s + q / rz, wz = s + q % rz;
+      const int gj = y0 - K + wy, gk = z0 - K + wz;
+      lw[s - 1][r] = wy * EZ + wz;
+      lin[s - 1][r] = q < n;
+      lok[s - 1][r] = gj >= 1 && gj <= p.ny - 2 && gk >= 1 && gk <= p.nz - 2;
     }
-    if (partials != nullptr && tid == 0) partials[brick] = 0.0;
-    return;
   }
-  for (int q = tid; q < W3; q += NT) {
-    const int gi = x0 - K + q / (W * W);
-    const int gj = y0 - K + (q / W) % W;
-    const int gk = z0 - K + q % W;
-    const bool ing = gi >= 0 && gi < p.nx && gj >= 0 && gj < p.ny && gk >= 0
-                     && gk < p.nz;
-    buf[0][q] = ing ? phi[((long long)gi * p.ny + gj) * p.nz + gk] : 0.0f;
-  }
-  __syncthreads();
-  int cur = 0;
-  double dd = 0.0;
-  for (int s = 0; s < K; ++s) {
-    const int e = K - 1 - s;              // extension left after this step
-    const int n = BRICK + 2 * e;
-    const int lo = K - e;
-    for (int q = tid; q < n * n * n; q += NT) {
-      const int wx = lo + q / (n * n);
-      const int wy = lo + (q / n) % n;
-      const int wz = lo + q % n;
-      const int w = (wx * W + wy) * W + wz;
-      const int gi = x0 - K + wx, gj = y0 - K + wy, gk = z0 - K + wz;
-      const float* b = buf[cur];
-      const float c = b[w];
-      float r = c;
-      if (updates(gi, gj, gk, c, p))
-        r = minmax_update(c, b[w - W * W], b[w + W * W], b[w - W], b[w + W],
-                          b[w + 1], b[w - 1], p);
-      buf[cur ^ 1][w] = r;
-      if (s == K - 1 && gi < p.nx && gj < p.ny && gk < p.nz) {
-        out[((long long)gi * p.ny + gj) * p.nz + gk] = r;   // owned cell
-        const float d = r - c;
-        dd = (double)d * (double)d;
+  const int ow = (K + ty) * EZ + K + tz;
+  const bool own_ok = j >= 1 && j <= p.ny - 2 && k >= 1 && k <= p.nz - 2;
+  const long long own_off = j * sy + k;
+
+  // the chunk in runs of live slabs (a single dead slab between two live
+  // ones joins the run: sweeping it costs 8 steps, a restart 3K); a dead
+  // slab outside every run has only frozen bricks: copied under mint, zero
+  // sums
+  auto live = [&](int bx) {
+    return slab_live(active, bx, by0, bz0, nby, nbz);
+  };
+  for (int first = bx0; first < bx1;) {
+    if (!live(first)) {
+      if (copy_inactive && col_in)
+        for (int i = first * BRICK; i < min(first * BRICK + BRICK, p.nx); ++i)
+          out[i * sx + own_off] = phi[i * sx + own_off];
+      if (partials != nullptr && tid < NB) {
+        const int by = by0 + tid / (FK_TZ / BRICK);
+        const int bz = bz0 + tid % (FK_TZ / BRICK);
+        if (by < nby && bz < nbz)
+          partials[((long long)first * nby + by) * nbz + bz] = 0.0;
       }
+      ++first;
+      continue;
     }
-    __syncthreads();
-    cur ^= 1;
-  }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (tid == 0) partials[brick] = total;
+    int last = first;
+    while (last + 1 < bx1
+           && (live(last + 1) || (last + 2 < bx1 && live(last + 2))))
+      ++last;
+    const int xs = first * BRICK, xe = min((last + 1) * BRICK, p.nx);
+    const int xr = max(xs - K, 0);             // first plane loaded
+    const int xl = min(xe + K, p.nx);          // end of the planes loaded
+    float dq[BRICK];                           // last-step changes, this brick
+#pragma unroll
+    for (int m = 0; m < BRICK; ++m) dq[m] = 0.0f;
+
+    for (int t = xr; t <= xe - 1 + 2 * K; ++t) {
+      // level 0, plane t: loaded now, stored after this step's compute
+      float v[NL];
+      const bool load = t < xl;
+#pragma unroll
+      for (int r = 0; r < NL; ++r)
+        v[r] = load && gin[r] ? __ldg(phi + t * sx + goff[r]) : 0.0f;
+      // levels 1 .. K-1 into their rings
+#pragma unroll
+      for (int s = 1; s < K; ++s) {
+        const int pl = t - 2 * s;
+        const int lo = xr == 0 ? 0 : xr + s;
+        const int hi = xl == p.nx ? p.nx - 1 : xl - 1 - s;
+        if (pl < lo || pl > hi) continue;      // uniform over the block
+        const bool iok = pl >= 1 && pl <= p.nx - 2;
+        const float* src = ring + (s - 1) * 4 * P;
+        const float* bm = src + ((pl + 3) & 3) * P;
+        const float* b0 = src + (pl & 3) * P;
+        const float* bp = src + ((pl + 1) & 3) * P;
+        float* dst = ring + s * 4 * P + (pl & 3) * P;
+#pragma unroll
+        for (int r = 0; r < NC; ++r) {
+          if (!lin[s - 1][r]) continue;
+          const int w = lw[s - 1][r];
+          const float c = b0[w];
+          float u = c;
+          if (iok && lok[s - 1][r] && fabsf(c) < p.band_dx)
+            u = minmax_update(c, bm[w], bp[w], b0[w - EZ], b0[w + EZ],
+                              b0[w + 1], b0[w - 1], p);
+          dst[w] = u;
+        }
+      }
+      // level K at plane t - 2K: the owned column's cells
+      const int pl = t - 2 * K;
+      if (pl >= xs && pl < xe) {
+        const float* src = ring + (K - 1) * 4 * P;
+        const float* b0 = src + (pl & 3) * P;
+        const float c = b0[ow];
+        float r = c;
+        if (pl >= 1 && pl <= p.nx - 2 && own_ok && fabsf(c) < p.band_dx)
+          r = minmax_update(c, src[((pl + 3) & 3) * P + ow],
+                            src[((pl + 1) & 3) * P + ow], b0[ow - EZ],
+                            b0[ow + EZ], b0[ow + 1], b0[ow - 1], p);
+        const int bx = pl / BRICK;
+        const bool act = active == nullptr
+            || (col_in && active[((long long)bx * nby + j / BRICK) * nbz
+                                 + k / BRICK] != 0);
+        if (col_in) {
+          const long long idx = pl * sx + own_off;
+          if (act) out[idx] = r;
+          else if (copy_inactive) out[idx] = phi[idx];
+        }
+        const float d = col_in ? r - c : 0.0f;
+#pragma unroll
+        for (int m = 0; m < BRICK; ++m)
+          if ((pl & (BRICK - 1)) == m) dq[m] = d;
+        if (partials != nullptr
+            && ((pl & (BRICK - 1)) == BRICK - 1 || pl == xe - 1)) {
+          // the brick's last plane: its 512 changes in block_sum's tree
+          double dd[BRICK];
+#pragma unroll
+          for (int m = 0; m < BRICK; ++m)
+            dd[m] = (double)dq[m] * (double)dq[m];
+          red[tid] = ((dd[0] + dd[4]) + (dd[2] + dd[6]))
+                     + ((dd[1] + dd[5]) + (dd[3] + dd[7]));
+          __syncthreads();
+          if (tid < NB * BRICK) {
+            const int b = tid / BRICK, zi = tid % BRICK;
+            const int ly = (b / (FK_TZ / BRICK)) * BRICK;
+            const int lz = (b % (FK_TZ / BRICK)) * BRICK + zi;
+            double u[BRICK];
+#pragma unroll
+            for (int yi = 0; yi < BRICK; ++yi)
+              u[yi] = red[(ly + yi) * FK_TZ + lz];
+            double a = ((u[0] + u[4]) + (u[2] + u[6]))
+                       + ((u[1] + u[5]) + (u[3] + u[7]));
+            a += __shfl_down_sync(0xffffffffu, a, 4);
+            a += __shfl_down_sync(0xffffffffu, a, 2);
+            a += __shfl_down_sync(0xffffffffu, a, 1);
+            const int by = by0 + b / (FK_TZ / BRICK);
+            const int bz = bz0 + b % (FK_TZ / BRICK);
+            if (zi == 0 && by < nby && bz < nbz) {
+              const long long brick = ((long long)bx * nby + by) * nbz + bz;
+              partials[brick] =
+                  active == nullptr || active[brick] != 0 ? a : 0.0;
+            }
+          }
+        }
+        if ((pl & (BRICK - 1)) == BRICK - 1) {
+#pragma unroll
+          for (int m = 0; m < BRICK; ++m) dq[m] = 0.0f;
+        }
+      }
+      if (load) {
+        float* dst = ring + (t & 3) * P;
+#pragma unroll
+        for (int r = 0; r < NL; ++r)
+          if (tid + r * FK_NT < P) dst[tid + r * FK_NT] = v[r];
+      }
+      __syncthreads();
+    }
+    first = last + 1;
   }
 }
 
@@ -290,6 +463,49 @@ extern "C" int lsf_minmax_step_packed_f32(const void* phi, void* out,
   return lsf::finish(grid, partials, dsq, st, batch);
 }
 
+namespace {
+
+template <int K>
+int launch_fusedk(const float* in, float* o, const MinmaxParams& p,
+                  const int* act, int copy_inactive, double* part,
+                  cudaStream_t st) {
+  constexpr size_t smem = fk_smem<K>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      minmax_fusedk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  // x-slabs per block: the count that minimises waves x steps a block
+  // walks (8 per slab and 3K more for a run's ends), the waves counted over
+  // the card's resident blocks
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, minmax_fusedk_kernel<K>, FK_NT, smem);
+  const long long slots = std::max(1LL, (long long)sms * per_sm);
+  const int nbx = (p.nx + BRICK - 1) / BRICK;
+  const long long cols = (long long)((p.nz + FK_TZ - 1) / FK_TZ)
+                         * ((p.ny + FK_TY - 1) / FK_TY);
+  int chunk = nbx;
+  long long best = -1;
+  for (int c = 1; c <= nbx; ++c) {
+    const long long waves = ((nbx + c - 1) / c * cols + slots - 1) / slots;
+    const long long cost = waves * (BRICK * c + 3 * K);
+    if (best < 0 || cost < best) {
+      best = cost;
+      chunk = c;
+    }
+  }
+  const dim3 grid((p.nz + FK_TZ - 1) / FK_TZ, (p.ny + FK_TY - 1) / FK_TY,
+                  (nbx + chunk - 1) / chunk);
+  minmax_fusedk_kernel<K><<<grid, FK_NT, smem, st>>>(in, o, p, act,
+                                                     copy_inactive, part,
+                                                     chunk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int lsf_minmax_fusedk_f32(const void* phi, void* out, int nx,
                                      int ny, int nz, float h1, float inv_dx2,
                                      float band_dx, float threshold,
@@ -297,21 +513,21 @@ extern "C" int lsf_minmax_fusedk_f32(const void* phi, void* out, int nx,
                                      int copy_inactive, void* partials,
                                      void* dsq, void* stream) {
   const MinmaxParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
-  const dim3 grid = lsf::brick_grid(nx, ny, nz);
-  const dim3 block(BRICK, BRICK, BRICK);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* in = static_cast<const float*>(phi);
   float* o = static_cast<float*>(out);
   const int* act = static_cast<const int*>(active);
   double* part = static_cast<double*>(partials);
+  int e;
   switch (ksteps) {
-    case 1: minmax_fusedk_kernel<1><<<grid, block, 0, st>>>(in, o, p, act, copy_inactive, part); break;
-    case 2: minmax_fusedk_kernel<2><<<grid, block, 0, st>>>(in, o, p, act, copy_inactive, part); break;
-    case 3: minmax_fusedk_kernel<3><<<grid, block, 0, st>>>(in, o, p, act, copy_inactive, part); break;
-    case 4: minmax_fusedk_kernel<4><<<grid, block, 0, st>>>(in, o, p, act, copy_inactive, part); break;
+    case 1: e = launch_fusedk<1>(in, o, p, act, copy_inactive, part, st); break;
+    case 2: e = launch_fusedk<2>(in, o, p, act, copy_inactive, part, st); break;
+    case 3: e = launch_fusedk<3>(in, o, p, act, copy_inactive, part, st); break;
+    case 4: e = launch_fusedk<4>(in, o, p, act, copy_inactive, part, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return lsf::finish(grid, partials, dsq, st);
+  if (e != 0) return e;
+  return lsf::finish(lsf::brick_grid(nx, ny, nz), partials, dsq, st);
 }
 
 // geom: BLOCK_GEOM_INTS host ints (common.cuh); nx, ny, nz: the padded

@@ -67,7 +67,7 @@ SIGNATURES = {
     # the same plus ksteps before active
     "lsf_minmax_fusedk_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
                               _P, _I, _P, _P, _P],
-    # phi, sign, g, cot_phi, cot_sign, q scratch, nx, ny, nz, dx, h, dx2,
+    # phi, sign, g, cot_phi, cot_sign, cot_gs scratch, nx, ny, nz, dx, h, dx2,
     # inv_dx2, eps_scale, eps_floor, ef_dx, p5_zero_y, active, partials,
     # sums, stream
     "lsf_reinit_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
@@ -85,6 +85,11 @@ SIGNATURES = {
     "lsf_minmax_bwd_block_f32": [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
                                  _P, _P, _P],
 }
+
+
+#: C entry points that return a count, not an error: nx, ny, nz and the
+#: block geometry (host ints, None for a solo grid) -> K5's float64 partials.
+COUNTS = {"lsf_reinit_bwd_partials": [_I, _I, _I, _P]}
 
 
 def _nvcc() -> str:
@@ -140,6 +145,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in COUNTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     return lib
 
 

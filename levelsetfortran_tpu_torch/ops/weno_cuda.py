@@ -867,23 +867,25 @@ def _reinit_vjp_cuda(name, phi, sign_src, g, dx, h, geom, active, scratch,
         s.stop - s.start for s in owned_slices(geom))
     cot_phi = torch.empty(owned, dtype=phi.dtype, device=phi.device)
     cot_sign = torch.empty_like(cot_phi)
-    # 21 per-cell stencil cotangents (3 axes x 7 shifts) between the passes
-    qshape = (21,) + tuple(phi.shape)
+    # one float per cell between the passes: the cotangent of the squared
+    # gradient sum, the only per-cell input of the per-axis adjoints
     if scratch is None:
-        scratch = torch.empty(qshape, dtype=phi.dtype, device=phi.device)
-    elif (tuple(scratch.shape) != qshape or scratch.dtype != phi.dtype
+        scratch = torch.empty_like(phi)
+    elif (scratch.shape != phi.shape or scratch.dtype != phi.dtype
           or scratch.device != phi.device or not scratch.is_contiguous()):
-        raise ValueError(f"{name}: scratch must be a contiguous {qshape} "
-                         f"float32 tensor on {phi.device}")
+        raise ValueError(f"{name}: scratch must be a contiguous "
+                         f"{tuple(phi.shape)} float32 tensor on {phi.device}")
     sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
-    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
-                           device=phi.device)
+    geom_ints = None if geom is None else geom.ints(tuple(phi.shape))
+    partials = torch.empty(
+        cuda_build.library().lsf_reinit_bwd_partials(*phi.shape, geom_ints),
+        dtype=torch.float64, device=phi.device)
     sums = torch.empty(2, dtype=torch.float64, device=phi.device)
     args = [phi.data_ptr(), sign_src.data_ptr(), g.data_ptr(),
             cot_phi.data_ptr(), cot_sign.data_ptr(), scratch.data_ptr(),
             *phi.shape]
     if geom is not None:
-        args.append(geom.ints(tuple(phi.shape)))
+        args.append(geom_ints)
     with torch.cuda.device(phi.device):
         cuda_build.launch(
             "lsf_reinit_bwd_f32" if geom is None
@@ -950,7 +952,7 @@ def reinit_step_block_vjp(pad, sign_pad, g_pad, dx, h, geom: BlockGeom, *,
     Returns ``(cot_phi, cot_sign, cot_dx, cot_h)`` for the OWNED cells:
     fields of the owned box's shape, each cell bitwise the solo kernel's on
     the whole grid, and float64 sums over the owned cells.  ``scratch``: a
-    reusable ``(21,) + pad.shape`` buffer between the two passes."""
+    reusable ``pad.shape`` buffer between the two passes."""
     if pad.device.type == "cpu":
         return reinit_step_block_vjp_plain(
             pad, sign_pad, g_pad, dx, h, geom, active=active,

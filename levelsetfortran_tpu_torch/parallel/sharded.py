@@ -546,14 +546,15 @@ def _shard_order_sum(parts):
 
 
 def _scratch_for(cache, pad):
-    """K5's (21,) + pad.shape scratch, one per device and shape for a whole
-    backward sweep (the launches on one card run in order on its stream);
-    None on the CPU, whose plain version needs none."""
+    """K5's pad.shape scratch (one float per cell between its passes), one
+    per device and shape for a whole backward sweep (the launches on one
+    card run in order on its stream); None on the CPU, whose plain version
+    needs none."""
     if pad.device.type != "cuda":
         return None
     key = (pad.device, tuple(pad.shape))
     if key not in cache:
-        cache[key] = torch.empty((21,) + tuple(pad.shape), dtype=pad.dtype,
+        cache[key] = torch.empty(tuple(pad.shape), dtype=pad.dtype,
                                  device=pad.device)
     return cache[key]
 

@@ -107,7 +107,7 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     # --- initial reinitialization (set3d.f90:298-308) ---
     # "auto" and "on" band both reinits (the distance init is already
     # |grad| = 1, and the final reinit starts from a converged SDF)
-    banded = cfg.narrow_band != "off"
+    banded = _banded(cfg)
     rkw = dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,
                quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero)
     if banded:
@@ -190,6 +190,14 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
         timers=dict(timer.marks))
 
 
+def _banded(cfg) -> bool:
+    """Whether the solver stages run on the narrow band: float32 only.
+    float64 takes the dense solvers, as in the JAX package, whose banded
+    solvers fall back to the dense ones wherever their kernel does not
+    apply (every float64 run)."""
+    return cfg.narrow_band != "off" and cfg.dtype == torch.float32
+
+
 def _host(t):
     return t.detach().to("cpu", torch.float64).numpy()
 
@@ -199,8 +207,9 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     """The domain-decomposed pipeline (``run.py:108-228, 306-391`` of the
     JAX package): every O(grid) field is a list of blocks throughout."""
     dtype = cfg.dtype
-    banded = cfg.narrow_band != "off"
-    if cfg.overlap and (banded or cfg.steps_per_exchange != 1):
+    banded = _banded(cfg)
+    if cfg.overlap and (cfg.narrow_band != "off"
+                        or cfg.steps_per_exchange != 1):
         raise ValueError(
             "overlap runs the exchange beside the dense single-step "
             "kernel: it needs narrow_band='off' and steps_per_exchange=1")
