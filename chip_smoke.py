@@ -122,6 +122,11 @@ PACK_B, FROZEN = 8, 3
 #: on 256^3 points of [-1, 1]^3, h = 0.1 dx.
 BENCH_N, BENCH_R = 256, 0.6
 BENCH_DX = 2.0 / (BENCH_N - 1)
+#: Iterations (reinit, min/max) of runs A, B, C and F: the JAX package's
+#: own counts on these meshes (run C), unchanged since the port's first
+#: kernels; the kernels' fused sums are bitwise fixed, so they cannot move.
+EXPECTED_ITERS = {"A": (18, 1080), "B": (9, 40), "C": (13, 1064),
+                  "F": (2, 24)}
 #: The card's name and power limit as nvidia-smi prints them (set by
 #: start()), printed beside every time.
 CARD = "nvidia-smi not read"
@@ -158,6 +163,33 @@ def median_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, calls=10):
+    """Device time per call of ``fn``: every CUDA kernel it launches, summed
+    under ``torch.profiler``, over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        total += getattr(e, "cuda_time_total", 0.0) if t is None else t
+    return total / calls / 1e3
+
+
+def twice_equal(fn):
+    """Two calls of ``fn`` return bitwise equal tensors."""
+    import torch
+    a, b = fn(), fn()
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def err(a, b):
@@ -248,6 +280,11 @@ def kernel_phase(record):
         e1 = max(e1, err(kb, pb), err(kc, pb))
         check(e1 <= tol["reinit"] and rel <= 1e-5,
               f"K1 {shape}: max_abs_err {e1:.3g}, dsq rel {rel:.3g}")
+        check(twice_equal(lambda: wc.reinit_step(phi, phi, dx, h,
+                                                 with_rms=True))
+              and twice_equal(lambda: wc.reinit_step(
+                  phi, phi, dx, h, active=act_r, with_rms=True)),
+              f"K1 {shape}: two launches differ")
         rec = record["reinit_step"]
         rec["max_abs_err"] = max(rec["max_abs_err"], e1)
         if main:
@@ -257,9 +294,14 @@ def kernel_phase(record):
                 phi, phi, dx, h, with_rms=True), 5)
             rec["banded_ms"] = median_ms(lambda: wc.reinit_step(
                 phi, phi, dx, h, active=act_r, with_rms=True), 20)
+            rec["device_ms"] = device_ms(lambda: wc.reinit_step(
+                phi, phi, dx, h, with_rms=True))
+            rec["banded_device_ms"] = device_ms(lambda: wc.reinit_step(
+                phi, phi, dx, h, active=act_r, with_rms=True))
             rec.update(bound(12 * phi.numel(), OPS["reinit"] * phi.numel()))
         phase("kernels", f"K1 {shape}: max_abs_err {e1:.3g} (tol 1e-6), "
-              f"dsq rel {rel:.3g} (tol 1e-5), active bricks "
+              f"dsq rel {rel:.3g} (tol 1e-5), two launches bitwise equal "
+              f"(dense and banded), active bricks "
               f"{int(act_r.sum())}/{act_r.numel()}")
 
         # K3: dense with the fused sum, then banded
@@ -272,6 +314,10 @@ def kernel_phase(record):
                                                   active=act_m)))
         check(e3 <= tol["minmax"] and rel3 <= 1e-5,
               f"K3 {shape}: max_abs_err {e3:.3g}, dsq rel {rel3:.3g}")
+        check(twice_equal(lambda: mc.minmax_step(phi, dx, h1, with_rms=True))
+              and twice_equal(lambda: mc.minmax_step(
+                  phi, dx, h1, active=act_m, with_rms=True)),
+              f"K3 {shape}: two launches differ")
         rec = record["minmax_step"]
         rec["max_abs_err"] = max(rec["max_abs_err"], e3)
         if main:
@@ -281,11 +327,16 @@ def kernel_phase(record):
                 phi, dx, h1, with_rms=True), 10)
             rec["banded_ms"] = median_ms(lambda: mc.minmax_step(
                 phi, dx, h1, active=act_m, with_rms=True), 20)
+            rec["device_ms"] = device_ms(lambda: mc.minmax_step(
+                phi, dx, h1, with_rms=True))
+            rec["banded_device_ms"] = device_ms(lambda: mc.minmax_step(
+                phi, dx, h1, active=act_m, with_rms=True))
             rec.update(bound(8 * phi.numel(),
                              OPS["minmax_band"] * band_cells(phi, dx)
                              + OPS["rms"] * phi.numel()))
         phase("kernels", f"K3 {shape}: max_abs_err {e3:.3g} (tol 1e-7), "
-              f"dsq rel {rel3:.3g}, active bricks "
+              f"dsq rel {rel3:.3g}, two launches bitwise equal (dense and "
+              f"banded), active bricks "
               f"{int(act_m.sum())}/{act_m.numel()}")
 
         # K4: 4 fused steps against 4 launches of K3 (bitwise) and plain
@@ -333,6 +384,9 @@ def kernel_phase(record):
         rec = record[name]
         banded = (f" (banded {rec['banded_ms']:.4f} ms)"
                   if "banded_ms" in rec else "")
+        if "device_ms" in rec:
+            banded += (f", device {rec['device_ms']:.4f} ms (banded "
+                       f"{rec['banded_device_ms']:.4f} ms)")
         phase("kernels", f"{name} at {MAIN_SHAPE}: kernel {rec['ms']:.4f} ms"
               f"{banded}, plain {rec['plain_ms']:.4f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); card {CARD}")
@@ -446,6 +500,13 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
           f"{np.median(e_smooth):.4g}, advected max |sdf| {adv.max():.4g} "
           f"(dx {dx}), launches {launches}, CLI {cli_s:.1f} s, "
           f"timers {json.dumps({k: round(v, 3) for k, v in res.timers.items()})}")
+    t = res.timers
+    phase(f"run {label}", f"stages: reinit "
+          f"{t['initialization'] - t['search']:.4f} s, min/max "
+          f"{t['minmax'] - t['initialization']:.4f} s; card {CARD}")
+    check((res.reinit_iters, res.minmax_iters) == EXPECTED_ITERS[label],
+          f"run {label}: iterations {res.reinit_iters} / "
+          f"{res.minmax_iters}, expected {EXPECTED_ITERS[label]}")
     check(e_sdf.max() < 5e-3, f"run {label}: sdf error {e_sdf.max()}")
     # min/max flow rounds corners, so the smoothed field is gated by its
     # median; the JAX package's own pipeline measures 5.01e-3 on mesh A
@@ -795,6 +856,7 @@ def packed_phase(record, run_e_shape):
             t_solo = median_ms(lambda: [solo(b) for b in range(PACK_B)], 20)
             if main:
                 rec.update(ms=t_pack, solo_ms=t_solo,
+                           device_ms=device_ms(lambda: kern(all_live)),
                            plain_ms=median_ms(plain, 3), **bound(nbytes, ops))
             phase("kernels", f"{rname} {(PACK_B, *shape)}, geometry "
                   f"{FROZEN} frozen: every live geometry bitwise equal to "
@@ -810,7 +872,8 @@ def packed_phase(record, run_e_shape):
         rec = record[rname]
         phase("kernels", f"{rname} at {(PACK_B, *run_e_shape)}, all live: "
               f"kernel "
-              f"{rec['ms']:.4f} ms, {PACK_B} solo launches "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms), "
+              f"{PACK_B} solo launches "
               f"{rec['solo_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); card "
               f"{CARD}")
@@ -867,6 +930,9 @@ def block_phase(record):
         spads = [p.contiguous() for p in halo_exchange(sblocks, w, mesh)]
         e1, eb, owned, sums, frozen = 0.0, 0.0, [], [], [0, 0]
         for p, sp, g in zip(pads, spads, geoms):
+            check(twice_equal(lambda: wc.reinit_step_block(
+                p, sp, dx, h, g, with_rms=True)),
+                f"K1 block {shape}: two launches differ")
             k, kd = wc.reinit_step_block(p, sp, dx, h, g, with_rms=True)
             q, qd = wc.reinit_step_block_plain(p, sp, dx, h, g,
                                                with_rms=True)
@@ -935,6 +1001,8 @@ def block_phase(record):
                   f"K1 block: {stepped} cells written of {cells} in the grid")
             rec["ms"] = median_ms(lambda: wc.reinit_step_block(
                 p, sp, dx, h, g, out=buf, with_rms=True), 20)
+            rec["device_ms"] = device_ms(lambda: wc.reinit_step_block(
+                p, sp, dx, h, g, out=buf, with_rms=True))
             rec["plain_ms"] = median_ms(lambda: wc.reinit_step_block_plain(
                 p, sp, dx, h, g, out=buf, with_rms=True), 3)
             rec["shape"] = list(p.shape)
@@ -949,7 +1017,8 @@ def block_phase(record):
                                                   with_rms=True), 20)
             rec["all_blocks_ms"], rec["solo_ms"] = t4, t1
         phase("kernels", f"K1 block {shape} on {mshape}, padded blocks "
-              f"{tuple(pads[0].shape)}: max_abs_err vs plain {e1:.3g} dense, "
+              f"{tuple(pads[0].shape)}: two launches bitwise equal, "
+              f"max_abs_err vs plain {e1:.3g} dense, "
               f"{eb:.3g} banded ({frozen[0]}/{frozen[1]} bricks frozen; "
               f"equal to dense on active bricks), tol 1e-6; gathered field "
               f"bitwise equal to the solo kernel; owned sums rel {rel1:.3g} "
@@ -969,6 +1038,9 @@ def block_phase(record):
         acts = sh.minmax_tile_activity_local(mblocks, dx, 4.1)
         e3, owned, banded, sums = 0.0, [], [], []
         for p, g, a in zip(mpads, mgeoms, acts):
+            check(twice_equal(lambda: mc.minmax_step_block(
+                p, dx, h1, g, with_rms=True)),
+                f"K3 block {shape}: two launches differ")
             k, kd = mc.minmax_step_block(p, dx, h1, g, with_rms=True)
             q, qd = mc.minmax_step_block_plain(p, dx, h1, g, with_rms=True)
             kb = mc.minmax_step_block(p, dx, h1, g, active=a)
@@ -1005,6 +1077,8 @@ def block_phase(record):
             buf = torch.zeros_like(p)
             rec["ms"] = median_ms(lambda: mc.minmax_step_block(
                 p, dx, h1, g, out=buf, with_rms=True), 20)
+            rec["device_ms"] = device_ms(lambda: mc.minmax_step_block(
+                p, dx, h1, g, out=buf, with_rms=True))
             rec["plain_ms"] = median_ms(lambda: mc.minmax_step_block_plain(
                 p, dx, h1, g, out=buf, with_rms=True), 10)
             rec["shape"] = list(p.shape)
@@ -1022,7 +1096,8 @@ def block_phase(record):
             rec["solo_ms"] = median_ms(lambda: mc.minmax_step(
                 mphi, dx, h1, with_rms=True), 20)
         phase("kernels", f"K3 block {shape} on {mshape}, padded blocks "
-              f"{tuple(mpads[0].shape)}: max_abs_err vs plain {e3:.3g} (tol "
+              f"{tuple(mpads[0].shape)}: two launches bitwise equal, "
+              f"max_abs_err vs plain {e3:.3g} (tol "
               f"1e-7), gathered field bitwise equal to the solo kernel, "
               f"dense and banded ({nfrozen} bricks frozen); owned sums rel "
               f"{rel3:.3g} (tol 1e-12); three banded sharded steps bitwise "
@@ -1032,7 +1107,8 @@ def block_phase(record):
     for name in ("reinit_step_block", "minmax_step_block"):
         rec = record[name]
         phase("kernels", f"{name}, one padded block {tuple(rec['shape'])} "
-              f"of {MAIN_SHAPE} on (2, 2, 1): kernel {rec['ms']:.4f} ms, "
+              f"of {MAIN_SHAPE} on (2, 2, 1): kernel {rec['ms']:.4f} ms "
+              f"(device {rec['device_ms']:.4f} ms), "
               f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
               f"ms ({rec['bound_by']}; {rec['cells'][0]} in-grid cells read, "
               f"{rec['cells'][1]} stepped, {rec['cells'][2]} owned); the 4 "
@@ -1876,8 +1952,8 @@ def main() -> int:
                         **{k: r[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")},
-                        **({"solo_ms": r["solo_ms"]} if "solo_ms" in r
-                           else {})})
+                        **{k: r[k] for k in ("solo_ms", "device_ms")
+                           if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

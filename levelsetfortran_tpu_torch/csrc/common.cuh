@@ -1,15 +1,18 @@
-// Shared pieces of the stencil kernels: the brick geometry and the
-// deterministic two-pass reduction of the fused convergence sum.
+// Shared pieces of the stencil kernels: the brick geometry, K3's march
+// layout and the deterministic two-pass reduction of the fused
+// convergence sum.
 //
-// Every kernel runs one thread block per BRICK^3 brick of the unpadded
-// (nx, ny, nz) grid (z fastest), one thread per cell.  The narrow-band
-// activity mask is one int32 per brick, laid out (nbx, nby, nbz).  A packed
-// batch of B geometries multiplies the launch grid's x-brick axis by B.
+// The kernels work on BRICK^3 bricks of the unpadded (nx, ny, nz) grid (z
+// fastest): one thread block per brick, one thread per cell (K1, K5, K6),
+// or a column of bricks walked along x (K3, K4).  The narrow-band activity
+// mask is one int32 per brick, laid out (nbx, nby, nbz).  A packed batch of
+// B geometries multiplies the launch grid's x-brick axis by B.
 //
 // The sum of squared cell changes decides when a solve stops, so it must
-// not change from run to run: each block writes its partial sum (a fixed
-// shared-memory tree) to its own slot, and one more block adds the slots
-// in a fixed order.  No floating-point atomics.
+// not change from run to run: each brick's partial sum (a fixed tree in
+// block_sum's pairing) goes to its own slot, and the slots are added in a
+// fixed order — by one more launch (reduce_partials), or by the launch's
+// last block to finish (march_finish).  No floating-point atomics.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -114,6 +117,174 @@ inline dim3 brick_grid(int nx, int ny, int nz) {
               (nx + BRICK - 1) / BRICK);
 }
 
+// ---------------------------------------------------------------------
+// The streaming schedule of K3 (the march).  A block owns a column of TY x
+// MARCH_TZ cells (TY / BRICK x MARCH_TZ / BRICK bricks, one warp per
+// 32-cell z row: 128-byte rows) and a chunk of x-slabs of the launch's
+// brick box, and walks x one plane at a time, reading its planes from a
+// shared ring with a y/z rim.  All in the BlockGeom frame: a solo grid is
+// the whole-grid record (solo_geom), a packed batch B solo records.
+constexpr int MARCH_TZ = 32;
+
+// How a launch is cut (host-built): the launch's brick counts (x, y, z),
+// x-slabs per block, and blocks along x per group (a packed geometry).
+struct MarchLaunch {
+  int tn[3];
+  int chunk, nchunk;
+};
+
+// Blocks of the card that can be resident at once for `kernel` (the
+// occupancy query cached per kernel: a launch pays for it once).
+inline long long march_slots(const void* kernel, int threads, size_t smem) {
+  static const void* keys[16];
+  static long long vals[16];
+  static int used = 0;
+  for (int n = 0; n < used; ++n)
+    if (keys[n] == kernel) return vals[n];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  const long long slots = per_sm * (long long)sms > 0
+                              ? per_sm * (long long)sms : 1;
+  if (used < 16) {
+    keys[used] = kernel;
+    vals[used++] = slots;
+  }
+  return slots;
+}
+
+// The launch's cut: x-slabs per block minimising waves x steps a block
+// walks (BRICK per slab and `warm` more per block), the waves counted over
+// `slots` resident blocks, `groups` geometries side by side.
+inline MarchLaunch march_launch(const int* tn, int ty, int groups,
+                                long long slots, int warm) {
+  MarchLaunch L{{tn[0], tn[1], tn[2]}, 1, 1};
+  const int by = ty / BRICK, bz = MARCH_TZ / BRICK;
+  const long long cols = (long long)((tn[2] + bz - 1) / bz)
+                         * ((tn[1] + by - 1) / by) * groups;
+  long long best = -1;
+  for (int c = 1; c <= tn[0]; ++c) {
+    const long long waves = ((tn[0] + c - 1) / c * cols + slots - 1) / slots;
+    const long long cost = waves * (BRICK * c + warm);
+    if (best < 0 || cost < best) {
+      best = cost;
+      L.chunk = c;
+    }
+  }
+  L.nchunk = (tn[0] + L.chunk - 1) / L.chunk;
+  return L;
+}
+
+inline dim3 march_grid(const MarchLaunch& L, int ty, int groups) {
+  const int by = ty / BRICK, bz = MARCH_TZ / BRICK;
+  return dim3((L.tn[2] + bz - 1) / bz, (L.tn[1] + by - 1) / by,
+              groups * L.nchunk);
+}
+
+// One slab's per-brick partials of the fused sum, in block_sum's tree: the
+// x-tree over each thread's BRICK changes dq (x-planes i with i+4, i+2,
+// i+1), then per brick the y-tree through shared memory and the z-tree
+// through shuffles, so each partial is a brick-per-block launch's bitwise.
+// dq: the squared change of each x-plane of the brick (0 for a cell the sum
+// does not count); bxl: the slab in the launch box; (byl0, bzl0): the
+// block's first brick.  Every thread of the block calls it.
+template <int TY>
+__device__ __forceinline__ void march_partials(const float (&dq)[BRICK],
+                                               double* red, double* part,
+                                               int bxl, const MarchLaunch& L,
+                                               int byl0, int bzl0) {
+  constexpr int BZ = MARCH_TZ / BRICK, NB = (TY / BRICK) * BZ;
+  const int tid = threadIdx.x;
+  double dd[BRICK];
+#pragma unroll
+  for (int m = 0; m < BRICK; ++m) dd[m] = (double)dq[m] * (double)dq[m];
+  __syncthreads();                    // red's last readers are done
+  red[tid] = ((dd[0] + dd[4]) + (dd[2] + dd[6]))
+             + ((dd[1] + dd[5]) + (dd[3] + dd[7]));
+  __syncthreads();
+  if (tid < NB * BRICK) {             // whole warps
+    const int b = tid / BRICK, zi = tid % BRICK;
+    const int ly = (b / BZ) * BRICK, lz = (b % BZ) * BRICK + zi;
+    double u[BRICK];
+#pragma unroll
+    for (int yi = 0; yi < BRICK; ++yi) u[yi] = red[(ly + yi) * MARCH_TZ + lz];
+    double a = ((u[0] + u[4]) + (u[2] + u[6])) + ((u[1] + u[5]) + (u[3] + u[7]));
+    a += __shfl_down_sync(0xffffffffu, a, 4);
+    a += __shfl_down_sync(0xffffffffu, a, 2);
+    a += __shfl_down_sync(0xffffffffu, a, 1);
+    const int byl = byl0 + b / BZ, bzl = bzl0 + b % BZ;
+    if (zi == 0 && byl < L.tn[1] && bzl < L.tn[2])
+      part[((long long)bxl * L.tn[1] + byl) * L.tn[2] + bzl] = a;
+  }
+}
+
+// A slab whose bricks all write a zero partial (frozen, or outside the
+// array); every thread may call it.
+template <int TY>
+__device__ __forceinline__ void march_zero_partials(double* part, int bxl,
+                                                    const MarchLaunch& L,
+                                                    int byl0, int bzl0) {
+  constexpr int BZ = MARCH_TZ / BRICK, NB = (TY / BRICK) * BZ;
+  const int tid = threadIdx.x;
+  if (tid < NB) {
+    const int byl = byl0 + tid / BZ, bzl = bzl0 + tid % BZ;
+    if (byl < L.tn[1] && bzl < L.tn[2])
+      part[((long long)bxl * L.tn[1] + byl) * L.tn[2] + bzl] = 0.0;
+  }
+}
+
+// 0.0 + part[t] + part[t + 1024] + ... (below n), added in that order, the
+// loads issued eight at a time; L2: through the L2 cache (partials that
+// other blocks of the same launch wrote).
+template <bool L2>
+__device__ __forceinline__ double strided_sum(const double* part, long long t,
+                                              long long n) {
+  double acc = 0.0;
+  long long q = t;
+  for (; q + 7 * 1024 < n; q += 8 * 1024) {
+    double v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      v[m] = L2 ? __ldcg(part + q + m * 1024) : part[q + m * 1024];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) acc += v[m];
+  }
+  for (; q < n; q += 1024) acc += L2 ? __ldcg(part + q) : part[q];
+  return acc;
+}
+
+// The fused sum's second pass folded into the launch: each block of a
+// group takes an integer ticket after its partials are fenced; the group's
+// last block adds the group's n partials in reduce_partials's order (1024
+// running sums, the q-th from q in steps of 1024, then the same tree) and
+// returns the ticket counter to 0 for the next launch.  No float atomics:
+// the sum has the bits of a reduce_partials launch.  Every thread of the
+// block calls it; red: 1024 doubles of shared memory.
+__device__ __forceinline__ void march_finish(const double* part, long long n,
+                                             double* out, unsigned* ticket,
+                                             unsigned blocks, double* red) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == blocks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int t = threadIdx.x; t < 1024; t += blockDim.x)
+    red[t] = strided_sum<true>(part, t, n);
+  __syncthreads();
+  for (int w = 512; w > 0; w >>= 1) {
+    for (int t = threadIdx.x; t < w; t += blockDim.x) red[t] += red[t + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    *out = red[0];
+    *ticket = 0u;
+  }
+}
+
 namespace {
 
 // Second pass: block g adds the g-th run of n per-brick partials in a fixed
@@ -124,9 +295,7 @@ __global__ void reduce_partials(const double* __restrict__ partials,
                                 long long n, double* __restrict__ out) {
   __shared__ double s[1024];
   partials += blockIdx.x * n;
-  double acc = 0.0;
-  for (long long q = threadIdx.x; q < n; q += blockDim.x) acc += partials[q];
-  s[threadIdx.x] = acc;
+  s[threadIdx.x] = strided_sum<false>(partials, threadIdx.x, n);
   __syncthreads();
   for (int w = blockDim.x / 2; w > 0; w >>= 1) {
     if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];

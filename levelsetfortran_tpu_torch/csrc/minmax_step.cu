@@ -27,41 +27,52 @@
 // updates of four K3 steps, from per-thread cell indices fixed for the
 // walk, with one barrier per plane.
 //
+// K3 walks x too (minmax_march_kernel, below): a brick per block would
+// give each warp four 32-byte z rows, 7 loads per cell through L1 over a
+// 1.95x halo and a 10-barrier tree per 512 cells.  The march reads one
+// 128-byte row per warp and plane, each cell once (plus a 20% y/z rim
+// through L2), its planes prefetched by cp.async into a shared ring (a
+// prefetch held in registers stalls the walk's register moves), one
+// barrier per plane, the brick trees in registers and shuffles, and the
+// sum finished by the launch's last block.  A kernel of its own, simpler
+// than minmax_fusedk_kernel<1> (whose level-0 plane goes through shared
+// memory in x too); every mode is a layout of the same walk (common.cuh).
+//
 // The narrow band skips whole inactive bricks: `active` holds one int32
 // per brick; an inactive brick copies its cells (copy_inactive, the mint
 // step) or writes nothing (the ping-pong buffer already holds its values),
 // and writes a zero partial.  The update gate is the cell's own value, so a
 // brick with no in-band cell can never change: the banded solve equals the
-// dense one bitwise, and K4 skips the runs of slabs whose bricks are all
-// frozen.
+// dense one bitwise, and K3 and K4 skip the runs of slabs whose bricks are
+// all frozen.
 //
-// Block mode of K3 (minmax_step_block_kernel, the TPU kernel's `offsets`
-// argument): the tensor is one shard's block of a domain-decomposed grid
-// with a halo of one neighbour cell on its sharded axes (the TPU's wider
-// aprons are layout, not math).  The face rule and the fused sum's box are
-// in global coordinates (origin + local index, all three axes); a cell
-// updates only where its +-1 reads stay inside the array, which every owned
-// cell's do; a frozen brick copies its cells.  Same minmax_update(), so a
-// block's cells equal the solo kernel's on the whole grid bit for bit.
+// Pack mode (the TPU kernel's `pack=B`): B same-shape geometries stacked
+// (B, nx, ny, nz), geometry b on the blocks b * nchunk .. of the launch's
+// z axis with its own h1 (the device vector h1s), its partials in the solo
+// brick order, geometry-major, and its own sum; a frozen geometry (live[b]
+// == 0) copies its cells and writes zero partials.
+//
+// Block mode (the TPU kernel's `offsets`): the tensor is one shard's block
+// of a domain-decomposed grid with a halo of one neighbour cell on its
+// sharded axes (the TPU's wider aprons are layout, not math).  The face
+// rule and the fused sum's box are in global coordinates (origin + local
+// index, all three axes); a cell updates only where its +-1 reads stay
+// inside the array, which every owned cell's do; a frozen brick copies its
+// cells.  Same minmax_update() in every mode, so a block's cells equal the
+// solo kernel's on the whole grid bit for bit.
 #include <algorithm>
 
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
 
 using lsf::BRICK;
-using lsf::NT;
 
 struct MinmaxParams {
   int nx, ny, nz;
   float h1, inv_dx2, band_dx, threshold;
 };
-
-__device__ __forceinline__ bool updates(int i, int j, int k, float c,
-                                        const MinmaxParams& p) {
-  return i >= 1 && i <= p.nx - 2 && j >= 1 && j <= p.ny - 2 && k >= 1
-         && k <= p.nz - 2 && fabsf(c) < p.band_dx;
-}
 
 __device__ __forceinline__ float minmax_update(float c, float xm, float xp,
                                                float ym, float yp, float zp,
@@ -74,129 +85,171 @@ __device__ __forceinline__ float minmax_update(float c, float xm, float xp,
   return c + p.h1 * f;
 }
 
-__global__ void __launch_bounds__(NT)
-minmax_step_kernel(const float* __restrict__ phi, float* __restrict__ out,
-                   MinmaxParams p, const int* __restrict__ active,
-                   int copy_inactive, double* __restrict__ partials) {
-  __shared__ double red[NT];
-  const int k = blockIdx.x * BRICK + threadIdx.x;
-  const int j = blockIdx.y * BRICK + threadIdx.y;
-  const int i = blockIdx.z * BRICK + threadIdx.z;
-  const long long brick = lsf::brick_id();
-  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
-  const long long sy = p.nz;
-  const long long sx = (long long)p.ny * p.nz;
-  const long long idx = i * sx + j * sy + k;
-  if (active != nullptr && active[brick] == 0) {      // uniform per block
-    if (copy_inactive && in_grid) out[idx] = phi[idx];
-    if (partials != nullptr && lsf::thread_rank() == 0) partials[brick] = 0.0;
-    return;
-  }
-  double dd = 0.0;
-  if (in_grid) {
-    const float c = phi[idx];
-    float r = c;
-    if (updates(i, j, k, c, p))
-      r = minmax_update(c, phi[idx - sx], phi[idx + sx], phi[idx - sy],
-                        phi[idx + sy], phi[idx + 1], phi[idx - 1], p);
-    out[idx] = r;
-    const float d = r - c;
-    dd = (double)d * (double)d;
-  }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (lsf::thread_rank() == 0) partials[brick] = total;
-  }
-}
+// K3's march (every mode: dense, banded, pack, block).  A block owns a
+// K3_TY x MARCH_TZ column of cells of one geometry (common.cuh) and a chunk
+// of x-slabs, split into runs of live slabs as K4 splits them; it walks x
+// one plane per step.  The planes (the column and a one-cell y/z rim) are
+// prefetched K3_AHEAD steps ahead into a shared ring by asynchronous copies
+// (async_copy.cuh): no load waits in a register, one barrier per plane.
+// Per cell, in the frame of q:
+//   steps  = global interior && array interior && |c| < band_dx && the
+//            brick active (the dense rule with the whole-grid record);
+//   write  = the cell is in the launch's bricks and the array, and its
+//            brick is active or copy_inactive (block mode: always);
+//   counts = in q's rms box (the whole grid for a solo launch).
+// A slab with no active brick in the column is copied (copy_inactive) or
+// skipped, with zero partials; a frozen geometry of a pack copies every
+// slab.  The partials take block_sum's tree per brick and the last block
+// of each group adds them in reduce_partials's order.
+constexpr int K3_TY = 16, K3_NT = K3_TY * lsf::MARCH_TZ;
+constexpr int K3_PZ = lsf::MARCH_TZ + 2, K3_PLANE = (K3_TY + 2) * K3_PZ;
+constexpr int K3_RIM = 2 * K3_PZ + 2 * K3_TY;            // rim cells a plane
+constexpr int K3_RING = 8;                               // planes in shared
+constexpr int K3_AHEAD = 5;     // plane i + 1 + K3_AHEAD is copied at step i
 
-// Pack mode of K3 (replaces minmax_step_padded(pack=B)): B same-shape
-// geometries stacked (B, nx, ny, nz) in one launch of grid (nbz, nby,
-// B * nbx), geometry b = blockIdx.z / nbx in its own coordinates (64-bit
-// offset b * nx * ny * nz) with its own h1 from the device vector h1s, its
-// partials in the solo brick order, geometry-major.  A frozen geometry
-// (live[b] == 0) copies its cells and writes zero partials.
-__global__ void __launch_bounds__(NT)
-minmax_step_packed_kernel(const float* __restrict__ phi,
-                          float* __restrict__ out, MinmaxParams p,
-                          const float* __restrict__ h1s,
-                          const int* __restrict__ live,
-                          double* __restrict__ partials) {
-  __shared__ double red[NT];
-  const int nbx = (p.nx + BRICK - 1) / BRICK;
-  const int b = blockIdx.z / nbx;
-  const int k = blockIdx.x * BRICK + threadIdx.x;
-  const int j = blockIdx.y * BRICK + threadIdx.y;
-  const int i = (blockIdx.z - b * nbx) * BRICK + threadIdx.z;
-  const long long off = (long long)b * p.nx * p.ny * p.nz;
-  phi += off;
-  out += off;
-  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
-  const long long sy = p.nz;
-  const long long sx = (long long)p.ny * p.nz;
-  const long long idx = i * sx + j * sy + k;
-  if (live[b] == 0) {                                 // uniform per block
-    if (in_grid) out[idx] = phi[idx];
-    if (partials != nullptr && lsf::thread_rank() == 0)
-      partials[lsf::brick_id()] = 0.0;
-    return;
-  }
-  double dd = 0.0;
-  if (in_grid) {
-    MinmaxParams q = p;
-    q.h1 = h1s[b];
-    const float c = phi[idx];
-    float r = c;
-    if (updates(i, j, k, c, q))
-      r = minmax_update(c, phi[idx - sx], phi[idx + sx], phi[idx - sy],
-                        phi[idx + sy], phi[idx + 1], phi[idx - 1], q);
-    out[idx] = r;
-    const float d = r - c;
-    dd = (double)d * (double)d;
-  }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
-  }
-}
-
-// Block mode: p.nx/ny/nz are the PADDED array's dimensions; q places it in
-// the global grid (common.cuh).
-__global__ void __launch_bounds__(NT)
-minmax_step_block_kernel(const float* __restrict__ phi,
-                         float* __restrict__ out, MinmaxParams p,
-                         lsf::BlockGeom q, const int* __restrict__ active,
-                         double* __restrict__ partials) {
-  __shared__ double red[NT];
-  const int i = q.c[0] + (q.t0[0] + (int)blockIdx.z) * BRICK + threadIdx.z;
-  const int j = q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK + threadIdx.y;
-  const int k = q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK + threadIdx.x;
-  const bool in_pad = i >= 0 && i < p.nx && j >= 0 && j < p.ny && k >= 0
-                      && k < p.nz;
-  double dd = 0.0;
-  if (in_pad) {
-    const long long sy = p.nz;
-    const long long sx = (long long)p.ny * p.nz;
-    const long long idx = i * sx + j * sy + k;
-    const int gi = q.o[0] + i, gj = q.o[1] + j, gk = q.o[2] + k;
-    const float c = phi[idx];
-    float r = c;
-    const bool steps = gi >= 1 && gi <= q.g[0] - 2 && gj >= 1
-                       && gj <= q.g[1] - 2 && gk >= 1 && gk <= q.g[2] - 2
-                       && i >= 1 && i <= p.nx - 2 && j >= 1 && j <= p.ny - 2
-                       && k >= 1 && k <= p.nz - 2 && fabsf(c) < p.band_dx;
-    if (steps && lsf::block_brick_active(active, q, i, j, k))
-      r = minmax_update(c, phi[idx - sx], phi[idx + sx], phi[idx - sy],
-                        phi[idx + sy], phi[idx + 1], phi[idx - 1], p);
-    out[idx] = r;
-    if (lsf::in_rms_box(q, gi, gj, gk)) {
-      const float d = r - c;
-      dd = (double)d * (double)d;
+__global__ void __launch_bounds__(K3_NT, 2)
+minmax_march_kernel(const float* __restrict__ phi, float* __restrict__ out,
+                    MinmaxParams p, lsf::BlockGeom q, lsf::MarchLaunch L,
+                    const float* __restrict__ h1s,
+                    const int* __restrict__ live,
+                    const int* __restrict__ active, int copy_inactive,
+                    double* __restrict__ partials, double* __restrict__ dsq,
+                    unsigned* __restrict__ tickets) {
+  constexpr int BY = K3_TY / BRICK, BZ = lsf::MARCH_TZ / BRICK;
+  __shared__ double red[1024];
+  __shared__ float ring[K3_RING][K3_PLANE];
+  const int tid = threadIdx.x;
+  const int ty = tid / lsf::MARCH_TZ, tz = tid % lsf::MARCH_TZ;
+  const int grp = blockIdx.z / L.nchunk;
+  const int cx = blockIdx.z - grp * L.nchunk;
+  const int sx = p.ny * p.nz;                 // a geometry has < 2^31 cells
+  phi += (long long)grp * sx * p.nx;
+  out += (long long)grp * sx * p.nx;
+  const long long nbr = (long long)L.tn[0] * L.tn[1] * L.tn[2];
+  double* part = partials == nullptr ? nullptr : partials + grp * nbr;
+  const bool glive = live == nullptr || live[grp] != 0;
+  MinmaxParams pp = p;
+  if (h1s != nullptr) pp.h1 = h1s[grp];
+  const int byl0 = blockIdx.y * BY, bzl0 = blockIdx.x * BZ;
+  const int y0 = q.c[1] + (q.t0[1] + byl0) * BRICK;
+  const int z0 = q.c[2] + (q.t0[2] + bzl0) * BRICK;
+  const int j = y0 + ty, k = z0 + tz;
+  const bool col_in = j >= 0 && j < p.ny && k >= 0 && k < p.nz;
+  const bool col = col_in && byl0 + ty / BRICK < L.tn[1]
+                   && bzl0 + tz / BRICK < L.tn[2];
+  const int gj = q.o[1] + j, gk = q.o[2] + k;
+  const bool col_steps = gj >= 1 && gj <= q.g[1] - 2 && gk >= 1
+                         && gk <= q.g[2] - 2 && j >= 1 && j <= p.ny - 2
+                         && k >= 1 && k <= p.nz - 2;
+  const bool col_box = col && gj >= q.rms[2] && gj < q.rms[3]
+                       && gk >= q.rms[4] && gk < q.rms[5];
+  const int own = j * p.nz + k;
+  const int ow = (ty + 1) * K3_PZ + tz + 1;
+  // this thread's rim cell (two rows of K3_PZ, then two columns of K3_TY)
+  int rw = 0, roff = 0;
+  bool rin = false;
+  if (tid < K3_RIM) {
+    int ry, rz;
+    if (tid < 2 * K3_PZ) {
+      ry = tid < K3_PZ ? -1 : K3_TY;
+      rz = tid % K3_PZ - 1;
+    } else {
+      const int r = tid - 2 * K3_PZ;
+      ry = r % K3_TY;
+      rz = r < K3_TY ? -1 : lsf::MARCH_TZ;
     }
+    rw = (ry + 1) * K3_PZ + rz + 1;
+    const int jr = y0 + ry, kr = z0 + rz;
+    rin = jr >= 0 && jr < p.ny && kr >= 0 && kr < p.nz;
+    roff = jr * p.nz + kr;
   }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
+  // plane i of the column and its rim into the ring (cells outside the
+  // array are never read), one group per plane
+  auto fetch = [&](int i, int last) {
+    if (i >= 0 && i <= last) {
+      float* pl = ring[(i - q.c[0]) & (K3_RING - 1)];
+      if (col_in) lsf::async_copy4(pl + ow, phi + i * sx + own);
+      if (rin) lsf::async_copy4(pl + rw, phi + i * sx + roff);
+    }
+    lsf::async_commit();
+  };
+  auto brick_on = [&](int bxl, int byl, int bzl) {
+    return active == nullptr
+           || active[((long long)(q.t0[0] + bxl) * q.nb[1] + q.t0[1] + byl)
+                         * q.nb[2] + q.t0[2] + bzl] != 0;
+  };
+  auto slab_x0 = [&](int bxl) { return q.c[0] + (q.t0[0] + bxl) * BRICK; };
+  // a slab steps when its geometry does, it has a plane in the array and
+  // one of the column's bricks in the launch is active
+  auto slab_live = [&](int bxl) {
+    const int x0 = slab_x0(bxl);
+    if (!glive || x0 + BRICK <= 0 || x0 >= p.nx) return false;
+    if (active == nullptr) return true;
+    bool any = false;
+    for (int b = 0; b < BY * BZ; ++b) {
+      const int byl = byl0 + b / BZ, bzl = bzl0 + b % BZ;
+      if (byl < L.tn[1] && bzl < L.tn[2]) any |= brick_on(bxl, byl, bzl);
+    }
+    return any;
+  };
+  const bool copy = copy_inactive || !glive;
+  const int bxa = cx * L.chunk, bxb = min(bxa + L.chunk, L.tn[0]);
+  for (int first = bxa; first < bxb;) {
+    if (!slab_live(first)) {
+      const int x0 = slab_x0(first);
+      if (copy && col)
+        for (int i = max(x0, 0); i < min(x0 + BRICK, p.nx); ++i)
+          out[i * sx + own] = phi[i * sx + own];
+      if (part != nullptr)
+        lsf::march_zero_partials<K3_TY>(part, first, L, byl0, bzl0);
+      ++first;
+      continue;
+    }
+    // a single dead slab between two live ones joins the run
+    int last = first;
+    while (last + 1 < bxb
+           && (slab_live(last + 1) || (last + 2 < bxb && slab_live(last + 2))))
+      ++last;
+    const int xs = max(slab_x0(first), 0), xe = min(slab_x0(last + 1), p.nx);
+    const int top = min(xe, p.nx - 1);        // the last plane a step reads
+    __syncthreads();                  // the ring of the last run is free
+    for (int i = xs - 1; i <= xs + K3_AHEAD; ++i) fetch(i, top);
+    for (int sl = first; sl <= last; ++sl) {
+      // one slab, its planes unrolled: plane x0 + m lies in ring slot m
+      const int x0 = slab_x0(sl);
+      const bool act = col && brick_on(sl, byl0 + ty / BRICK,
+                                       bzl0 + tz / BRICK);
+      float dq[BRICK];
+#pragma unroll
+      for (int m = 0; m < BRICK; ++m) {
+        const int i = x0 + m;
+        dq[m] = 0.0f;
+        if (i < xs || i >= xe) continue;      // uniform over the block
+        lsf::async_wait<K3_AHEAD - 1>();      // planes i - 1 .. i + 1
+        __syncthreads();
+        fetch(i + 1 + K3_AHEAD, top);         // into plane i - 2's slot
+        const float* pb = ring[m];
+        const float c = pb[ow];
+        const int gi = q.o[0] + i;
+        const bool plane_steps = gi >= 1 && gi <= q.g[0] - 2 && i >= 1
+                                 && i <= p.nx - 2;
+        float r = c;
+        if (act && col_steps && plane_steps && fabsf(c) < p.band_dx)
+          r = minmax_update(c, ring[(m + K3_RING - 1) % K3_RING][ow],
+                            ring[(m + 1) % K3_RING][ow], pb[ow - K3_PZ],
+                            pb[ow + K3_PZ], pb[ow + 1], pb[ow - 1], pp);
+        if (col && (act || copy_inactive)) out[i * sx + own] = r;
+        if (col_box && gi >= q.rms[0] && gi < q.rms[1]) dq[m] = r - c;
+      }
+      if (part != nullptr)
+        lsf::march_partials<K3_TY>(dq, red, part, sl, L, byl0, bzl0);
+    }
+    lsf::async_wait<0>();
+    first = last + 1;
   }
+  if (part != nullptr)
+    lsf::march_finish(part, nbr, dsq + grp, tickets + grp,
+                      gridDim.x * gridDim.y * L.nchunk, red);
 }
 
 // K4's wavefront.  A block owns a (FK_TY x FK_TZ) column of cells and a
@@ -431,19 +484,44 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
 
 }  // namespace
 
+namespace {
+
+// One K3 launch over `batch` geometries laid out by the host record geom.
+int launch_minmax_march(const void* phi, void* out, int batch,
+                        const MinmaxParams& p, const int* geom,
+                        const void* h1s, const void* live, const void* active,
+                        int copy_inactive, void* partials, void* dsq,
+                        void* tickets, void* stream) {
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const lsf::MarchLaunch L = lsf::march_launch(
+      geom + 21, K3_TY, batch,
+      lsf::march_slots((const void*)minmax_march_kernel, K3_NT, 0), 2);
+  minmax_march_kernel<<<lsf::march_grid(L, K3_TY, batch), K3_NT, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(phi), static_cast<float*>(out), p, q, L,
+      static_cast<const float*>(h1s), static_cast<const int*>(live),
+      static_cast<const int*>(active), copy_inactive,
+      static_cast<double*>(partials), static_cast<double*>(dsq),
+      static_cast<unsigned*>(tickets));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// tickets: one zeroed unsigned per geometry (the fused sum's tickets; each
+// launch leaves them zeroed), read only with partials.
 extern "C" int lsf_minmax_step_f32(const void* phi, void* out, int nx,
                                    int ny, int nz, float h1, float inv_dx2,
                                    float band_dx, float threshold,
                                    const void* active, int copy_inactive,
-                                   void* partials, void* dsq, void* stream) {
-  const MinmaxParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
-  const dim3 grid = lsf::brick_grid(nx, ny, nz);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  minmax_step_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
-      static_cast<const float*>(phi), static_cast<float*>(out), p,
-      static_cast<const int*>(active), copy_inactive,
-      static_cast<double*>(partials));
-  return lsf::finish(grid, partials, dsq, st);
+                                   void* partials, void* dsq, void* tickets,
+                                   void* stream) {
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_minmax_march(
+      phi, out, 1, MinmaxParams{nx, ny, nz, h1, inv_dx2, band_dx, threshold},
+      geom, nullptr, nullptr, active, copy_inactive, partials, dsq, tickets,
+      stream);
 }
 
 extern "C" int lsf_minmax_step_packed_f32(const void* phi, void* out,
@@ -451,16 +529,14 @@ extern "C" int lsf_minmax_step_packed_f32(const void* phi, void* out,
                                           const void* h1s, float inv_dx2,
                                           float band_dx, float threshold,
                                           const void* live, void* partials,
-                                          void* dsq, void* stream) {
-  const MinmaxParams p{nx, ny, nz, 0.0f, inv_dx2, band_dx, threshold};
-  dim3 grid = lsf::brick_grid(nx, ny, nz);
-  grid.z *= batch;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  minmax_step_packed_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
-      static_cast<const float*>(phi), static_cast<float*>(out), p,
-      static_cast<const float*>(h1s), static_cast<const int*>(live),
-      static_cast<double*>(partials));
-  return lsf::finish(grid, partials, dsq, st, batch);
+                                          void* dsq, void* tickets,
+                                          void* stream) {
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_minmax_march(
+      phi, out, batch,
+      MinmaxParams{nx, ny, nz, 0.0f, inv_dx2, band_dx, threshold}, geom, h1s,
+      live, nullptr, 0, partials, dsq, tickets, stream);
 }
 
 namespace {
@@ -537,13 +613,9 @@ extern "C" int lsf_minmax_step_block_f32(const void* phi, void* out, int nx,
                                          float h1, float inv_dx2,
                                          float band_dx, float threshold,
                                          const void* active, void* partials,
-                                         void* dsq, void* stream) {
-  const MinmaxParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
-  const lsf::BlockGeom q = lsf::block_geom(geom);
-  const dim3 grid = lsf::block_launch_grid(geom);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  minmax_step_block_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
-      static_cast<const float*>(phi), static_cast<float*>(out), p, q,
-      static_cast<const int*>(active), static_cast<double*>(partials));
-  return lsf::finish(grid, partials, dsq, st);
+                                         void* dsq, void* tickets,
+                                         void* stream) {
+  return launch_minmax_march(
+      phi, out, 1, MinmaxParams{nx, ny, nz, h1, inv_dx2, band_dx, threshold},
+      geom, nullptr, nullptr, active, 1, partials, dsq, tickets, stream);
 }

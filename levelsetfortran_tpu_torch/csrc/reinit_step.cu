@@ -15,18 +15,29 @@
 //     z clamp: the diagonal neighbour at edges and corners) plus dx, read
 //     AFTER that neighbour's update.
 // The TPU kernel gets the updated neighbour by computing a +1 ring around
-// each tile.  Here a face cell's thread computes its inner neighbour's
+// each tile.  Here a face cell's thread evaluates its inner neighbour's
 // update itself, so every thread evaluates exactly one stencil and no
 // block depends on another — in banded mode too, where the neighbour's
 // brick may be frozen.
 //
-// What bounds it on the H100: arithmetic.  A cell costs ~400 float
-// operations, 13 of them IEEE divisions, and 2 square roots, against 12
-// bytes of unique device-memory traffic (phi and the sign source in, phi
-// out); the 19-point stencil re-reads neighbours through L1.  The design
-// keeps every intermediate in registers, one thread per cell, 8^3-cell
-// bricks per block so that the re-reads hit L1, and skips inactive bricks
-// of the narrow band outright.
+// What bounds it on the H100: the schedulers' issue rate.  A cell costs
+// ~450 float operations, 13 of them IEEE divisions, and 2 square roots,
+// against 12 bytes of unique device-memory traffic (phi and the sign
+// source in, phi out); under --fmad=false each division is a sequence of
+// instructions with a slow path, and the kernel issues ~1000 instructions
+// per cell, so it runs at its issue rate, far above the float bound.  One
+// 8^3 brick per block, one thread per cell (40 registers, three blocks of
+// 512 threads per SM), its 19 neighbour reads through L1.  A march along
+// x (a register queue of x-neighbours, the y/z neighbours from a shared
+// plane fed by asynchronous copies, one barrier per plane) was built and
+// measured slower in every variant: it holds 64-90 registers, halving the
+// warps that hide the division chains.  What the brick schedule sheds is
+// host and tail work: one kernel for every mode (the BlockGeom frame, a
+// whole-grid record folding its masks away at compile time), the brick's
+// partial in block_sum's pairing with one barrier (the rest in one warp's
+// shuffles), and a second pass that issues its loads eight at a time.
+// The arithmetic (cell_update_from, axis_gsq, weno5.cuh: the statements
+// K5 differentiates) is the first port's, statement for statement.
 //
 // Narrow band: `active` holds one int32 per brick.  An inactive brick either
 // copies its cells (copy_inactive: the first "mint" step of a chunk) or
@@ -38,11 +49,12 @@
 // faces).  `partials` (optional) receives each brick's sum of squared
 // changes for the deterministic second pass.
 //
-// Pack mode (reinit_step_packed_kernel, the TPU kernel's `pack` argument):
-// B geometries per launch, each with its own h and sum; not the TPU's
-// x-concatenated layout but a leading batch dimension on the launch grid.
+// Pack mode (the TPU kernel's `pack` argument): B geometries per launch,
+// each with its own h and sum; not the TPU's x-concatenated layout but a
+// leading batch dimension, geometry b on the launch grid's x-bricks b *
+// nbx .., its partials in the solo brick order, geometry-major.
 //
-// Block mode (reinit_step_block_kernel, the TPU kernel's `offsets`,
+// Block mode (the TPU kernel's `offsets`,
 // `rms_bounds` and `tile_range` + `out_init` arguments): the tensor is one
 // shard's block of a domain-decomposed grid, padded with a halo of
 // neighbour cells on its sharded axes.  Every mask (deep, interior, face
@@ -55,7 +67,7 @@
 // owned block, whose origin lies a halo width into the array); and a launch
 // may cover a sub-box of the brick grid, writing into an output that other
 // launches fill (the exchange/compute overlap).  A cell's arithmetic is
-// cell_update_at(), the solo kernel's, so a block's cells equal the solo
+// cell_update_from(), the solo kernel's, so a block's cells equal the solo
 // kernel's on the whole grid bit for bit.
 #include "common.cuh"
 #include "weno5.cuh"
@@ -63,7 +75,6 @@
 namespace {
 
 using lsf::BRICK;
-using lsf::NT;
 
 struct StepParams {
   int nx, ny, nz;
@@ -71,19 +82,21 @@ struct StepParams {
   int p5_zero_y;
 };
 
-// One axis's squared derivative at interior cell s (stride st along it).
-__device__ __forceinline__ float axis_gsq(const float* __restrict__ phi,
-                                          long long s, long long st, float c,
-                                          bool deep, bool pos,
-                                          const StepParams& p, bool p5_zero) {
+// One axis's squared derivative at an interior cell: c is the cell's value,
+// at(o) its neighbour o = -3..3 cells along the axis (from device memory or
+// from registers and shared memory: the statements are the same).
+template <class At>
+__device__ __forceinline__ float axis_gsq(At at, float c, bool deep,
+                                          bool pos, const StepParams& p,
+                                          bool p5_zero) {
   float dm, dp;
   if (deep) {
-    const float vm3 = __ldg(phi + s - 3 * st);
-    const float vm2 = __ldg(phi + s - 2 * st);
-    const float vm1 = __ldg(phi + s - st);
-    const float vp1 = __ldg(phi + s + st);
-    const float vp2 = __ldg(phi + s + 2 * st);
-    const float vp3 = __ldg(phi + s + 3 * st);
+    const float vm3 = at(-3);
+    const float vm2 = at(-2);
+    const float vm1 = at(-1);
+    const float vp1 = at(1);
+    const float vp2 = at(2);
+    const float vp3 = at(3);
     const float d[6] = {vm2 - vm3, vm1 - vm2, c - vm1,
                         vp1 - c, vp2 - vp1, vp3 - vp2};
     lsf::Weno5 w;
@@ -91,213 +104,198 @@ __device__ __forceinline__ float axis_gsq(const float* __restrict__ phi,
     dm = w.dm;
     dp = w.dp;
   } else {
-    dm = c - __ldg(phi + s - st);
-    dp = __ldg(phi + s + st) - c;
+    dm = c - at(-1);
+    dp = at(1) - c;
   }
   const float g = lsf::godunov(dm, dp, pos);
   return g * g;
 }
 
-// The Euler-updated value of the interior cell at linear offset s of an
-// array with strides (sx, sy, 1); `deep`: the cell is 4 or more cells from
-// every face of the GLOBAL grid (WENO5), else first-order differences.
-__device__ float cell_update_at(const float* __restrict__ phi,
-                                const float* __restrict__ sgn_src,
-                                long long s, long long sx, long long sy,
-                                bool deep, const StepParams& p) {
-  const float c = __ldg(phi + s);
-  const float src = __ldg(sgn_src + s);
+// The Euler-updated value of an interior cell of value c and sign source
+// src, with neighbours ax, ay, az along x, y, z (see axis_gsq); `deep`: the
+// cell is 4 or more cells from every face of the GLOBAL grid (WENO5), else
+// first-order differences.
+template <class AX, class AY, class AZ>
+__device__ __forceinline__ float cell_update_from(float c, float src, AX ax,
+                                                  AY ay, AZ az, bool deep,
+                                                  const StepParams& p) {
   const bool pos = src > 0.0f;
-  float sum = axis_gsq(phi, s, sx, c, deep, pos, p, false);
-  sum = sum + axis_gsq(phi, s, sy, c, deep, pos, p, p.p5_zero_y != 0);
-  sum = sum + axis_gsq(phi, s, 1, c, deep, pos, p, false);
+  float sum = axis_gsq(ax, c, deep, pos, p, false);
+  sum = sum + axis_gsq(ay, c, deep, pos, p, p.p5_zero_y != 0);
+  sum = sum + axis_gsq(az, c, deep, pos, p, false);
   const float gm = sqrtf(sum * p.inv_dx2);
   const float d2 = src * src + p.dx2 * gm;
   const float sg = src / sqrtf(fmaxf(d2, 1e-20f));
   return c + (p.h * sg) * (1.0f - gm);
 }
 
-// The Euler-updated value of interior cell (i, j, k) of a whole grid.
-__device__ __forceinline__ float cell_update(
-    const float* __restrict__ phi, const float* __restrict__ sgn_src, int i,
-    int j, int k, const StepParams& p) {
-  const long long sx = (long long)p.ny * p.nz;
-  const long long sy = p.nz;
-  const bool deep = i >= 4 && i <= p.nx - 5 && j >= 4 && j <= p.ny - 5
-                    && k >= 4 && k <= p.nz - 5;
-  return cell_update_at(phi, sgn_src, i * sx + j * sy + k, sx, sy, deep, p);
+// The same at linear offset s of an array with strides (sx, sy, 1), read
+// from device memory.
+__device__ float cell_update_at(const float* __restrict__ phi,
+                                const float* __restrict__ sgn_src, int s,
+                                int sx, int sy, bool deep,
+                                const StepParams& p) {
+  const float c = __ldg(phi + s);
+  const float src = __ldg(sgn_src + s);
+  return cell_update_from(
+      c, src, [&](int o) { return __ldg(phi + s + o * sx); },
+      [&](int o) { return __ldg(phi + s + o * sy); },
+      [&](int o) { return __ldg(phi + s + o); }, deep, p);
 }
 
 __device__ __forceinline__ int clamp_inner(int i, int n) {
   return i == 0 ? 1 : (i == n - 1 ? n - 2 : i);
 }
 
-__device__ __forceinline__ bool brick_active(const int* __restrict__ active,
-                                             int i, int j, int k) {
-  if (active == nullptr) return true;
-  return active[((long long)(i / BRICK) * gridDim.y + j / BRICK) * gridDim.x
-                + k / BRICK] != 0;
-}
-
-__global__ void __launch_bounds__(NT)
-reinit_step_kernel(const float* __restrict__ phi,
-                   const float* __restrict__ sgn_src, float* __restrict__ out,
-                   StepParams p, const int* __restrict__ active,
-                   int copy_inactive, double* __restrict__ partials) {
-  __shared__ double red[NT];
-  const int x0 = blockIdx.z * BRICK, y0 = blockIdx.y * BRICK;
-  const int z0 = blockIdx.x * BRICK;
-  const int i = x0 + threadIdx.z, j = y0 + threadIdx.y, k = z0 + threadIdx.x;
-  const long long brick = lsf::brick_id();
-  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
-  const long long idx = ((long long)i * p.ny + j) * p.nz + k;
-  const bool live = brick_active(active, x0, y0, z0);
-  const bool on_face = x0 == 0 || y0 == 0 || z0 == 0 || x0 + BRICK >= p.nx
-                       || y0 + BRICK >= p.ny || z0 + BRICK >= p.nz;
-  if (!live && !copy_inactive && !on_face) {          // uniform per block
-    if (partials != nullptr && lsf::thread_rank() == 0) partials[brick] = 0.0;
-    return;
-  }
+// K1's kernel (every mode: dense, banded, pack, block): one 8^3 brick of
+// one geometry per block, one thread per cell, in the BlockGeom frame
+// (common.cuh).  Per cell, in the frame of q (global coordinates):
+//   * a face cell evaluates its clamped inner neighbour (x, then y, then z
+//     clamp), any other cell itself where its brick is active; the
+//     evaluation is the update where that cell's brick is active, else its
+//     value, and is written (plus dx on a face) where the stencil (radius
+//     3 where deep, else 1) stays in the array;
+//   * a frozen brick's other cells are copied (copy_inactive; block mode
+//     always) or left alone, and a frozen brick with no face cell and no
+//     copy reads nothing;
+//   * the fused sum counts the written cells in q's rms box, in block_sum's
+//     tree with one barrier (the x-tree and the first y step through
+//     shared memory, the rest in one warp's shuffles); reduce_partials
+//     adds the partials (a second launch: a ticket taken by each of the
+//     launch's many blocks would fence every block's end).
+// A frozen geometry of a pack copies its cells, faces included.  SOLO: q
+// is a whole-grid record (dense, banded and pack modes), whose masks fold
+// away at compile time.
+template <bool SOLO>
+__global__ void __launch_bounds__(lsf::NT, 3)
+reinit_brick_kernel(const float* __restrict__ phi,
+                    const float* __restrict__ sgn_src,
+                    float* __restrict__ out, StepParams p, lsf::BlockGeom q,
+                    int tnx, const float* __restrict__ hs,
+                    const int* __restrict__ live,
+                    const int* __restrict__ active, int copy_inactive,
+                    double* __restrict__ partials) {
+  __shared__ double red[lsf::NT];
+  const int tid = threadIdx.x;
+  const int xi = tid / (BRICK * BRICK), yi = (tid / BRICK) % BRICK;
+  const int zi = tid % BRICK;
+  const int grp = blockIdx.z / tnx;
+  const int bxl = blockIdx.z - grp * tnx;
+  const int sx = p.ny * p.nz, sy = p.nz;      // a geometry has < 2^31 cells
+  phi += (long long)grp * sx * p.nx;
+  sgn_src += (long long)grp * sx * p.nx;
+  out += (long long)grp * sx * p.nx;
+  const long long nbr = (long long)tnx * gridDim.y * gridDim.x;
+  double* part = partials == nullptr ? nullptr : partials + grp * nbr;
+  const bool glive = live == nullptr || live[grp] != 0;
+  StepParams pp = p;
+  if (hs != nullptr) pp.h = hs[grp];
+  // the frame: a whole-grid record's offsets are 0 and its grid the array
+  const int o0 = SOLO ? 0 : q.o[0], o1 = SOLO ? 0 : q.o[1];
+  const int o2 = SOLO ? 0 : q.o[2];
+  const int g0 = SOLO ? p.nx : q.g[0], g1 = SOLO ? p.ny : q.g[1];
+  const int g2 = SOLO ? p.nz : q.g[2];
+  // the brick's first cell (array coordinates) and this thread's cell
+  const int x0 = SOLO ? bxl * BRICK : q.c[0] + (q.t0[0] + bxl) * BRICK;
+  const int y0 = SOLO ? (int)blockIdx.y * BRICK
+                      : q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK;
+  const int z0 = SOLO ? (int)blockIdx.x * BRICK
+                      : q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK;
+  const int i = x0 + xi, j = y0 + yi, k = z0 + zi;
+  const int gi = o0 + i, gj = o1 + j, gk = o2 + k;
+  const bool in_grid = SOLO ? i < p.nx && j < p.ny && k < p.nz
+      : i >= 0 && i < p.nx && j >= 0 && j < p.ny && k >= 0 && k < p.nz
+        && gi >= 0 && gi < g0 && gj >= 0 && gj < g1 && gk >= 0 && gk < g2;
+  const int idx = i * sx + j * sy + k;
+  const bool brick_live = lsf::block_brick_active(active, q, x0, y0, z0);
+  const int gsi = clamp_inner(gi, g0), gsj = clamp_inner(gj, g1);
+  const int gsk = clamp_inner(gk, g2);
+  const bool face = gsi != gi || gsj != gj || gsk != gk;
+  // uniform per block: a frozen brick with no face cell and no copy
+  const bool idle = !brick_live && !copy_inactive && glive
+                    && !__syncthreads_or(in_grid && face);
   double dd = 0.0;
-  if (in_grid) {
-    const int si = clamp_inner(i, p.nx);
-    const int sj = clamp_inner(j, p.ny);
-    const int sk = clamp_inner(k, p.nz);
-    const bool face = si != i || sj != j || sk != k;
-    if (live || face) {
-      // a face cell of a frozen brick still takes the ghost BC, from its
-      // inner neighbour's value after this step (updated iff that
-      // neighbour's brick is active)
-      const float v = brick_active(active, si, sj, sk)
-          ? cell_update(phi, sgn_src, si, sj, sk, p)
-          : phi[((long long)si * p.ny + sj) * p.nz + sk];
-      const float res = face ? v + p.dx : v;
-      out[idx] = res;
-      const float d = res - phi[idx];
-      dd = (double)d * (double)d;
-    } else if (copy_inactive) {
-      out[idx] = phi[idx];
-    }
-  }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (lsf::thread_rank() == 0) partials[brick] = total;
-  }
-}
-
-// Pack mode: B same-shape geometries stacked (B, nx, ny, nz), one launch.
-// The launch grid is (nbz, nby, B * nbx); geometry b = blockIdx.z / nbx
-// owns the blocks of its solo grid, in the solo order, so brick_id() is
-// b * bricks + its solo id and the partials come out geometry-major.
-// Every index, face test and clamp is in the geometry's own coordinates
-// (64-bit offset b * nx * ny * nz), and each live geometry steps with its
-// own h, read from the device vector hs: a live geometry's cells are a solo
-// launch's cells bit for bit.  A frozen geometry (live[b] == 0) is a pure
-// passthrough, faces included, with a zero partial: the solver's ping-pong
-// buffer then holds its field in both halves.  (This is not the banded
-// mode above, which still takes the ghost BC on frozen bricks' faces.)
-// Three blocks per SM: left to itself ptxas gives this kernel 51 registers
-// (two blocks of 512 threads per SM), the solo kernel 40; bounded, it takes
-// 40 and a 24-byte stack, and its outputs are unchanged.
-__global__ void __launch_bounds__(NT, 3)
-reinit_step_packed_kernel(const float* __restrict__ phi,
-                          const float* __restrict__ sgn_src,
-                          float* __restrict__ out, StepParams p,
-                          const float* __restrict__ hs,
-                          const int* __restrict__ live,
-                          double* __restrict__ partials) {
-  __shared__ double red[NT];
-  const int nbx = (p.nx + BRICK - 1) / BRICK;
-  const int b = blockIdx.z / nbx;
-  const int x0 = (blockIdx.z - b * nbx) * BRICK, y0 = blockIdx.y * BRICK;
-  const int z0 = blockIdx.x * BRICK;
-  const int i = x0 + threadIdx.z, j = y0 + threadIdx.y, k = z0 + threadIdx.x;
-  const long long off = (long long)b * p.nx * p.ny * p.nz;
-  phi += off;
-  sgn_src += off;
-  out += off;
-  const bool in_grid = i < p.nx && j < p.ny && k < p.nz;
-  const long long idx = ((long long)i * p.ny + j) * p.nz + k;
-  if (live[b] == 0) {                                 // uniform per block
+  if (!glive) {
     if (in_grid) out[idx] = phi[idx];
-    if (partials != nullptr && lsf::thread_rank() == 0)
-      partials[lsf::brick_id()] = 0.0;
-    return;
-  }
-  double dd = 0.0;
-  if (in_grid) {
-    StepParams q = p;
-    q.h = hs[b];
-    const int si = clamp_inner(i, p.nx);
-    const int sj = clamp_inner(j, p.ny);
-    const int sk = clamp_inner(k, p.nz);
-    const bool face = si != i || sj != j || sk != k;
-    const float v = cell_update(phi, sgn_src, si, sj, sk, q);
-    const float res = face ? v + p.dx : v;
-    out[idx] = res;
-    const float d = res - phi[idx];
-    dd = (double)d * (double)d;
-  }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
-  }
-}
-
-// Block mode: one shard's padded block (see the header).  p.nx/ny/nz are the
-// PADDED array's dimensions; q places it in the global grid.
-__global__ void __launch_bounds__(NT)
-reinit_step_block_kernel(const float* __restrict__ phi,
-                         const float* __restrict__ sgn_src,
-                         float* __restrict__ out, StepParams p,
-                         lsf::BlockGeom q, const int* __restrict__ active,
-                         double* __restrict__ partials) {
-  __shared__ double red[NT];
-  const int i = q.c[0] + (q.t0[0] + (int)blockIdx.z) * BRICK + threadIdx.z;
-  const int j = q.c[1] + (q.t0[1] + (int)blockIdx.y) * BRICK + threadIdx.y;
-  const int k = q.c[2] + (q.t0[2] + (int)blockIdx.x) * BRICK + threadIdx.x;
-  const int gi = q.o[0] + i, gj = q.o[1] + j, gk = q.o[2] + k;
-  const bool in_grid = i >= 0 && i < p.nx && j >= 0 && j < p.ny && k >= 0
-                       && k < p.nz && gi >= 0 && gi < q.g[0] && gj >= 0
-                       && gj < q.g[1] && gk >= 0 && gk < q.g[2];
-  double dd = 0.0;
-  if (in_grid) {
-    const long long sx = (long long)p.ny * p.nz;
-    const long long sy = p.nz;
-    const long long idx = i * sx + j * sy + k;
-    const int gsi = clamp_inner(gi, q.g[0]);
-    const int gsj = clamp_inner(gj, q.g[1]);
-    const int gsk = clamp_inner(gk, q.g[2]);
-    const int si = gsi - q.o[0], sj = gsj - q.o[1], sk = gsk - q.o[2];
-    const bool face = gsi != gi || gsj != gj || gsk != gk;
-    if (face || lsf::block_brick_active(active, q, i, j, k)) {
-      // the cell whose update this thread evaluates is (si, sj, sk): itself,
-      // or a global-face cell's clamped inner neighbour (in the same shard)
-      const bool deep = gsi >= 4 && gsi <= q.g[0] - 5 && gsj >= 4
-                        && gsj <= q.g[1] - 5 && gsk >= 4
-                        && gsk <= q.g[2] - 5;
+  } else if (!idle && in_grid) {
+    if (face || brick_live) {
+      // the cell evaluated: itself, or a face cell's clamped inner
+      // neighbour
+      const int si = gsi - o0, sj = gsj - o1, sk = gsk - o2;
+      const bool deep = gsi >= 4 && gsi <= g0 - 5 && gsj >= 4
+                        && gsj <= g1 - 5 && gsk >= 4 && gsk <= g2 - 5;
       const int r = deep ? 3 : 1;
-      const bool valid = si >= r && si + r < p.nx && sj >= r
-                         && sj + r < p.ny && sk >= r && sk + r < p.nz;
+      const bool valid = SOLO || (si >= r && si + r < p.nx && sj >= r
+                                  && sj + r < p.ny && sk >= r
+                                  && sk + r < p.nz);
       if (valid) {
-        const long long s = si * sx + sj * sy + sk;
+        const int s = si * sx + sj * sy + sk;
         const float v = lsf::block_brick_active(active, q, si, sj, sk)
-            ? cell_update_at(phi, sgn_src, s, sx, sy, deep, p) : phi[s];
-        const float res = face ? v + p.dx : v;
+            ? cell_update_at(phi, sgn_src, s, sx, sy, deep, pp) : phi[s];
+        const float res = face ? v + pp.dx : v;
         out[idx] = res;
-        if (lsf::in_rms_box(q, gi, gj, gk)) {
+        if (SOLO || lsf::in_rms_box(q, gi, gj, gk)) {
           const float d = res - phi[idx];
           dd = (double)d * (double)d;
         }
       }
-    } else {
-      out[idx] = phi[idx];       // a frozen brick copies: the buffer written
-    }                            // holds stale halos, not the last iterate
+    } else if (copy_inactive) {
+      out[idx] = phi[idx];
+    }
   }
-  if (partials != nullptr) {
-    const double total = lsf::block_sum(dd, red);
-    if (lsf::thread_rank() == 0) partials[lsf::brick_id()] = total;
+  if (part != nullptr) {
+    // block_sum's tree: x-planes (rank + 256, + 128, + 64), y-rows (+ 32:
+    // across warps, then + 16, + 8) and z (+ 4, + 2, + 1)
+    red[tid] = dd;
+    __syncthreads();
+    if (tid < 32) {
+      double a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double* v = red + tid + 32 * h;
+        a[h] = ((v[0] + v[256]) + (v[128] + v[384]))
+               + ((v[64] + v[320]) + (v[192] + v[448]));
+      }
+      double sum = a[0] + a[1];
+      sum += __shfl_down_sync(0xffffffffu, sum, 16);
+      sum += __shfl_down_sync(0xffffffffu, sum, 8);
+      sum += __shfl_down_sync(0xffffffffu, sum, 4);
+      sum += __shfl_down_sync(0xffffffffu, sum, 2);
+      sum += __shfl_down_sync(0xffffffffu, sum, 1);
+      if (tid == 0)
+        part[((long long)bxl * gridDim.y + blockIdx.y) * gridDim.x
+             + blockIdx.x] = sum;
+    }
   }
+}
+
+}  // namespace
+
+namespace {
+
+// One K1 launch over `batch` geometries laid out by the host record geom,
+// then the sums' second pass.
+int launch_reinit(const void* phi, const void* sgn_src, void* out, int batch,
+                  const StepParams& p, const int* geom, const void* hs,
+                  const void* live, const void* active, int copy_inactive,
+                  void* partials, void* dsq, void* stream) {
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const int* tn = geom + 21;
+  const dim3 grid(tn[2], tn[1], batch * tn[0]);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool solo = q.o[0] == 0 && q.o[1] == 0 && q.o[2] == 0
+                    && q.c[0] == 0 && q.c[1] == 0 && q.c[2] == 0
+                    && q.t0[0] == 0 && q.t0[1] == 0 && q.t0[2] == 0
+                    && q.g[0] == p.nx && q.g[1] == p.ny && q.g[2] == p.nz
+                    && q.rms[0] == 0 && q.rms[1] == p.nx && q.rms[2] == 0
+                    && q.rms[3] == p.ny && q.rms[4] == 0 && q.rms[5] == p.nz;
+  auto* kernel = solo ? reinit_brick_kernel<true> : reinit_brick_kernel<false>;
+  kernel<<<grid, lsf::NT, 0, st>>>(
+      static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
+      static_cast<float*>(out), p, q, tn[0], static_cast<const float*>(hs),
+      static_cast<const int*>(live), static_cast<const int*>(active),
+      copy_inactive, static_cast<double*>(partials));
+  return lsf::finish(grid, partials, dsq, st, batch);
 }
 
 }  // namespace
@@ -309,15 +307,13 @@ extern "C" int lsf_reinit_step_f32(const void* phi, const void* sgn_src,
                                    float eps_floor, int p5_zero_y,
                                    const void* active, int copy_inactive,
                                    void* partials, void* dsq, void* stream) {
-  const StepParams p{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
-                     p5_zero_y};
-  const dim3 grid = lsf::brick_grid(nx, ny, nz);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  reinit_step_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
-      static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
-      static_cast<float*>(out), p, static_cast<const int*>(active),
-      copy_inactive, static_cast<double*>(partials));
-  return lsf::finish(grid, partials, dsq, st);
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_reinit(
+      phi, sgn_src, out, 1,
+      StepParams{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
+                 p5_zero_y},
+      geom, nullptr, nullptr, active, copy_inactive, partials, dsq, stream);
 }
 
 extern "C" int lsf_reinit_step_packed_f32(const void* phi,
@@ -328,16 +324,13 @@ extern "C" int lsf_reinit_step_packed_f32(const void* phi,
                                           float eps_floor, int p5_zero_y,
                                           const void* live, void* partials,
                                           void* dsq, void* stream) {
-  const StepParams p{nx, ny, nz, dx, 0.0f, dx2, inv_dx2, eps_scale,
-                     eps_floor, p5_zero_y};
-  dim3 grid = lsf::brick_grid(nx, ny, nz);
-  grid.z *= batch;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  reinit_step_packed_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
-      static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
-      static_cast<float*>(out), p, static_cast<const float*>(hs),
-      static_cast<const int*>(live), static_cast<double*>(partials));
-  return lsf::finish(grid, partials, dsq, st, batch);
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_reinit(
+      phi, sgn_src, out, batch,
+      StepParams{nx, ny, nz, dx, 0.0f, dx2, inv_dx2, eps_scale, eps_floor,
+                 p5_zero_y},
+      geom, hs, live, nullptr, 0, partials, dsq, stream);
 }
 
 // geom: BLOCK_GEOM_INTS host ints (common.cuh: BlockGeom and the launch's
@@ -350,14 +343,9 @@ extern "C" int lsf_reinit_step_block_f32(const void* phi, const void* sgn_src,
                                          int p5_zero_y, const void* active,
                                          void* partials, void* dsq,
                                          void* stream) {
-  const StepParams p{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
-                     p5_zero_y};
-  const lsf::BlockGeom q = lsf::block_geom(geom);
-  const dim3 grid = lsf::block_launch_grid(geom);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  reinit_step_block_kernel<<<grid, dim3(BRICK, BRICK, BRICK), 0, st>>>(
-      static_cast<const float*>(phi), static_cast<const float*>(sgn_src),
-      static_cast<float*>(out), p, q, static_cast<const int*>(active),
-      static_cast<double*>(partials));
-  return lsf::finish(grid, partials, dsq, st);
+  return launch_reinit(
+      phi, sgn_src, out, 1,
+      StepParams{nx, ny, nz, dx, h, dx2, inv_dx2, eps_scale, eps_floor,
+                 p5_zero_y},
+      geom, nullptr, nullptr, active, 1, partials, dsq, stream);
 }

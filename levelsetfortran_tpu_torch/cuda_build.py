@@ -49,22 +49,23 @@ SIGNATURES = {
     "lsf_reinit_step_block_f32": [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
                                   _F, _F, _I, _P, _P, _P, _P],
     # phi, out, padded nx, ny, nz, block geometry (host ints), h1, inv_dx2,
-    # band_dx, threshold, active, partials, dsq, stream
+    # band_dx, threshold, active, partials, dsq, tickets, stream
     "lsf_minmax_step_block_f32": [_P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
-                                  _P, _P, _P, _P],
+                                  _P, _P, _P, _P, _P],
     # phi, sign, out, batch, nx, ny, nz, dx, h vector, dx2, inv_dx2,
     # eps_scale, eps_floor, p5_zero_y, live, partials, dsq vector, stream
     "lsf_reinit_step_packed_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _F,
                                    _F, _F, _F, _I, _P, _P, _P, _P],
     # phi, out, nx, ny, nz, h1, inv_dx2, band_dx, threshold,
-    # active, copy_inactive, partials, dsq, stream
+    # active, copy_inactive, partials, dsq, tickets, stream
     "lsf_minmax_step_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F,
-                            _P, _I, _P, _P, _P],
+                            _P, _I, _P, _P, _P, _P],
     # phi, out, batch, nx, ny, nz, h1 vector, inv_dx2, band_dx, threshold,
-    # live, partials, dsq vector, stream
+    # live, partials, dsq vector, tickets, stream
     "lsf_minmax_step_packed_f32": [_P, _P, _I, _I, _I, _I, _P, _F, _F, _F,
-                                   _P, _P, _P, _P],
-    # the same plus ksteps before active
+                                   _P, _P, _P, _P, _P],
+    # phi, out, nx, ny, nz, h1, inv_dx2, band_dx, threshold, ksteps,
+    # active, copy_inactive, partials, dsq, stream
     "lsf_minmax_fusedk_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
                               _P, _I, _P, _P, _P],
     # phi, sign, g, cot_phi, cot_sign, cot_gs scratch, nx, ny, nz, dx, h, dx2,

@@ -7,8 +7,9 @@ replaces ``minmax_fusedk_padded``.  One step: the 6-neighbour sum feeds the
 Laplacian proxy and the 7-point average, F = min(lap, 0) where the average
 is below the threshold else max(lap, 0), and phi += h1 F where
 |phi| < band_radius dx on the interior.  What bounds them on the H100 is
-bytes (~15 operations per cell against 8 bytes of traffic); K4 moves a
-brick's window once for K steps, through shared memory.  Face rule: face
+bytes (~15 operations per cell against 8 bytes of traffic): K3 marches a
+column of cells along x, its planes prefetched into a shared ring; K4
+walks the same way for K steps at once.  Face rule: face
 cells never update and an interior cell's +-1 reads never leave the grid,
 so the port neither wraps (jnp path) nor clamps (TPU kernel).  K3's pack
 mode (:func:`minmax_step_packed`) steps B same-shape geometries per launch,
@@ -27,35 +28,48 @@ mode (:func:`minmax_step_block_vjp`) gathers one shard's owned cells from a
 dense or banded (bitwise the same values and gradients).
 
 The wrappers run the plain version only for a CPU tensor; for a CUDA tensor
-they launch the kernel or raise.  K4 is bitwise equal to K launches of K3
+they launch the kernel or raise.  A solver passes ``bufs``
+(:func:`..weno_cuda.solve_buffers`) so that its launches reuse one set of
+sum buffers, the stream and the device; the scalars are rounded once per
+distinct input.  K4 is bitwise equal to K launches of K3
 (one shared cell update, built with ``--fmad=false``).
 """
 
 from __future__ import annotations
+
+import functools
+import types
+from typing import Optional
 
 import torch
 
 from .. import cuda_build
 from . import reverse
 from .stencil import global_interior_mask, interior_mask, shift
-from .weno_cuda import (VJP_HALO, BlockGeom, block_rms_buffers, box_cells,
-                        brick_cells, brick_grid, check_adjoint_geom,
-                        check_block, check_cuda, check_inputs, check_packed,
-                        chunk_lengths, finish_block_plain, finish_plain,
-                        live_vector, np_dtype, owned_slices,
-                        packed_rms_buffers, packed_vector, ptr, rms_buffers,
-                        run_packed_plain, tile_activity)
+from .weno_cuda import (VJP_HALO, BlockGeom, SolveBuffers, _sum_args,
+                        box_cells, brick_cells, brick_grid,
+                        check_adjoint_geom, check_block, check_cuda,
+                        check_inputs, check_packed, chunk_lengths,
+                        finish_block_plain, finish_plain, live_vector,
+                        np_dtype, on_device, owned_slices, packed_vector,
+                        ptr, rms_buffers, run_packed_plain, tile_activity)
 
 
-def minmax_scalars(dtype, dx, h1, band_radius, threshold) -> dict:
+def minmax_scalars(dtype, dx, h1, band_radius, threshold):
     """Scalar constants rounded once in ``dtype``, as the TPU kernel forms
-    them from its f32 scalar inputs."""
+    them from its f32 scalar inputs; cached by the inputs, so a solve's
+    launches round them once (a read-only mapping)."""
+    return _minmax_scalars(dtype, float(dx), float(h1), float(band_radius),
+                           float(threshold))
+
+
+@functools.lru_cache(maxsize=256)
+def _minmax_scalars(dtype, dx, h1, band_radius, threshold):
     t = np_dtype(dtype)
     dxv = t(dx)
-    return dict(dx=float(dxv), h1=float(t(h1)),
-                inv_dx2=float(t(1) / (dxv * dxv)),
-                band_dx=float(t(band_radius) * dxv),
-                threshold=float(t(threshold)))
+    return types.MappingProxyType(dict(
+        dx=float(dxv), h1=float(t(h1)), inv_dx2=float(t(1) / (dxv * dxv)),
+        band_dx=float(t(band_radius) * dxv), threshold=float(t(threshold))))
 
 
 def _dense_step(phi, sc, interior=None):
@@ -99,22 +113,13 @@ def minmax_step_plain(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
                                with_rms=with_rms)
 
 
-def _launch(name, phi, out, sc, extra, active, mint, with_rms):
-    partials, dsq = rms_buffers(phi, with_rms)
-    with torch.cuda.device(phi.device):
-        cuda_build.launch(
-            name, phi.data_ptr(), out.data_ptr(), *phi.shape, sc["h1"],
-            sc["inv_dx2"], sc["band_dx"], sc["threshold"], *extra,
-            ptr(active), int(mint), ptr(partials), ptr(dsq),
-            torch.cuda.current_stream().cuda_stream)
-    return (out, dsq) if with_rms else out
-
-
 def minmax_step(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
-                active=None, out=None, mint=True, with_rms=False):
+                active=None, out=None, mint=True, with_rms=False,
+                bufs: Optional[SolveBuffers] = None):
     """One min/max step of ``phi`` into ``out`` (K3).  ``active``/``mint``
     as in :func:`..weno_cuda.reinit_step`; ``with_rms`` adds the float64
-    sum of squared changes."""
+    sum of squared changes; ``bufs`` (:func:`..weno_cuda.solve_buffers` of
+    ``phi``): a solve's reused device, stream and sum buffers."""
     if phi.device.type == "cpu":
         return minmax_step_plain(phi, dx, h1, band_radius, threshold,
                                  active=active, out=out, mint=mint,
@@ -123,10 +128,16 @@ def minmax_step(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
         out = torch.empty_like(phi)
     check_cuda("minmax_step", phi, out, active)
     sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
-    res = _launch("lsf_minmax_step_f32", phi, out, sc, (), active, mint,
-                  with_rms)
+    partials, dsq, tickets, stream = _sum_args("minmax_step", phi, with_rms,
+                                               bufs)
+    with on_device(phi.device):
+        cuda_build.launch(
+            "lsf_minmax_step_f32", phi.data_ptr(), out.data_ptr(),
+            *phi.shape, sc["h1"], sc["inv_dx2"], sc["band_dx"],
+            sc["threshold"], ptr(active), int(mint), ptr(partials),
+            ptr(dsq), ptr(tickets), stream)
     minmax_step.launches += 1
-    return res
+    return (out, dsq) if with_rms else out
 
 
 minmax_step.launches = 0
@@ -169,13 +180,14 @@ def minmax_step_block(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
         out = pad.clone()
     check_block("minmax_step_block", pad, out, active, geom)
     sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
-    partials, dsq = block_rms_buffers(pad, geom, None, with_rms)
-    with torch.cuda.device(pad.device):
+    partials, dsq, tickets, stream = _sum_args(
+        "minmax_step_block", pad, with_rms, None, geom=geom)
+    with on_device(pad.device):
         cuda_build.launch(
             "lsf_minmax_step_block_f32", pad.data_ptr(), out.data_ptr(),
             *pad.shape, geom.ints(pad.shape), sc["h1"], sc["inv_dx2"],
             sc["band_dx"], sc["threshold"], ptr(active), ptr(partials),
-            ptr(dsq), torch.cuda.current_stream().cuda_stream)
+            ptr(dsq), ptr(tickets), stream)
     minmax_step_block.launches += 1
     return (out, dsq) if with_rms else out
 
@@ -197,10 +209,16 @@ def minmax_fusedk(phi, dx, h1, band_radius=4.1, threshold=0.0, *, ksteps,
         out = torch.empty_like(phi)
     check_cuda("minmax_fusedk", phi, out, active)
     sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
-    res = _launch("lsf_minmax_fusedk_f32", phi, out, sc, (int(ksteps),),
-                  active, mint, with_rms)
+    partials, dsq = rms_buffers(phi, with_rms)
+    with on_device(phi.device):
+        cuda_build.launch(
+            "lsf_minmax_fusedk_f32", phi.data_ptr(), out.data_ptr(),
+            *phi.shape, sc["h1"], sc["inv_dx2"], sc["band_dx"],
+            sc["threshold"], int(ksteps), ptr(active), int(mint),
+            ptr(partials), ptr(dsq),
+            torch.cuda.current_stream(phi.device).cuda_stream)
     minmax_fusedk.launches += 1
-    return res
+    return (out, dsq) if with_rms else out
 
 
 minmax_fusedk.launches = 0
@@ -217,12 +235,15 @@ def minmax_step_packed_plain(phi, dx, h1, live, band_radius=4.1,
 
 
 def minmax_step_packed(phi, dx, h1, live, band_radius=4.1, threshold=0.0, *,
-                       out=None, with_rms=False):
+                       out=None, with_rms=False,
+                       bufs: Optional[SolveBuffers] = None):
     """One dense min/max step of each of B same-shape geometries in ONE
     launch (K3's pack mode; replaces ``minmax_step_padded(pack=B)``).
     ``h1`` per geometry and ``live`` as in
     :func:`..weno_cuda.reinit_step_packed`; each live geometry equals a solo
-    :func:`minmax_step` with its h1 bitwise, a frozen one is copied."""
+    :func:`minmax_step` with its h1 bitwise, a frozen one is copied.
+    ``bufs``: :func:`..weno_cuda.solve_buffers` of ``phi`` with
+    ``packed=True``."""
     if phi.device.type == "cpu":
         return minmax_step_packed_plain(phi, dx, h1, live, band_radius,
                                         threshold, out=out,
@@ -234,13 +255,14 @@ def minmax_step_packed(phi, dx, h1, live, band_radius=4.1, threshold=0.0, *,
     hv = packed_vector(h1, b, phi.dtype, phi.device)
     lv = live_vector(live, b, phi.device)
     sc = minmax_scalars(phi.dtype, dx, 0.0, band_radius, threshold)
-    partials, dsq = packed_rms_buffers(phi, with_rms)
-    with torch.cuda.device(phi.device):
+    partials, dsq, tickets, stream = _sum_args(
+        "minmax_step_packed", phi, with_rms, bufs, packed=True)
+    with on_device(phi.device):
         cuda_build.launch(
             "lsf_minmax_step_packed_f32", phi.data_ptr(), out.data_ptr(),
             *phi.shape, hv.data_ptr(), sc["inv_dx2"], sc["band_dx"],
             sc["threshold"], lv.data_ptr(), ptr(partials), ptr(dsq),
-            torch.cuda.current_stream().cuda_stream)
+            ptr(tickets), stream)
     minmax_step_packed.launches += 1
     return (out, dsq) if with_rms else out
 

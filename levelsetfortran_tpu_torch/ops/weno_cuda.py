@@ -50,9 +50,11 @@ order.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import types
 from typing import Optional, Tuple
 
 import numpy as np
@@ -74,11 +76,18 @@ def np_dtype(dtype: torch.dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
 
-def step_scalars(dtype, dx, h, eps_scale=1e-6, eps_floor=None) -> dict:
+def step_scalars(dtype, dx, h, eps_scale=1e-6, eps_floor=None):
     """The step's scalar constants, each rounded once in ``dtype`` exactly
     as the TPU kernel forms them (``_scaled_eps_floor`` :464).  ``ef_dx``
     is d(eps_floor)/d(dx) of the scaled floor, 0 where the floor is
-    clamped (``_axis_gsq_bwd`` :639)."""
+    clamped (``_axis_gsq_bwd`` :639).  Cached by the inputs: a solve's
+    launches round them once (a read-only mapping)."""
+    return _step_scalars(dtype, float(dx), float(h), float(eps_scale),
+                         None if eps_floor is None else float(eps_floor))
+
+
+@functools.lru_cache(maxsize=256)
+def _step_scalars(dtype, dx, h, eps_scale, eps_floor):
     t = np_dtype(dtype)
     if eps_floor is None:
         eps_floor = default_eps_floor(dtype)
@@ -86,11 +95,11 @@ def step_scalars(dtype, dx, h, eps_scale=1e-6, eps_floor=None) -> dict:
     dx2 = dxv * dxv
     floor = t(1e-18 if dtype == torch.float32 else 1e-99)
     scaled = t(eps_floor) * dx2
-    return dict(dx=float(dxv), h=float(t(h)), dx2=float(dx2),
-                inv_dx2=float(t(1) / dx2), eps_scale=float(t(eps_scale)),
-                eps_floor=float(max(scaled, floor)),
-                ef_dx=float(t(2.0 * eps_floor) * dxv) if scaled >= floor
-                else 0.0)
+    return types.MappingProxyType(dict(
+        dx=float(dxv), h=float(t(h)), dx2=float(dx2),
+        inv_dx2=float(t(1) / dx2), eps_scale=float(t(eps_scale)),
+        eps_floor=float(max(scaled, floor)),
+        ef_dx=float(t(2.0 * eps_floor) * dxv) if scaled >= floor else 0.0))
 
 
 # ----------------------------- plain version ------------------------------
@@ -766,16 +775,99 @@ def rms_buffers(phi, with_rms):
             torch.empty((), dtype=torch.float64, device=phi.device))
 
 
+#: The fused sums' ticket counters of K3, per (device, stream): one zeroed
+#: int32 per geometry of a launch, left zeroed by every launch
+#: (``csrc/common.cuh:march_finish``), so one set serves the launches of a
+#: stream one after the other.
+_TICKETS = {}
+
+
+def _tickets(device, stream, groups):
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < groups:
+        t = torch.zeros(max(groups, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+class SolveBuffers:
+    """What the K1 and K3 wrappers resolve once per solve and reuse in each
+    of its launches: the device, its current stream, and the fused sum's
+    device buffers for ``groups`` geometries of ``bricks`` bricks each (one
+    geometry: a 0-d sum; a pack: a (B,) vector).  The sum a launch returns
+    is this buffer, overwritten by the next launch that takes it: a solve
+    reads it before its next step."""
+
+    def __init__(self, like: torch.Tensor, bricks: int, groups=None):
+        self.device = like.device
+        self.stream = torch.cuda.current_stream(like.device).cuda_stream
+        n = groups or 1
+        self.partials = torch.empty(bricks * n, dtype=torch.float64,
+                                    device=like.device)
+        self.dsq = torch.empty(() if groups is None else (groups,),
+                               dtype=torch.float64, device=like.device)
+        self.tickets = _tickets(like.device, self.stream, n)
+
+
+def solve_buffers(phi, *, geom: Optional[BlockGeom] = None, tile_range=None,
+                  packed=False) -> Optional[SolveBuffers]:
+    """The buffers of a solve of ``phi`` (a (B, nx, ny, nz) batch when
+    ``packed``, one shard's padded block under ``geom``); None for a CPU
+    tensor, whose steps run the plain versions."""
+    if phi.device.type != "cuda":
+        return None
+    groups = phi.shape[0] if packed else None
+    n = solve_buffers_size(phi, geom=geom, tile_range=tile_range,
+                           packed=packed)
+    return SolveBuffers(phi, n // (groups or 1), groups)
+
+
+def _sum_args(name, phi, with_rms, bufs, **kw):
+    """(partials, dsq, tickets, stream) of one K1/K3 launch, from the
+    solve's buffers or made for this launch."""
+    if bufs is None:
+        if not with_rms:
+            return None, None, None, \
+                torch.cuda.current_stream(phi.device).cuda_stream
+        bufs = solve_buffers(phi, **kw)
+    elif bufs.device != phi.device or bufs.partials.numel() != \
+            solve_buffers_size(phi, **kw):
+        raise ValueError(f"{name}: the solve's buffers are for another "
+                         f"device or brick grid")
+    if not with_rms:
+        return None, None, None, bufs.stream
+    return bufs.partials, bufs.dsq, bufs.tickets, bufs.stream
+
+
+def solve_buffers_size(phi, *, geom=None, tile_range=None, packed=False):
+    """Partials a launch of this shape writes (see :func:`solve_buffers`)."""
+    if packed:
+        nb = brick_grid(phi.shape[1:])
+        return phi.shape[0] * nb[0] * nb[1] * nb[2]
+    nb = brick_grid(phi.shape) if geom is None else (
+        tile_range[1] if tile_range else geom.bricks(phi.shape))
+    return nb[0] * nb[1] * nb[2]
+
+
+def on_device(device):
+    """Make ``device`` current for a launch, unless it already is."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def reinit_step(phi, sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
                 quirk_y_p5_zero=False, active=None, out=None, mint=True,
-                with_rms=False):
+                with_rms=False, bufs: Optional[SolveBuffers] = None):
     """One reinit step of ``phi`` into ``out`` (allocated when None).
 
     ``active`` (brick mask) runs the narrow band: inactive bricks copy
     their cells when ``mint``, else keep what ``out`` already holds; face
     cells take the ghost BC in every brick.  Returns ``out``, or
     ``(out, dsq)`` with the float64 sum of squared changes when
-    ``with_rms``."""
+    ``with_rms``.  ``bufs`` (:func:`solve_buffers` of ``phi``): a solve's
+    reused device, stream and sum buffers."""
     if phi.device.type == "cpu":
         return reinit_step_plain(
             phi, sign_src, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
@@ -785,14 +877,14 @@ def reinit_step(phi, sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
         out = torch.empty_like(phi)
     check_cuda("reinit_step", phi, out, active, (sign_src,))
     sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
-    partials, dsq = rms_buffers(phi, with_rms)
-    with torch.cuda.device(phi.device):
+    partials, dsq, _, stream = _sum_args("reinit_step", phi, with_rms, bufs)
+    with on_device(phi.device):
         cuda_build.launch(
             "lsf_reinit_step_f32", phi.data_ptr(), sign_src.data_ptr(),
             out.data_ptr(), *phi.shape, sc["dx"], sc["h"], sc["dx2"],
             sc["inv_dx2"], sc["eps_scale"], sc["eps_floor"],
             int(quirk_y_p5_zero), ptr(active), int(mint), ptr(partials),
-            ptr(dsq), torch.cuda.current_stream().cuda_stream)
+            ptr(dsq), stream)
     reinit_step.launches += 1
     return (out, dsq) if with_rms else out
 
@@ -804,16 +896,6 @@ def check_block(name, pad, out, active, geom, inputs=()):
     """Raise on what the block-mode kernels do not take."""
     check_cuda(name, pad, out, None, inputs)
     check_inputs(name, pad, (), active, geom.bricks(pad.shape))
-
-
-def block_rms_buffers(pad, geom, tile_range, with_rms):
-    """Per-brick partial sums of one block-mode launch and their sum."""
-    if not with_rms:
-        return None, None
-    tn = tile_range[1] if tile_range else geom.bricks(pad.shape)
-    return (torch.empty(tn[0] * tn[1] * tn[2], dtype=torch.float64,
-                        device=pad.device),
-            torch.empty((), dtype=torch.float64, device=pad.device))
 
 
 def reinit_step_block(pad, sign_pad, dx, h, geom: BlockGeom, *,
@@ -839,15 +921,16 @@ def reinit_step_block(pad, sign_pad, dx, h, geom: BlockGeom, *,
         out = pad.clone()
     check_block("reinit_step_block", pad, out, active, geom, (sign_pad,))
     sc = step_scalars(pad.dtype, dx, h, eps_scale, eps_floor)
-    partials, dsq = block_rms_buffers(pad, geom, tile_range, with_rms)
-    with torch.cuda.device(pad.device):
+    partials, dsq, _, stream = _sum_args(
+        "reinit_step_block", pad, with_rms, None, geom=geom,
+        tile_range=tile_range)
+    with on_device(pad.device):
         cuda_build.launch(
             "lsf_reinit_step_block_f32", pad.data_ptr(), sign_pad.data_ptr(),
             out.data_ptr(), *pad.shape, geom.ints(pad.shape, tile_range),
             sc["dx"], sc["h"], sc["dx2"], sc["inv_dx2"], sc["eps_scale"],
             sc["eps_floor"], int(quirk_y_p5_zero), ptr(active),
-            ptr(partials), ptr(dsq),
-            torch.cuda.current_stream().cuda_stream)
+            ptr(partials), ptr(dsq), stream)
     reinit_step_block.launches += 1
     return (out, dsq) if with_rms else out
 
@@ -1017,17 +1100,6 @@ def check_packed(name, phi, out, inputs=()):
         raise ValueError(f"{name}: out must not alias an input")
 
 
-def packed_rms_buffers(phi, with_rms):
-    """Geometry-major per-brick partial sums and the (B,) sums."""
-    if not with_rms:
-        return None, None
-    nb = brick_grid(phi.shape[1:])
-    b = phi.shape[0]
-    return (torch.empty(b * nb[0] * nb[1] * nb[2], dtype=torch.float64,
-                        device=phi.device),
-            torch.empty(b, dtype=torch.float64, device=phi.device))
-
-
 def run_packed_plain(phi, out, live, with_rms, step):
     """A pack mode's plain version: ``step(g, out_g, with_rms)`` (a solo
     plain step of geometry g into ``out_g``) for each live geometry; a
@@ -1061,7 +1133,8 @@ def reinit_step_packed_plain(phi, sign_src, dx, h, live, *, out=None,
 
 def reinit_step_packed(phi, sign_src, dx, h, live, *, out=None,
                        with_rms=False, eps_scale=1e-6, eps_floor=None,
-                       quirk_y_p5_zero=False):
+                       quirk_y_p5_zero=False,
+                       bufs: Optional[SolveBuffers] = None):
     """One dense reinit step of each of B same-shape geometries in ONE
     launch (K1's pack mode; replaces the TPU kernel's ``pack`` argument).
 
@@ -1071,7 +1144,8 @@ def reinit_step_packed(phi, sign_src, dx, h, live, *, out=None,
     geometry (0) is copied unchanged, faces included, and its sum is 0.
     Each live geometry equals a solo :func:`reinit_step` with its h
     bitwise.  Returns ``out``, or ``(out, dsq)`` with the (B,) float64
-    per-geometry sums of squared changes when ``with_rms``."""
+    per-geometry sums of squared changes when ``with_rms``.  ``bufs``:
+    :func:`solve_buffers` of ``phi`` with ``packed=True``."""
     if phi.device.type == "cpu":
         return reinit_step_packed_plain(
             phi, sign_src, dx, h, live, out=out, with_rms=with_rms,
@@ -1084,14 +1158,15 @@ def reinit_step_packed(phi, sign_src, dx, h, live, *, out=None,
     hv = packed_vector(h, b, phi.dtype, phi.device)
     lv = live_vector(live, b, phi.device)
     sc = step_scalars(phi.dtype, dx, 0.0, eps_scale, eps_floor)
-    partials, dsq = packed_rms_buffers(phi, with_rms)
-    with torch.cuda.device(phi.device):
+    partials, dsq, _, stream = _sum_args(
+        "reinit_step_packed", phi, with_rms, bufs, packed=True)
+    with on_device(phi.device):
         cuda_build.launch(
             "lsf_reinit_step_packed_f32", phi.data_ptr(),
             sign_src.data_ptr(), out.data_ptr(), *phi.shape, sc["dx"],
             hv.data_ptr(), sc["dx2"], sc["inv_dx2"], sc["eps_scale"],
             sc["eps_floor"], int(quirk_y_p5_zero), lv.data_ptr(),
-            ptr(partials), ptr(dsq), torch.cuda.current_stream().cuda_stream)
+            ptr(partials), ptr(dsq), stream)
     reinit_step_packed.launches += 1
     return (out, dsq) if with_rms else out
 

@@ -94,12 +94,13 @@ def reinit_batched_packed(phi0, dx, h, iters: int, tol, *, eps_scale=1e-6,
     the sign source frozen at ``phi0``.  Geometry b's field and count equal
     a solo :func:`..solvers.reinit.reinit` of ``phi0[b]`` bitwise."""
     hv = packed_vector(h, phi0.shape[0], phi0.dtype, phi0.device)
+    sums = weno_cuda.solve_buffers(phi0, packed=True)
 
     def step(p, out, live):
         return weno_cuda.reinit_step_packed(
             p, phi0, dx, hv, live, out=out, with_rms=True,
             eps_scale=eps_scale, eps_floor=eps_floor,
-            quirk_y_p5_zero=quirk_y_p5_zero)
+            quirk_y_p5_zero=quirk_y_p5_zero, bufs=sums)
 
     return _batched_solve(phi0, iters, tol, step)
 
@@ -109,10 +110,12 @@ def minmax_batched_packed(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
     """Batched min/max flow, one packed K3 launch per step (the default
     half-width; K4 has no pack mode); ``h1`` per geometry."""
     hv = packed_vector(h1, phi0.shape[0], phi0.dtype, phi0.device)
+    sums = weno_cuda.solve_buffers(phi0, packed=True)
 
     def step(p, out, live):
         return minmax_cuda.minmax_step_packed(
-            p, dx, hv, live, band_radius, threshold, out=out, with_rms=True)
+            p, dx, hv, live, band_radius, threshold, out=out, with_rms=True,
+            bufs=sums)
 
     return _batched_solve(phi0, iters, tol, step)
 

@@ -18,7 +18,7 @@ from ..ops import minmax_cuda, reverse
 from ..ops.band import narrow_band
 from ..ops.minmax import minmax_rhs
 from ..ops.stencil import interior_mask
-from ..ops.weno_cuda import tile_activity
+from ..ops.weno_cuda import solve_buffers, tile_activity
 from .reinit import rms_denominator
 
 
@@ -46,12 +46,13 @@ def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
     the JAX package) and run :func:`minmax_step`."""
     denom = rms_denominator(phi0.shape)
     bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
+    sums = solve_buffers(phi0)
     p, n, rms = phi0, 0, math.inf
     while n < iters:
         if avg_halfwidth == 1:
             new, dsq = minmax_cuda.minmax_step(
                 p, dx, h1, band_radius, threshold, out=bufs[n % 2],
-                with_rms=True)
+                with_rms=True, bufs=sums)
         else:
             new = minmax_step(p, dx, h1, band_radius=band_radius,
                               threshold=threshold,
@@ -101,9 +102,10 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     rem = 0 if done else iters - n
     if rem:
         active = tile_activity(p, dx, band_radius, window="owned")
+        sums = solve_buffers(p)
         for _ in range(rem):
             _, dsq = minmax_cuda.minmax_step(p, *args, active=active, out=q,
-                                             with_rms=True)
+                                             with_rms=True, bufs=sums)
             p, q = q, p
     n += rem
     rms = math.inf if dsq is None else math.sqrt(dsq.item() / denom)

@@ -55,11 +55,13 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
     sign = phi0 if sign_src is None else sign_src
     denom = rms_denominator(phi0.shape)
     bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
+    sums = weno_cuda.solve_buffers(phi0)
     p, n, rms = phi0, 0, math.inf
     while n < iters:
         p, dsq = weno_cuda.reinit_step(
             p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
-            quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2], with_rms=True)
+            quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2], with_rms=True,
+            bufs=sums)
         n += 1
         rms = math.sqrt(dsq.item() / denom)
         if rms < tol or math.isnan(rms):
@@ -89,7 +91,8 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
     chunk = 1 + 2 * pairs
     margin = chunk * h / dx
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
-              quirk_y_p5_zero=quirk_y_p5_zero)
+              quirk_y_p5_zero=quirk_y_p5_zero,
+              bufs=weno_cuda.solve_buffers(phi0))
     p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
     n, rms = 0, math.inf
     while n < iters:

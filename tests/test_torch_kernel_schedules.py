@@ -1,7 +1,8 @@
-"""CPU models of the schedules of the two kernels redesigned for the H100,
+"""CPU models of the schedules of the kernels redesigned for the H100,
 written in torch from the plain helpers and held bitwise against the plain
 versions, so that their index arithmetic is checked before the card runs
-them (the CUDA kernels themselves run only on the card).
+them (the CUDA kernels themselves run only on the card).  (c) and (d), the
+min/max step's march and the reinit step's bricks, are at the end.
 
 (a) K5 (``csrc/reinit_bwd.cu``) in two stages: pass 1 runs the forward
     once per cell and stops at the one per-cell input of the per-axis
@@ -26,7 +27,8 @@ import torch
 
 from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
 from levelsetfortran_tpu_torch.ops import weno_cuda as wc
-from levelsetfortran_tpu_torch.ops.stencil import global_interior_mask
+from levelsetfortran_tpu_torch.ops.stencil import (global_interior_mask,
+                                                  interior_mask)
 from levelsetfortran_tpu_torch.parallel import sharded as sh
 from levelsetfortran_tpu_torch.parallel.halo import halo_exchange
 from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
@@ -413,3 +415,481 @@ def test_k4_wavefront_matches_k_plain_steps_bitwise(shape, ksteps, chunk,
     assert torch.equal(_bits(got_parts), _bits(want_parts))
     assert torch.equal(_bits(_reduce_partials(got_parts)),
                        _bits(_reduce_partials(want_parts)))
+
+
+# ---------------------- (c, d) the march of K3 and K1 ----------------------
+#
+# Both kernels walk x with a block per (y, z) column of TY x 32 cells and a
+# chunk of x-slabs of the launch's brick box (``csrc/common.cuh``), in runs
+# of live slabs; K3 (TY = 16) steps each plane from a ring plane with a
+# one-cell y/z rim, K1 (TY = 8) from a 7-plane window with a 3-cell rim, a
+# y/z face cell taking its clamped inner neighbour's value from the plane's
+# exchange (or, outside the block, from the whole array) and an x face
+# plane its column's value once plane 1 (or nx - 2) is done.  Cells outside
+# the array are NaN in the model's windows: a cell that read one would turn
+# NaN.  Each slab's squared changes go through block_sum's trees per brick,
+# the partials into the launch box's brick order, the sum through
+# ``reduce_partials``'s order.
+
+MZ = 32
+
+
+def _launch_record(geom, shape, tile_range=None):
+    """The kernels' host record of ``geom`` (``BlockGeom.ints``)."""
+    v = list(geom.ints(tuple(shape), tile_range))
+    return dict(g=v[0:3], o=v[3:6], c=v[6:9], nb=v[9:12], t0=v[12:15],
+                rms=v[15:21], tn=v[21:24])
+
+
+def _march_cut(tn, ty, groups, slots, warm):
+    """``common.cuh:march_launch``: (x-slabs per block, blocks along x)."""
+    by, bz = ty // BRICK, MZ // BRICK
+    cols = -(-tn[2] // bz) * -(-tn[1] // by) * groups
+    best, chunk = None, 1
+    for c in range(1, tn[0] + 1):
+        cost = ((-(-tn[0] // c) * cols + slots - 1) // slots) * (BRICK * c
+                                                                  + warm)
+        if best is None or cost < best:
+            best, chunk = cost, c
+    return chunk, -(-tn[0] // chunk)
+
+
+def _runs(bxa, bxb, live):
+    """A chunk's slabs as ("dead", s, s) and ("run", first, last), a single
+    dead slab between two live ones joining the run."""
+    first = bxa
+    while first < bxb:
+        if not live(first):
+            yield "dead", first, first
+            first += 1
+            continue
+        last = first
+        while last + 1 < bxb and (live(last + 1) or (last + 2 < bxb
+                                                     and live(last + 2))):
+            last += 1
+        yield "run", first, last
+        first = last + 1
+
+
+def _window(f, planes, y0, z0, ty, rim):
+    """Planes of ``f`` over the column (ty x 32) with a ``rim``-cell y/z rim,
+    NaN outside the array (and for planes outside it)."""
+    nx, ny, nz = f.shape
+    w = torch.full((len(planes), ty + 2 * rim, MZ + 2 * rim), float("nan"),
+                   dtype=f.dtype)
+    ya, yb = max(y0 - rim, 0), min(y0 + ty + rim, ny)
+    za, zb = max(z0 - rim, 0), min(z0 + MZ + rim, nz)
+    for n, i in enumerate(planes):
+        if 0 <= i < nx and ya < yb and za < zb:
+            w[n, ya - y0 + rim:yb - y0 + rim, za - z0 + rim:zb - z0 + rim] = \
+                f[i, ya:yb, za:zb]
+    return w
+
+
+class _Tile:
+    """The column a block owns: cell (ty, tz) at array (y0 + ty, z0 + tz)."""
+
+    def __init__(self, q, shape, ty, byl0, bzl0):
+        self.y0 = q["c"][1] + (q["t0"][1] + byl0) * BRICK
+        self.z0 = q["c"][2] + (q["t0"][2] + bzl0) * BRICK
+        j = (self.y0 + torch.arange(ty)).reshape(-1, 1)
+        k = (self.z0 + torch.arange(MZ)).reshape(1, -1)
+        gj, gk = q["o"][1] + j, q["o"][2] + k
+        self.j, self.k, self.gj, self.gk = j, k, gj, gk
+        self.col_in = (j >= 0) & (j < shape[1]) & (k >= 0) & (k < shape[2])
+        self.in_range = ((byl0 + torch.arange(ty) // BRICK < q["tn"][1])
+                         .reshape(-1, 1)
+                         & (bzl0 + torch.arange(MZ) // BRICK < q["tn"][2])
+                         .reshape(1, -1))
+        self.box = ((gj >= q["rms"][2]) & (gj < q["rms"][3])
+                    & (gk >= q["rms"][4]) & (gk < q["rms"][5]))
+        self.bricks = [(byl0 + b // 4, bzl0 + b % 4)
+                       for b in range((ty // BRICK) * 4)
+                       if byl0 + b // 4 < q["tn"][1]
+                       and bzl0 + b % 4 < q["tn"][2]]
+        self.ty, self.byl0, self.bzl0 = ty, byl0, bzl0
+
+    def cells(self, f, i):
+        """Plane i of ``f`` over the column (NaN outside the array)."""
+        return _window(f, [i], self.y0, self.z0, self.ty, 0)[0]
+
+    def put(self, out, i, vals, mask):
+        cur = self.cells(out, i)
+        new = torch.where(mask, vals, cur)
+        ya, za = max(self.y0, 0), max(self.z0, 0)
+        yb = min(self.y0 + self.ty, out.shape[1])
+        zb = min(self.z0 + MZ, out.shape[2])
+        out[i, ya:yb, za:zb] = new[ya - self.y0:yb - self.y0,
+                                   za - self.z0:zb - self.z0]
+
+    def active_map(self, q, active, bxl):
+        """Per cell of the column: its brick (slab bxl) is active."""
+        m = torch.ones(self.ty, MZ, dtype=torch.bool)
+        if active is None:
+            return m
+        for ty in range(self.ty // BRICK):
+            for tz in range(MZ // BRICK):
+                byl, bzl = self.byl0 + ty, self.bzl0 + tz
+                on = (byl < q["tn"][1] and bzl < q["tn"][2]
+                      and bool(active[q["t0"][0] + bxl, q["t0"][1] + byl,
+                                      q["t0"][2] + bzl]))
+                m[ty * BRICK:(ty + 1) * BRICK, tz * BRICK:(tz + 1) * BRICK] = on
+        return m
+
+    def slab_partials(self, dq, parts, q, bxl):
+        """One slab's partials: block_sum's x-tree per column over the BRICK
+        planes dq (float32 changes), then the y- and z-trees per brick."""
+        dd = torch.stack(dq).double() ** 2                  # (8, ty, 32)
+        xt = _tree(dd.permute(1, 2, 0))
+        for byl, bzl in self.bricks:
+            ly, lz = (byl - self.byl0) * BRICK, (bzl - self.bzl0) * BRICK
+            blk = xt[ly:ly + BRICK, lz:lz + BRICK]
+            parts[(bxl * q["tn"][1] + byl) * q["tn"][2] + bzl] = \
+                _tree(blk.reshape(-1))
+
+
+def _march_tiles(q, ty):
+    by = ty // BRICK
+    for byt in range(-(-q["tn"][1] // by)):
+        for bzt in range(-(-q["tn"][2] // 4)):
+            yield byt * by, bzt * 4
+
+
+def k3_march(pad, sc, q, chunk, active=None, copy_inactive=True, out=None,
+             glive=True):
+    """K3's march (``csrc/minmax_step.cu:minmax_march_kernel``) on one
+    geometry: the output (``out`` updated) and the launch's partials."""
+    TY = 16
+    nx, ny, nz = pad.shape
+    out = torch.full_like(pad, float("nan")) if out is None else out.clone()
+    tn = q["tn"]
+    parts = torch.full((tn[0] * tn[1] * tn[2],), float("nan"),
+                       dtype=torch.float64)
+    nchunk = -(-tn[0] // chunk)
+    g = q["g"]
+    for byl0, bzl0 in _march_tiles(q, TY):
+        t = _Tile(q, pad.shape, TY, byl0, bzl0)
+        col = t.col_in & t.in_range
+        col_steps = ((t.gj >= 1) & (t.gj <= g[1] - 2) & (t.gk >= 1)
+                     & (t.gk <= g[2] - 2) & (t.j >= 1) & (t.j <= ny - 2)
+                     & (t.k >= 1) & (t.k <= nz - 2))
+
+        def x0_of(bxl):
+            return q["c"][0] + (q["t0"][0] + bxl) * BRICK
+
+        def live(bxl):
+            x0 = x0_of(bxl)
+            if not glive or x0 + BRICK <= 0 or x0 >= nx:
+                return False
+            return active is None or bool(t.active_map(q, active, bxl).any()
+                                          and any(True for _ in t.bricks))
+
+        for cx in range(nchunk):
+            bxa, bxb = cx * chunk, min(cx * chunk + chunk, tn[0])
+            for kind, first, last in _runs(bxa, bxb, live):
+                if kind == "dead":
+                    x0 = x0_of(first)
+                    if copy_inactive or not glive:
+                        for i in range(max(x0, 0), min(x0 + BRICK, nx)):
+                            t.put(out, i, t.cells(pad, i), col)
+                    for byl, bzl in t.bricks:
+                        parts[(first * tn[1] + byl) * tn[2] + bzl] = 0.0
+                    continue
+                xs, xe = max(x0_of(first), 0), min(x0_of(last + 1), nx)
+                for sl in range(first, last + 1):
+                    act = col & t.active_map(q, active, sl)
+                    dq = []
+                    for m in range(BRICK):
+                        i = x0_of(sl) + m
+                        if not xs <= i < xe:
+                            dq.append(torch.zeros(TY, MZ))
+                            continue
+                        w = _window(pad, [i - 1, i, i + 1], t.y0, t.z0, TY, 1)
+                        gi = q["o"][0] + i
+                        plane = 1 <= gi <= g[0] - 2 and 1 <= i <= nx - 2
+                        gate = torch.zeros(w.shape, dtype=torch.bool)
+                        gate[1, 1:-1, 1:-1] = act & col_steps & plane
+                        c = w[1, 1:-1, 1:-1]
+                        r = mc._dense_step(w, sc, gate)[1, 1:-1, 1:-1]
+                        t.put(out, i, r, col & (act | copy_inactive))
+                        box = col & t.box & (q["rms"][0] <= gi < q["rms"][1])
+                        dq.append(torch.where(box, r - c, torch.zeros_like(c)))
+                    t.slab_partials(dq, parts, q, sl)
+    return out, parts
+
+
+def box_partials(d, q):
+    """``block_sum`` over each brick of the launch box of the float32
+    changes ``d`` (0 where the sum does not count): the partials of a
+    brick-per-block launch, in its order."""
+    tn, c, t0 = q["tn"], q["c"], q["t0"]
+    full = torch.zeros(tuple(n * BRICK for n in tn), dtype=torch.float64)
+    src, dst = [], []
+    for a in range(3):
+        lo = c[a] + t0[a] * BRICK
+        s0, s1 = max(lo, 0), min(lo + tn[a] * BRICK, d.shape[a])
+        src.append(slice(s0, s1))
+        dst.append(slice(s0 - lo, s1 - lo))
+    full[tuple(dst)] = d[tuple(src)].double() ** 2
+    full = full.reshape(tn[0], BRICK, tn[1], BRICK, tn[2], BRICK)
+    return _tree(full.permute(0, 2, 4, 1, 3, 5).reshape(-1, BRICK ** 3))
+
+
+def _geom_sphere(shape, dx, scale=2.0):
+    r = 0.35 * min(shape) * dx
+    return (scale * _sphere(shape, dx, r, (0.05, -0.03, 0.02)),
+            _sphere(shape, dx, 1.1 * r, (0.05, -0.03, 0.02)))
+
+
+MARCH_SHAPES = [(67, 45, 39), (66, 46, 38), (20, 9, 35), (6, 30, 41)]
+MARCH_MODES = ["dense", "banded", "carry", "pack", "block221", "block222"]
+
+
+def _march_cases(mode, shape, dx, kernel):
+    """(pad, sign, geom, tile_range, active, copy_inactive, out) for one
+    geometry of a mode; pack and block give several."""
+    phi, sgn = _geom_sphere(shape, dx, 2.0 if kernel == "k1" else 1.0)
+    if mode in ("dense", "banded", "carry", "pack"):
+        geom = wc.BlockGeom(tuple(shape))
+        act = None
+        if mode in ("banded", "carry"):
+            act = (wc.tile_activity(phi, dx, 3.1, window="band4")
+                   if kernel == "k1" else
+                   wc.tile_activity(phi, dx, 4.1, window="owned"))
+            act.view(-1)[::7] = 0
+        out = None
+        if mode == "carry":
+            # the ping-pong buffer: a frozen brick holds the field's values
+            # (the BC of a face cell may read them), the rest is stale
+            out = torch.where(wc.brick_cells(act, phi.shape), phi + 0.25, phi)
+        return [(phi, sgn, geom, None, act, mode != "carry", out)]
+    mesh = make_mesh((2, 2, 1) if mode == "block221" else (2, 2, 2),
+                     ["cpu"])
+    # blocks at least a brick on the sharded axes (the exchange's widths)
+    gs = tuple(max(-(-n // m), BRICK) * m if m > 1 else n
+               for n, m in zip(shape, mesh.shape))
+    phi, sgn = _geom_sphere(gs, dx, 2.0 if kernel == "k1" else 1.0)
+    if kernel == "k1":
+        w = sh.sharded_widths(mesh, sh.HALO)
+        geoms = sh.reinit_geoms(mesh, gs, w)
+    else:
+        w = sh.sharded_widths(mesh, 1)
+        geoms = sh.minmax_geoms(mesh, gs, w)
+    pads = halo_exchange(split_blocks(mesh, phi), w, mesh)
+    spads = halo_exchange(split_blocks(mesh, sgn), w, mesh)
+    cases = []
+    for n, (p, s, g) in enumerate(zip(pads, spads, geoms)):
+        nb = g.bricks(p.shape)
+        tr = None
+        if kernel == "k1" and n == 1:         # a sub-box of the brick grid
+            tr = ((1, 0, 1), (max(nb[0] - 2, 1), nb[1], max(nb[2] - 1, 1)))
+        act = None
+        if n == 2:
+            act = torch.ones(nb, dtype=torch.int32)
+            act.view(-1)[::3] = 0
+        cases.append((p.contiguous(), s.contiguous(), g, tr, act, True,
+                      p.clone()))
+    return cases
+
+
+@pytest.mark.parametrize("slots", [264, 1])
+@pytest.mark.parametrize("shape", MARCH_SHAPES)
+@pytest.mark.parametrize("mode", MARCH_MODES)
+def test_k3_march_matches_plain_bitwise(mode, shape, slots):
+    """K3's march on every mode against the plain versions (fields) and a
+    brick-per-block launch's block_sum + reduce_partials (sums), bitwise;
+    ``slots`` = 1 walks the whole x extent in one block."""
+    dx = 0.05
+    h1 = 0.3 * dx * dx
+    if mode == "pack":
+        b = 3
+        phis = torch.stack([_geom_sphere(shape, dx, 1.0)[0] * (1 + 0.1 * n)
+                            for n in range(b)])
+        h1s = [h1 * (1 + 0.2 * n) for n in range(b)]
+        live = [1, 0, 1]
+        want, want_dsq = mc.minmax_step_packed_plain(phis, dx, h1s, live,
+                                                     with_rms=True)
+        geom = wc.BlockGeom(tuple(shape))
+        q = _launch_record(geom, shape)
+        chunk, _ = _march_cut(q["tn"], 16, b, slots, 2)
+        for n in range(b):
+            sc = mc.minmax_scalars(torch.float32, dx, h1s[n], 4.1, 0.0)
+            got, parts = k3_march(phis[n], sc, q, chunk, glive=bool(live[n]))
+            assert torch.equal(_bits(got), _bits(want[n]))
+            d = (want[n] - phis[n]) if live[n] else torch.zeros(shape)
+            ref = box_partials(d, q)
+            assert torch.equal(_bits(parts), _bits(ref))
+            assert float(_reduce_partials(parts)) == float(
+                _reduce_partials(ref))
+        return
+    sc = mc.minmax_scalars(torch.float32, dx, h1, 4.1, 0.0)
+    for pad, _, geom, _, act, mint, out in _march_cases(mode, shape, dx,
+                                                        "k3"):
+        q = _launch_record(geom, pad.shape)
+        chunk, _ = _march_cut(q["tn"], 16, 1, slots, 2)
+        got, parts = k3_march(pad, sc, q, chunk, act, mint, out)
+        if mode.startswith("block"):
+            want, dsq = mc.minmax_step_block_plain(pad, dx, h1, geom,
+                                                   active=act,
+                                                   out=out.clone(),
+                                                   with_rms=True)
+            written = wc.brick_cells(torch.ones(geom.bricks(pad.shape),
+                                                dtype=torch.int32),
+                                     pad.shape, geom.brick_origin)
+            d = torch.where(written & wc.box_cells(geom, pad.shape, "cpu"),
+                            want - pad, torch.zeros_like(pad))
+        else:
+            want = mc.minmax_step_plain(pad, dx, h1, active=act,
+                                        out=None if out is None
+                                        else out.clone(), mint=mint)
+            mint_want = mc.minmax_step_plain(pad, dx, h1, active=act)
+            d = mint_want - pad
+        assert torch.equal(_bits(got), _bits(want))
+        ref = box_partials(d, q)
+        assert torch.equal(_bits(parts), _bits(ref))
+        if mode.startswith("block"):
+            assert abs(float(_reduce_partials(parts)) - float(dsq)) <= \
+                1e-12 * float(dsq)
+
+
+def _per_brick(x, tn):
+    """(tn0 * 8, tn1 * 8, tn2 * 8) -> (bricks, 512), each brick's cells in
+    thread-rank order (x slowest, z fastest), bricks in launch order."""
+    x = x.reshape(tn[0], BRICK, tn[1], BRICK, tn[2], BRICK)
+    return x.permute(0, 2, 4, 1, 3, 5).reshape(-1, BRICK ** 3)
+
+
+def k1_bricks(pad, sgn, sc, q, active=None, copy_inactive=True, out=None,
+              glive=True, p5=False):
+    """K1's schedule (``csrc/reinit_step.cu:reinit_brick_kernel``) on one
+    geometry, all bricks of the launch box at once: one thread per cell; a
+    face cell evaluates its clamped inner neighbour, every evaluation reads
+    that cell's stencil (the update where its brick is active, else its
+    value) and is written where the stencil stays in the array; a frozen
+    brick with no face cell and no copy is idle; each brick's squared
+    changes go through the kernel's one-barrier tree.  Returns the output
+    (``out`` updated) and the launch's partials."""
+    nx, ny, nz = pad.shape
+    out = torch.full_like(pad, float("nan")) if out is None else out.clone()
+    tn, g, o, c, t0, nb = q["tn"], q["g"], q["o"], q["c"], q["t0"], q["nb"]
+    # the update of every cell from its own stencil (valid where the
+    # stencil stays in the array: the only cells the kernel evaluates)
+    upd = wc._interior_update(pad, sgn, sc, p5,
+                              deep=global_interior_mask(pad.shape, o, g, 4))
+    act = torch.ones(nb, dtype=torch.bool) if active is None else \
+        active.bool()
+    idx = [(c[a] + t0[a] * BRICK + torch.arange(tn[a] * BRICK))
+           .reshape([-1 if b == a else 1 for b in range(3)])
+           .expand(*(n * BRICK for n in tn)) for a in range(3)]
+    n_ = (nx, ny, nz)
+    gl = [o[a] + idx[a] for a in range(3)]
+    in_grid = torch.ones(idx[0].shape, dtype=torch.bool)
+    for a in range(3):
+        in_grid &= ((idx[a] >= 0) & (idx[a] < n_[a]) & (gl[a] >= 0)
+                    & (gl[a] < g[a]))
+    live = act[t0[0]:t0[0] + tn[0], t0[1]:t0[1] + tn[1],
+               t0[2]:t0[2] + tn[2]]
+    for a in range(3):
+        live = live.repeat_interleave(BRICK, dim=a)
+    gs = [torch.clamp(gl[a], 1, g[a] - 2) for a in range(3)]
+    face = (gs[0] != gl[0]) | (gs[1] != gl[1]) | (gs[2] != gl[2])
+    sv = [gs[a] - o[a] for a in range(3)]
+    deep = torch.ones(idx[0].shape, dtype=torch.bool)
+    for a in range(3):
+        deep &= (gs[a] >= 4) & (gs[a] <= g[a] - 5)
+    r = torch.where(deep, 3, 1)
+    valid = torch.ones(idx[0].shape, dtype=torch.bool)
+    for a in range(3):
+        valid &= (sv[a] >= r) & (sv[a] + r < n_[a])
+    cl = [idx[a].clamp(0, n_[a] - 1) for a in range(3)]
+    scl = [sv[a].clamp(0, n_[a] - 1) for a in range(3)]
+    # the evaluated cell's brick: the kernel's truncating index
+    nba = [torch.div(scl[a] - c[a], BRICK, rounding_mode="trunc")
+           .clamp(0, nb[a] - 1) for a in range(3)]
+    on = act[nba[0], nba[1], nba[2]]
+    phi_c = pad[cl[0], cl[1], cl[2]]
+    v = torch.where(on, upd[scl[0], scl[1], scl[2]],
+                    pad[scl[0], scl[1], scl[2]])
+    res = torch.where(face, v + sc["dx"], v)
+    # a brick is idle when frozen, not copying and without an in-grid face
+    busy = _per_brick(in_grid & face, tn).any(dim=1)
+    idle_b = ~_per_brick(live, tn)[:, 0] & ~busy if not copy_inactive \
+        else torch.zeros_like(busy)
+    idle = idle_b.reshape(tn).repeat_interleave(BRICK, 0) \
+        .repeat_interleave(BRICK, 1).repeat_interleave(BRICK, 2)
+    if not glive:
+        wr, vals, d = in_grid, phi_c, torch.zeros(idx[0].shape)
+    else:
+        ev = in_grid & (face | live) & ~idle
+        wr_ev = ev & valid
+        wr_cp = in_grid & ~(face | live) & copy_inactive
+        wr = wr_ev | wr_cp
+        vals = torch.where(wr_ev, res, phi_c)
+        box = torch.ones(idx[0].shape, dtype=torch.bool)
+        for a in range(3):
+            box &= (gl[a] >= q["rms"][2 * a]) & (gl[a] < q["rms"][2 * a + 1])
+        d = torch.where(wr_ev & box, res - phi_c, torch.zeros_like(res))
+    out[cl[0][wr], cl[1][wr], cl[2][wr]] = vals[wr]
+    # the kernel's tree: x (rank + 256, + 128, + 64) and the first y step
+    # (+ 32) in shared memory, then one warp's shuffles (+ 16, .., + 1)
+    dd = _per_brick(d, tn).double() ** 2
+    x = (((dd[:, 0:64] + dd[:, 256:320]) + (dd[:, 128:192] + dd[:, 384:448]))
+         + ((dd[:, 64:128] + dd[:, 320:384])
+            + (dd[:, 192:256] + dd[:, 448:512])))
+    return out, _tree(x[:, :32] + x[:, 32:])
+
+
+@pytest.mark.parametrize("shape", MARCH_SHAPES)
+@pytest.mark.parametrize("mode", MARCH_MODES)
+def test_k1_bricks_match_plain_bitwise(mode, shape):
+    """K1's brick schedule on every mode against the plain versions
+    (fields) and block_sum over each brick + reduce_partials (sums),
+    bitwise."""
+    dx = 0.05
+    h = 0.1 * dx
+    if mode == "pack":
+        b = 3
+        phis, sgns = zip(*[_geom_sphere(shape, dx * (1 + 0.1 * n))
+                           for n in range(b)])
+        phis, sgns = torch.stack(phis), torch.stack(sgns)
+        hs = [h * (1 + 0.2 * n) for n in range(b)]
+        live = [1, 0, 1]
+        want = wc.reinit_step_packed_plain(phis, sgns, dx, hs, live)
+        q = _launch_record(wc.BlockGeom(tuple(shape)), shape)
+        for n in range(b):
+            sc = wc.step_scalars(torch.float32, dx, hs[n])
+            got, parts = k1_bricks(phis[n], sgns[n], sc, q,
+                                   glive=bool(live[n]))
+            assert torch.equal(_bits(got), _bits(want[n]))
+            d = want[n] - phis[n] if live[n] else torch.zeros(shape)
+            assert torch.equal(_bits(parts), _bits(box_partials(d, q)))
+        return
+    sc = wc.step_scalars(torch.float32, dx, h)
+    for pad, sgn, geom, tr, act, mint, out in _march_cases(mode, shape, dx,
+                                                           "k1"):
+        q = _launch_record(geom, pad.shape, tr)
+        got, parts = k1_bricks(pad, sgn, sc, q, act, mint, out)
+        if mode.startswith("block"):
+            want, dsq = wc.reinit_step_block_plain(
+                pad, sgn, dx, h, geom, active=act, tile_range=tr,
+                out=out.clone(), with_rms=True)
+            written = wc._range_cells(geom, pad.shape, tr, "cpu")
+            d = torch.where(written & wc.box_cells(geom, pad.shape, "cpu"),
+                            want - pad, torch.zeros_like(pad))
+        else:
+            want = wc.reinit_step_plain(pad, sgn, dx, h, active=act,
+                                        out=None if out is None
+                                        else out.clone(), mint=mint)
+            mint_want = wc.reinit_step_plain(pad, sgn, dx, h, active=act)
+            d = mint_want - pad
+            if act is not None:     # a frozen brick's interior copies
+                frozen = ~wc.brick_cells(act, pad.shape) & \
+                    interior_mask(pad.shape, 1)
+                d = torch.where(frozen, torch.zeros_like(d), d)
+        assert torch.equal(_bits(got), _bits(want))
+        ref = box_partials(d, q)
+        assert torch.equal(_bits(parts), _bits(ref))
+        assert float(_reduce_partials(parts)) == float(_reduce_partials(ref))
+        if mode.startswith("block"):
+            assert abs(float(_reduce_partials(parts)) - float(dsq)) <= \
+                1e-12 * float(dsq)
