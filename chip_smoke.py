@@ -14,8 +14,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      timed beside them (dense and banded; at 222^3 and, after run A, on
      run A's own field and band mask at 262x42x42); the
      adjoint kernels K5 (with a sign source unlike phi) and K6 (on a field
-     after a K1 step) against their plain versions and against a second
-     launch, bitwise; median times from CUDA events; the pack modes of K1
+     after a K1 step) against their plain versions (K6 bitwise, also with
+     a solve's buffers) and against a second launch, bitwise; median times
+     from CUDA events; the pack modes of K1
      and K3 at (8, 64^3) and at run E's (8, 129^3), one geometry frozen,
      against a second launch, each geometry's solo launch and their plain
      versions, bitwise, and one packed launch timed against 8 solo ones,
@@ -57,8 +58,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      2d): block mode on the bench sphere of ``bench.py:328-363`` (256^3)
      cut (2,2,1) and on (66, 46, 38) cut (2,2,2), every shard against its
      plain version and a second launch, the gathered owned cotangents
-     against the solo kernel, bitwise; banded mode on the bench sphere with
-     a real mask, against its plain version and (K6) the dense kernel;
+     against the solo kernel, bitwise (K6's against its plain version
+     too); banded mode on the bench sphere with a real mask, against its
+     plain version and (K6, bitwise) the dense kernel;
   8. run G (phase 4b), run D with a (2,2,1) shard mesh on one card: the
      sharded init, ``reinit_fixed_sharded`` and ``minmax_fixed_sharded``
      (the block modes of K1/K3/K5/K6), against run D in the same call;
@@ -89,9 +91,12 @@ MAIN_SHAPE = SHAPES[1]
 #: Adjoint kernels against their plain versions, relative to max |cot|:
 #: K5's 21-term stencil gather and ghost-BC gather follow the plain
 #: version's order, but its cot_sign cancels (ROADMAP H10), so a reordered
-#: sum shows at ~1e-6; K6 evaluates the same expressions in the same order.
-#: Scalars: float64 sums of the same per-cell terms, other order.
-ADJ_TOL = {"K5": 1e-5, "K6": 1e-6, "scalars": 1e-5}
+#: sum shows at ~1e-6.  K6 evaluates the same expressions in the same order
+#: and its field cotangent is held bitwise (no tolerance).  Scalars: float64
+#: sums of the same per-cell terms, other order.
+ADJ_TOL = {"K5": 1e-5, "scalars": 1e-5}
+#: Enqueued calls per host-time measurement.
+HOST_CALLS = 100
 #: Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 #: float32 operations/s outside the tensor cores (an FMA counted as two).
 HBM_BYTES_PER_S = 3.35e12
@@ -165,22 +170,81 @@ def median_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_ms(fn, calls=10):
+def device_ms(fn, calls=10, traces=3):
     """Device time per call of ``fn``: every CUDA kernel it launches, summed
-    under ``torch.profiler``, over ``calls`` calls."""
+    under ``torch.profiler`` over ``calls`` calls; the median of ``traces``
+    such traces, since the profiler now and then drops some or all of a
+    trace's device activity (a time below the bound, or 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        total += getattr(e, "cuda_time_total", 0.0) if t is None else t
-    return total / calls / 1e3
+    totals = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            total += getattr(e, "cuda_time_total", 0.0) if t is None else t
+        totals.append(total)
+    return float(np.median(totals)) / calls / 1e3
+
+
+def host_ms(fn, calls=HOST_CALLS):
+    """Host time per call: ``calls`` calls enqueued with no synchronize
+    between them, the host clock over the count."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def bitwise(a, b):
+    """Two float tensors hold the same bits."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.contiguous().view(it), b.contiguous().view(it))
+
+
+def k6_bufs_holds(what, call, make, ref):
+    """K6 with a solve's buffers: ``call(bufs)`` launches it, ``make()``
+    makes new ones, ``ref`` is a launch without them.  Two launches give
+    ``ref``'s field bitwise, return None for the scalars and add them into
+    the buffers' running sums as a caller adds each step's: (0 + s) + s.
+    Returns the buffers."""
+    bufs = make()
+    a, b = call(bufs), call(bufs)
+    check(a[1] is None and a[2] is None and bitwise(a[0], ref[0])
+          and bitwise(b[0], ref[0]),
+          f"K6 {what}: the field with a solve's buffers differs")
+    want = [(0.0 + float(v)) + float(v) for v in ref[1:]]
+    got = [float(v) for v in bufs.sums]
+    check(got == want, f"K6 {what}: running sums {got!r}, want {want!r}")
+    return bufs
+
+
+def k6_host_times(rec, call, bufs):
+    """Host time per call of a K6 entry without and with a solve's buffers,
+    and the events' time with them."""
+    rec["host_ms"] = host_ms(lambda: call(None))
+    rec["bufs_host_ms"] = host_ms(lambda: call(bufs))
+    rec["bufs_ms"] = median_ms(lambda: call(bufs), 20)
+
+
+def k6_times_text(rec):
+    return (f"device {rec['device_ms']:.4f} ms, host {rec['host_ms']:.4f} "
+            f"ms per call ({rec['bufs_host_ms']:.4f} with a solve's "
+            f"buffers, events then {rec['bufs_ms']:.4f} ms)")
 
 
 def twice_equal(fn):
@@ -384,9 +448,11 @@ def kernel_phase(record):
         rec = record[name]
         banded = (f" (banded {rec['banded_ms']:.4f} ms)"
                   if "banded_ms" in rec else "")
-        if "device_ms" in rec:
+        if "banded_device_ms" in rec:
             banded += (f", device {rec['device_ms']:.4f} ms (banded "
                        f"{rec['banded_device_ms']:.4f} ms)")
+        elif "host_ms" in rec:
+            banded += ", " + k6_times_text(rec)
         phase("kernels", f"{name} at {MAIN_SHAPE}: kernel {rec['ms']:.4f} ms"
               f"{banded}, plain {rec['plain_ms']:.4f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); card {CARD}")
@@ -394,8 +460,9 @@ def kernel_phase(record):
 
 def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
     """K5 at (phi, sign source sgn) and K6 at mm_phi against their plain
-    versions (relative to max |cot|) and against a second launch of
-    themselves (bitwise), with a standard-normal cotangent."""
+    versions (K5 relative to max |cot|, K6's field bitwise) and against a
+    second launch of themselves (bitwise), with a standard-normal
+    cotangent; K6 also with a solve's buffers."""
     import torch
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
@@ -408,7 +475,7 @@ def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
          lambda: wc.reinit_step_vjp(phi, sgn, g, dx, h),
          lambda: wc.reinit_step_vjp_plain(phi, sgn, g, dx, h), 3,
          bound(20 * cells, OPS["reinit_vjp"] * cells)),
-        ("minmax_step_vjp", "K6", ADJ_TOL["K6"],
+        ("minmax_step_vjp", "K6", None,
          lambda: mc.minmax_step_vjp(mm_phi, g, dx, h1),
          lambda: mc.minmax_step_vjp_plain(mm_phi, g, dx, h1), 10,
          bound(12 * cells, OPS["minmax_vjp_band"] * band_cells(mm_phi, dx)
@@ -423,18 +490,32 @@ def adjoint_checks(record, phi, sgn, mm_phi, dx, h, h1, main, label=""):
         srel = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
                    for a, b in zip(k[nf:], p[nf:]))
         e = max(err(a, b) for a, b in zip(k[:nf], p[:nf]))
-        check(max(rels) <= tol and srel <= ADJ_TOL["scalars"],
-              f"{kid} {phi.shape}: rel errors {rels}, scalars {srel:.3g}")
+        exact = all(bitwise(a, b) for a, b in zip(k[:nf], p[:nf]))
+        check((exact if tol is None else max(rels) <= tol)
+              and srel <= ADJ_TOL["scalars"],
+              f"{kid} {phi.shape}: rel errors {rels}, bitwise {exact}, "
+              f"scalars {srel:.3g}")
         rec = record[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        gate = "bitwise" if tol is None else f"tol {tol:g} of max|cot|"
+        if kid == "K6":
+            bufs = k6_bufs_holds(f"{tuple(phi.shape)}", lambda b: (
+                mc.minmax_step_vjp(mm_phi, g, dx, h1, bufs=b)), lambda: (
+                mc.VjpBuffers(mm_phi, dx, h1)), k)
+            gate += ("; with a solve's buffers the same field and the sums "
+                     "added up on the device")
         if main:
             rec["ms"] = median_ms(kern, 20)
             rec["plain_ms"] = median_ms(plain, reps)
             rec.update(bnd)
+            if kid == "K6":
+                rec["device_ms"] = device_ms(kern)
+                k6_host_times(rec, lambda b: mc.minmax_step_vjp(
+                    mm_phi, g, dx, h1, bufs=b), bufs)
         phase("kernels", f"{kid} {tuple(phi.shape)}{label}: field "
               f"cotangents rel "
-              f"err {', '.join(f'{r:.3g}' for r in rels)} (tol {tol:g} of "
-              f"max|cot|), max_abs_err {e:.3g}, scalars rel {srel:.3g} (tol "
+              f"err {', '.join(f'{r:.3g}' for r in rels)} ({gate}), "
+              f"max_abs_err {e:.3g}, scalars rel {srel:.3g} (tol "
               f"{ADJ_TOL['scalars']:g}), two launches bitwise equal")
 
 
@@ -1265,11 +1346,11 @@ def rel_errs(k, p, nf):
 def block_adjoint_holds(kid, mesh, shape, fields, width, geoms, kern, plain,
                         solo, tol):
     """One block-mode adjoint on every shard: against a second launch
-    (bitwise) and its plain version (relative to max|cot|, and its
-    max_abs_err), the gathered owned cotangents against the solo kernel on
-    the whole grid (bitwise) and the shards' scalar sums, added in shard
-    order, against the solo ones.  Returns (max_abs_err, scalar rel vs
-    solo, pads)."""
+    (bitwise) and its plain version (relative to max|cot|, or bitwise when
+    ``tol`` is None, and its max_abs_err), the gathered owned cotangents
+    against the solo kernel on the whole grid (bitwise) and the shards'
+    scalar sums, added in shard order, against the solo ones.  Returns
+    (max_abs_err, scalar rel vs solo, pads)."""
     import torch
     from levelsetfortran_tpu_torch.parallel.halo import halo_exchange
     from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
@@ -1282,9 +1363,11 @@ def block_adjoint_holds(kid, mesh, shape, fields, width, geoms, kern, plain,
         check(all(torch.equal(a, b) for a, b in zip(k, k2)),
               f"{kid} block {shape}: two launches differ")
         rels, srel = rel_errs(k, p, nf)
-        check(max(rels) <= tol and srel <= ADJ_TOL["scalars"],
-              f"{kid} block {shape}: rel errors {rels}, scalars {srel:.3g} "
-              f"against the plain version")
+        exact = all(bitwise(a, b) for a, b in zip(k[:nf], p[:nf]))
+        check((exact if tol is None else max(rels) <= tol)
+              and srel <= ADJ_TOL["scalars"],
+              f"{kid} block {shape}: rel errors {rels}, bitwise {exact}, "
+              f"scalars {srel:.3g} against the plain version")
         e = max(e, *(err(a, b) for a, b in zip(k[:nf], p[:nf])))
         outs.append(k)
     for i in range(nf):
@@ -1336,12 +1419,13 @@ def adjoint_mode_phase(record):
             lambda a, b, c, ge: wc.reinit_step_block_vjp_plain(
                 a, b, c, dx, h, ge),
             wc.reinit_step_vjp(phi, sgn, g, dx, h), ADJ_TOL["K5"])
+        solo_bufs = mc.VjpBuffers(mphi, dx, h1)
         e6, s6, p6 = block_adjoint_holds(
             "K6", mesh, shape, (mphi, g), w6, g6,
             lambda a, c, ge: mc.minmax_step_block_vjp(a, c, dx, h1, ge),
             lambda a, c, ge: mc.minmax_step_block_vjp_plain(a, c, dx, h1,
                                                             ge),
-            mc.minmax_step_vjp(mphi, g, dx, h1), ADJ_TOL["K6"])
+            mc.minmax_step_vjp(mphi, g, dx, h1), None)
         record["reinit_step_block_vjp"]["max_abs_err"] = max(
             record["reinit_step_block_vjp"]["max_abs_err"], e5)
         record["minmax_step_block_vjp"]["max_abs_err"] = max(
@@ -1349,7 +1433,7 @@ def adjoint_mode_phase(record):
         phase("kernels", f"K5 block / K6 block {shape} on {mshape}, padded "
               f"blocks {tuple(p5[0][0].shape)} / {tuple(p6[0][0].shape)}: "
               f"max_abs_err vs plain {e5:.3g} / {e6:.3g} (tol "
-              f"{ADJ_TOL['K5']:g} / {ADJ_TOL['K6']:g} of max|cot|), two "
+              f"{ADJ_TOL['K5']:g} of max|cot| / bitwise), two "
               f"launches bitwise equal, gathered owned cotangents bitwise "
               f"equal to the solo kernel's, shard sums rel {s5:.3g} / "
               f"{s6:.3g} (tol 1e-9)")
@@ -1383,6 +1467,20 @@ def adjoint_mode_phase(record):
                 20)
             rec["solo_ms"] = median_ms(lambda: mc.minmax_step_vjp(
                 mphi, g, dx, h1), 20)
+            rec["device_ms"] = device_ms(lambda: mc.minmax_step_block_vjp(
+                *a6[:2], dx, h1, a6[2]))
+            bb = [k6_bufs_holds(f"block {i}", lambda b, x=x: (
+                mc.minmax_step_block_vjp(*x[:2], dx, h1, x[2], bufs=b)),
+                lambda x=x: mc.VjpBuffers(x[0], dx, h1, geom=x[2]),
+                mc.minmax_step_block_vjp(*x[:2], dx, h1, x[2]))
+                for i, x in enumerate(b6)]
+            k6_host_times(rec, lambda b: mc.minmax_step_block_vjp(
+                *a6[:2], dx, h1, a6[2], bufs=b), bb[0])
+            rec["all_blocks_bufs_ms"] = median_ms(lambda: [
+                mc.minmax_step_block_vjp(*x[:2], dx, h1, x[2], bufs=b)
+                for x, b in zip(b6, bb)], 20)
+            rec["solo_bufs_ms"] = median_ms(lambda: mc.minmax_step_vjp(
+                mphi, g, dx, h1, bufs=solo_bufs), 20)
             own = owned_near(g6[0], 0)
             owned_block = p6[0][0][tuple(
                 slice(w, w + n) for w, n in zip(w6, mesh.block_shape(shape)))]
@@ -1391,34 +1489,43 @@ def adjoint_mode_phase(record):
                              OPS["minmax_vjp_band"] * band_cells_owned(
                                  owned_block, g6[0], dx)
                              + OPS["minmax_vjp"] * own))
-            del scratch, a5, b5, a6, b6
+            del scratch, a5, b5, a6, b6, bb
             banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1)
         del p5, p6, phi, sgn, mphi, g
         torch.cuda.empty_cache()
     for name in ("reinit_step_block_vjp", "minmax_step_block_vjp"):
         rec = record[name]
+        k6 = ""
+        if "host_ms" in rec:
+            k6 = (f"; {k6_times_text(rec)}; with the buffers the 4 blocks "
+                  f"{rec['all_blocks_bufs_ms']:.4f} ms vs one solo launch "
+                  f"{rec['solo_bufs_ms']:.4f} ms")
         phase("kernels", f"{name}, one padded block {tuple(rec['shape'])} "
               f"of {(BENCH_N,) * 3} on (2, 2, 1): kernel {rec['ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
               f"ms ({rec['bound_by']}; {rec['cells'][0]} cells evaluated, "
               f"{rec['cells'][1]} owned); the 4 blocks "
               f"{rec['all_blocks_ms']:.4f} ms vs one solo launch on the "
-              f"whole grid {rec['solo_ms']:.4f} ms; card {CARD}")
+              f"whole grid {rec['solo_ms']:.4f} ms{k6}; card {CARD}")
     for name in ("reinit_step_vjp_banded", "minmax_step_vjp_banded"):
         rec = record[name]
+        k6 = ""
+        if "host_ms" in rec:
+            k6 = (f"; {k6_times_text(rec)}, dense device "
+                  f"{rec['dense_device_ms']:.4f} ms")
         phase("kernels", f"{name} at {(BENCH_N,) * 3}: kernel "
               f"{rec['ms']:.4f} ms (dense {rec['dense_ms']:.4f} ms), plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}; {rec['active_cells']} cells in active "
-              f"bricks); card {CARD}")
+              f"bricks){k6}; card {CARD}")
 
 
 def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
     """The banded K5 and K6 at the bench's setting (``bench.py:328-363``):
     K5 with the band4 mask of a chunk of 5 steps (band radius 8.1, margin
     5 h / dx), K6 with the band4 mask of its own input; each against its
-    plain version and a second launch, K6 also against the dense kernel,
-    bitwise (fields and sums)."""
+    plain version (K6 bitwise) and a second launch, K6 also against the
+    dense kernel, bitwise (fields and sums), and with a solve's buffers."""
     import torch
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
@@ -1436,7 +1543,7 @@ def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
              lambda: mc.minmax_step_vjp_banded(mphi, g, dx, h1, act6),
              lambda: mc.minmax_step_vjp(mphi, g, dx, h1),
              lambda: mc.minmax_step_vjp_plain(mphi, g, dx, h1, active=act6),
-             1, ADJ_TOL["K6"])):
+             1, None)):
         frozen = int(act.numel() - act.sum())
         check(0 < frozen < act.numel(), f"{kid} banded: the mask skips "
               f"nothing or everything ({frozen}/{act.numel()})")
@@ -1445,15 +1552,27 @@ def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
               f"{kid} banded: two launches differ")
         rels, srel = rel_errs(k, p, nf)
         e = max(err(a, b) for a, b in zip(k[:nf], p[:nf]))
-        check(max(rels) <= tol and srel <= ADJ_TOL["scalars"],
-              f"{kid} banded: rel errors {rels}, scalars {srel:.3g}")
+        exact = all(bitwise(a, b) for a, b in zip(k[:nf], p[:nf]))
+        check((exact if tol is None else max(rels) <= tol)
+              and srel <= ADJ_TOL["scalars"],
+              f"{kid} banded: rel errors {rels}, bitwise {exact}, scalars "
+              f"{srel:.3g}")
         same = ""
-        if kid == "K6":
-            check(all(torch.equal(a, b) for a, b in zip(k, dense())),
-                  "K6 banded differs from the dense kernel")
-            same = ", bitwise equal to the dense kernel (field and sums)"
-        live = int(wc.brick_cells(act, phi.shape).sum())
         rec = record[name]
+        if kid == "K6":
+            check(all(bitwise(a, b) for a, b in zip(k, dense())),
+                  "K6 banded differs from the dense kernel")
+            same = (", bitwise equal to the plain version and the dense "
+                    "kernel (field and sums), the same with a solve's "
+                    "buffers")
+            bufs = k6_bufs_holds("banded", lambda b: (
+                mc.minmax_step_vjp_banded(mphi, g, dx, h1, act6, bufs=b)),
+                lambda: mc.VjpBuffers(mphi, dx, h1), k)
+            rec["device_ms"] = device_ms(kern)
+            rec["dense_device_ms"] = device_ms(dense)
+            k6_host_times(rec, lambda b: mc.minmax_step_vjp_banded(
+                mphi, g, dx, h1, act6, bufs=b), bufs)
+        live = int(wc.brick_cells(act, phi.shape).sum())
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
         rec["ms"] = median_ms(kern, 20)
         rec["dense_ms"] = median_ms(dense, 20)
@@ -1468,8 +1587,9 @@ def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
                              + OPS["minmax_vjp"] * live))
         phase("kernels", f"{kid} banded {tuple(phi.shape)}: {frozen}/"
               f"{act.numel()} bricks frozen; rel errors "
-              f"{', '.join(f'{r:.3g}' for r in rels)} (tol {tol:g} of "
-              f"max|cot|), max_abs_err {e:.3g}, scalars rel {srel:.3g}, two "
+              f"{', '.join(f'{r:.3g}' for r in rels)} ("
+              f"{'bitwise' if tol is None else f'tol {tol:g} of max|cot|'}"
+              f"), max_abs_err {e:.3g}, scalars rel {srel:.3g}, two "
               f"launches bitwise equal{same}")
 
 
@@ -1482,13 +1602,7 @@ def run_g_phase(ball, card, run_d):
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import reverse
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
-    from levelsetfortran_tpu_torch.parallel import sharded as sh
-    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
-                                                         make_mesh,
-                                                         split_blocks)
-    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
-        minmax_flow_fixed
-    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
 
     grid = run_d["grid"]
     mesh = make_mesh((2, 2, 1), ["cuda"])
@@ -1540,12 +1654,26 @@ def run_g_phase(ball, card, run_d):
           f"the sharded init builds its culling per block inside it); card "
           f"{card}")
 
-    # the solvers alone on run D's own init: solo and sharded, bitwise
-    dx = grid.dx
-    phi0 = run_d["phi0"]
+    sharded_solvers_holds(mesh, run_d["phi0"], grid.dx,
+                          (kw["reinit_steps"], kw["minmax_steps"]),
+                          "run D's init", card)
+    return launches
+
+
+def sharded_solvers_holds(mesh, phi0, dx, steps, what, card):
+    """The two sharded solvers alone (``steps`` reinit and min/max steps,
+    forward and backward for a normal cotangent) on ``mesh``, bitwise
+    against the solo solvers on ``phi0``'s card."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         split_blocks)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
+        minmax_flow_fixed
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+
     wgt = torch.tensor(np.random.default_rng(11).standard_normal(
-        grid.shape), dtype=torch.float32, device="cuda")
-    steps = (kw["reinit_steps"], kw["minmax_steps"])
+        tuple(phi0.shape)), dtype=torch.float32, device=phi0.device)
 
     def solo_solve():
         x = phi0.clone().requires_grad_(True)
@@ -1558,24 +1686,27 @@ def run_g_phase(ball, card, run_d):
         xs = [b.requires_grad_(True) for b in split_blocks(mesh, phi0)]
         p1 = sh.reinit_fixed_sharded(mesh, xs, dx, 0.1 * dx, steps[0])
         p2 = sh.minmax_fixed_sharded(mesh, p1, dx, 0.01 * dx * dx, steps[1])
-        torch.sum(wgt * gather_blocks(mesh, p2)).backward()
-        return (gather_blocks(mesh, [p.detach() for p in p1]),
-                gather_blocks(mesh, [p.detach() for p in p2]),
-                gather_blocks(mesh, [x.grad for x in xs]))
+        w = wgt.to(mesh.devices[0])
+        torch.sum(w * gather_blocks(mesh, p2)).backward()
+        return tuple(gather_blocks(mesh, b, device=phi0.device) for b in (
+            [p.detach() for p in p1], [p.detach() for p in p2],
+            [x.grad for x in xs]))
 
     ref, t_solo = sync_time(solo_solve)
     got, t_sh = sync_time(sharded_solve)
-    for i, what in enumerate(("reinit output", "min/max output",
+    for i, name in enumerate(("reinit output", "min/max output",
                               "gradient")):
         check(torch.equal(got[i], ref[i]),
-              f"run G solvers: sharded {what} differs from the solo "
+              f"run G solvers: sharded {name} differs from the solo "
               f"solvers' ({err(got[i], ref[i]):.3g})")
-    phase("run G", f"the sharded solvers alone on run D's init ({steps[0]} "
-          f"reinit + {steps[1]} min/max steps, a normal cotangent): reinit "
-          f"and min/max outputs and the gradient bitwise equal to the solo "
-          f"reinit_fixed / minmax_flow_fixed; forward+backward wall "
-          f"{t_sh:.3f} s vs solo {t_solo:.3f} s; card {card}")
-    return launches
+    cards = sorted({str(d) for d in mesh.devices})
+    phase("run G", f"the sharded solvers alone on {what} "
+          f"{tuple(phi0.shape)} ({steps[0]} reinit + {steps[1]} min/max "
+          f"steps, a normal cotangent), mesh {mesh.shape} on {cards}: "
+          f"reinit and min/max outputs and the gradient bitwise equal to "
+          f"the solo reinit_fixed / minmax_flow_fixed on {phi0.device}; "
+          f"forward+backward wall {t_sh:.3f} s vs solo {t_solo:.3f} s; card "
+          f"{card}")
 
 
 def banded_solves_phase(card):

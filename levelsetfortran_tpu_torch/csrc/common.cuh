@@ -1,21 +1,24 @@
-// Shared pieces of the stencil kernels: the brick geometry, K3's march
-// layout and the deterministic two-pass reduction of the fused
-// convergence sum.
+// Shared pieces of the stencil kernels: the brick geometry, the march
+// layout of K3 and K6 and the deterministic two-pass reduction of the
+// fused sums.
 //
 // The kernels work on BRICK^3 bricks of the unpadded (nx, ny, nz) grid (z
-// fastest): one thread block per brick, one thread per cell (K1, K5, K6),
-// or a column of bricks walked along x (K3, K4).  The narrow-band activity
+// fastest): one thread block per brick, one thread per cell (K1, K5), or a
+// column of bricks walked along x (K3, K4, K6).  The narrow-band activity
 // mask is one int32 per brick, laid out (nbx, nby, nbz).  A packed batch of
 // B geometries multiplies the launch grid's x-brick axis by B.
 //
 // The sum of squared cell changes decides when a solve stops, so it must
-// not change from run to run: each brick's partial sum (a fixed tree in
-// block_sum's pairing) goes to its own slot, and the slots are added in a
-// fixed order — by one more launch (reduce_partials), or by the launch's
-// last block to finish (march_finish).  No floating-point atomics.
+// not change from run to run, nor may the adjoints' scalar sums: each
+// brick's partial sum (a fixed tree in block_sum's pairing) goes to its own
+// slot, and the slots are added in a fixed order — by one more launch
+// (reduce_partials), or by the launch's last block to finish (march_last,
+// ordered_sums).  No floating-point atomics.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace lsf {
 
@@ -118,9 +121,9 @@ inline dim3 brick_grid(int nx, int ny, int nz) {
 }
 
 // ---------------------------------------------------------------------
-// The streaming schedule of K3 (the march).  A block owns a column of TY x
-// MARCH_TZ cells (TY / BRICK x MARCH_TZ / BRICK bricks, one warp per
-// 32-cell z row: 128-byte rows) and a chunk of x-slabs of the launch's
+// The streaming schedule of K3 and K6 (the march).  A block owns a column
+// of TY x MARCH_TZ cells (TY / BRICK x MARCH_TZ / BRICK bricks, one warp
+// per 32-cell z row: 128-byte rows) and a chunk of x-slabs of the launch's
 // brick box, and walks x one plane at a time, reading its planes from a
 // shared ring with a y/z rim.  All in the BlockGeom frame: a solo grid is
 // the whole-grid record (solo_geom), a packed batch B solo records.
@@ -133,16 +136,35 @@ struct MarchLaunch {
   int chunk, nchunk;
 };
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above the 48 KB
+// default) on the current device.  The attribute is held per device, so
+// `done` (one per kernel) keeps a bit for each device already set; a
+// device past the 64th is set at every launch.
+inline cudaError_t allow_dynamic_smem(const void* kernel, size_t smem,
+                                      std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0ull && (done.load(std::memory_order_acquire) & bit) != 0ull)
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
 // Blocks of the card that can be resident at once for `kernel` (the
-// occupancy query cached per kernel: a launch pays for it once).
+// occupancy query cached per kernel and device: a launch pays for it once).
 inline long long march_slots(const void* kernel, int threads, size_t smem) {
   static const void* keys[16];
+  static int devs[16];
   static long long vals[16];
   static int used = 0;
-  for (int n = 0; n < used; ++n)
-    if (keys[n] == kernel) return vals[n];
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
+  for (int n = 0; n < used; ++n)
+    if (keys[n] == kernel && devs[n] == dev) return vals[n];
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                 smem);
@@ -150,6 +172,7 @@ inline long long march_slots(const void* kernel, int threads, size_t smem) {
                               ? per_sm * (long long)sms : 1;
   if (used < 16) {
     keys[used] = kernel;
+    devs[used] = dev;
     vals[used++] = slots;
   }
   return slots;
@@ -183,41 +206,63 @@ inline dim3 march_grid(const MarchLaunch& L, int ty, int groups) {
               groups * L.nchunk);
 }
 
-// One slab's per-brick partials of the fused sum, in block_sum's tree: the
-// x-tree over each thread's BRICK changes dq (x-planes i with i+4, i+2,
-// i+1), then per brick the y-tree through shared memory and the z-tree
-// through shuffles, so each partial is a brick-per-block launch's bitwise.
-// dq: the squared change of each x-plane of the brick (0 for a cell the sum
-// does not count); bxl: the slab in the launch box; (byl0, bzl0): the
-// block's first brick.  Every thread of the block calls it.
-template <int TY>
-__device__ __forceinline__ void march_partials(const float (&dq)[BRICK],
-                                               double* red, double* part,
-                                               int bxl, const MarchLaunch& L,
-                                               int byl0, int bzl0) {
+// block_sum's x-tree over one thread's BRICK values of a brick column
+// (x-planes i with i+4, i+2, i+1).
+__device__ __forceinline__ double x_tree(const double (&d)[BRICK]) {
+  return ((d[0] + d[4]) + (d[2] + d[6])) + ((d[1] + d[5]) + (d[3] + d[7]));
+}
+
+// One slab's per-brick partials of NS sums, in block_sum's tree: each
+// thread's x-tree sums xt[s] (x_tree of the value of each x-plane of the
+// brick, 0 for a cell the sum does not count), then per brick the y-tree
+// through shared memory and the z-tree through shuffles (one group of
+// warps per sum), so each partial is a brick-per-block launch's bitwise.
+// part[s]: sum s's partials; bxl: the slab in the launch box; (byl0, bzl0):
+// the block's first brick.  Every thread of the block calls it; red (NS x
+// TY x MARCH_TZ doubles) must be free: the caller has passed a
+// __syncthreads since its last readers.
+template <int TY, int NS>
+__device__ __forceinline__ void march_brick_partials(
+    const double (&xt)[NS], double* red, double* const (&part)[NS],
+    int bxl, const MarchLaunch& L, int byl0, int bzl0) {
   constexpr int BZ = MARCH_TZ / BRICK, NB = (TY / BRICK) * BZ;
+  constexpr int NT = TY * MARCH_TZ;
   const int tid = threadIdx.x;
-  double dd[BRICK];
 #pragma unroll
-  for (int m = 0; m < BRICK; ++m) dd[m] = (double)dq[m] * (double)dq[m];
-  __syncthreads();                    // red's last readers are done
-  red[tid] = ((dd[0] + dd[4]) + (dd[2] + dd[6]))
-             + ((dd[1] + dd[5]) + (dd[3] + dd[7]));
+  for (int s = 0; s < NS; ++s) red[s * NT + tid] = xt[s];
   __syncthreads();
-  if (tid < NB * BRICK) {             // whole warps
-    const int b = tid / BRICK, zi = tid % BRICK;
+  if (tid < NS * NB * BRICK) {        // whole warps
+    const int s = tid / (NB * BRICK), r = tid % (NB * BRICK);
+    const int b = r / BRICK, zi = r % BRICK;
     const int ly = (b / BZ) * BRICK, lz = (b % BZ) * BRICK + zi;
     double u[BRICK];
 #pragma unroll
-    for (int yi = 0; yi < BRICK; ++yi) u[yi] = red[(ly + yi) * MARCH_TZ + lz];
+    for (int yi = 0; yi < BRICK; ++yi)
+      u[yi] = red[s * NT + (ly + yi) * MARCH_TZ + lz];
     double a = ((u[0] + u[4]) + (u[2] + u[6])) + ((u[1] + u[5]) + (u[3] + u[7]));
     a += __shfl_down_sync(0xffffffffu, a, 4);
     a += __shfl_down_sync(0xffffffffu, a, 2);
     a += __shfl_down_sync(0xffffffffu, a, 1);
     const int byl = byl0 + b / BZ, bzl = bzl0 + b % BZ;
     if (zi == 0 && byl < L.tn[1] && bzl < L.tn[2])
-      part[((long long)bxl * L.tn[1] + byl) * L.tn[2] + bzl] = a;
+      part[s][((long long)bxl * L.tn[1] + byl) * L.tn[2] + bzl] = a;
   }
+}
+
+// The fused sum's partials of one slab: dq, the squared change of each
+// x-plane of the brick (0 for a cell the sum does not count).
+template <int TY>
+__device__ __forceinline__ void march_partials(const float (&dq)[BRICK],
+                                               double* red, double* part,
+                                               int bxl, const MarchLaunch& L,
+                                               int byl0, int bzl0) {
+  double dd[BRICK];
+#pragma unroll
+  for (int m = 0; m < BRICK; ++m) dd[m] = (double)dq[m] * (double)dq[m];
+  const double xt[1] = {x_tree(dd)};
+  double* const parts[1] = {part};
+  __syncthreads();                    // red's last readers are done
+  march_brick_partials<TY, 1>(xt, red, parts, bxl, L, byl0, bzl0);
 }
 
 // A slab whose bricks all write a zero partial (frozen, or outside the
@@ -236,8 +281,8 @@ __device__ __forceinline__ void march_zero_partials(double* part, int bxl,
 }
 
 // 0.0 + part[t] + part[t + 1024] + ... (below n), added in that order, the
-// loads issued eight at a time; L2: through the L2 cache (partials that
-// other blocks of the same launch wrote).
+// loads issued eight at a time (the last fewer than eight too); L2: through
+// the L2 cache (partials that other blocks of the same launch wrote).
 template <bool L2>
 __device__ __forceinline__ double strided_sum(const double* part, long long t,
                                               long long n) {
@@ -251,36 +296,66 @@ __device__ __forceinline__ double strided_sum(const double* part, long long t,
 #pragma unroll
     for (int m = 0; m < 8; ++m) acc += v[m];
   }
-  for (; q < n; q += 1024) acc += L2 ? __ldcg(part + q) : part[q];
+  double v[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+    v[m] = q + m * 1024 >= n ? 0.0
+           : L2 ? __ldcg(part + q + m * 1024) : part[q + m * 1024];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+    if (q + m * 1024 < n) acc += v[m];
   return acc;
 }
 
-// The fused sum's second pass folded into the launch: each block of a
-// group takes an integer ticket after its partials are fenced; the group's
-// last block adds the group's n partials in reduce_partials's order (1024
-// running sums, the q-th from q in steps of 1024, then the same tree) and
-// returns the ticket counter to 0 for the next launch.  No float atomics:
-// the sum has the bits of a reduce_partials launch.  Every thread of the
-// block calls it; red: 1024 doubles of shared memory.
-__device__ __forceinline__ void march_finish(const double* part, long long n,
-                                             double* out, unsigned* ticket,
-                                             unsigned blocks, double* red) {
+// The second pass of a sum folded into the launch: each block of a group
+// takes an integer ticket after its partials are fenced (march_last), and
+// the group's last block adds each run of n partials in reduce_partials's
+// order (ordered_sums: 1024 running sums, the q-th from q in steps of 1024,
+// then the same tree), then returns the ticket counter to 0 for the next
+// launch.  No float atomics: each sum has the bits of a reduce_partials
+// launch.  Every thread of the block calls them; red: 1024 doubles of
+// shared memory.
+__device__ __forceinline__ bool march_last(unsigned* ticket,
+                                           unsigned blocks) {
   __shared__ bool last;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == blocks - 1;
   __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (last) __threadfence();
+  return last;
+}
+
+// NS sums side by side, the s-th of the n partials at part + s n, in every
+// thread (the last block only); red: NS x 1024 doubles.
+template <int NS>
+__device__ __forceinline__ void ordered_sums(const double* part, long long n,
+                                             double* red, double (&out)[NS]) {
+  __syncthreads();                    // red's last readers are done
   for (int t = threadIdx.x; t < 1024; t += blockDim.x)
-    red[t] = strided_sum<true>(part, t, n);
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      red[s * 1024 + t] = strided_sum<true>(part + s * n, t, n);
   __syncthreads();
   for (int w = 512; w > 0; w >>= 1) {
-    for (int t = threadIdx.x; t < w; t += blockDim.x) red[t] += red[t + w];
+    for (int t = threadIdx.x; t < w; t += blockDim.x)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) red[s * 1024 + t] += red[s * 1024 + t + w];
     __syncthreads();
   }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) out[s] = red[s * 1024];
+}
+
+// K3's fused sum into *out.
+__device__ __forceinline__ void march_finish(const double* part, long long n,
+                                             double* out, unsigned* ticket,
+                                             unsigned blocks, double* red) {
+  if (!march_last(ticket, blocks)) return;
+  double s[1];
+  ordered_sums<1>(part, n, red, s);
   if (threadIdx.x == 0) {
-    *out = red[0];
+    *out = s[0];
     *ticket = 0u;
   }
 }

@@ -546,9 +546,9 @@ int launch_fusedk(const float* in, float* o, const MinmaxParams& p,
                   const int* act, int copy_inactive, double* part,
                   cudaStream_t st) {
   constexpr size_t smem = fk_smem<K>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      minmax_fusedk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t attr = lsf::allow_dynamic_smem(
+      (const void*)minmax_fusedk_kernel<K>, smem, smem_set);
   if (attr != cudaSuccess) return (int)attr;
   // x-slabs per block: the count that minimises waves x steps a block
   // walks (8 per slab and 3K more for a run's ends), the waves counted over

@@ -35,6 +35,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 #: C entry points and their argument types (pointers and the stream as
 #: ``c_void_p``; every entry returns ``cudaGetLastError()``).
@@ -78,13 +79,14 @@ SIGNATURES = {
     "lsf_reinit_bwd_block_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _F,
                                  _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     # phi, g, cot_phi, nx, ny, nz, h1, inv_dx2, band_dx, threshold, active,
-    # partials, sums, stream
+    # partials, sums, ticket, accumulate, scale (-2/dx), stream
     "lsf_minmax_bwd_f32": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
-                           _P, _P],
+                           _P, _P, _I, _D, _P],
     # phi, g, cot_phi, padded nx, ny, nz, block geometry (host ints), h1,
-    # inv_dx2, band_dx, threshold, partials, sums, stream
+    # inv_dx2, band_dx, threshold, partials, sums, ticket, accumulate,
+    # scale, stream
     "lsf_minmax_bwd_block_f32": [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
-                                 _P, _P, _P],
+                                 _P, _P, _P, _I, _D, _P],
 }
 
 

@@ -20,11 +20,13 @@ argument: one shard's block with a halo of one neighbour cell, the face rule
 and the fused sum's box in global coordinates.
 
 K6 (``csrc/minmax_bwd.cu``) replaces ``minmax_pallas.py:minmax_bwd_padded``:
-the gather-form adjoint, one thread per cell recomputing its six
-neighbours' Laplacian cotangents; its banded mode
+the gather-form adjoint on K3's march, each cell's Laplacian cotangent
+evaluated once and gathered by its six neighbours, the two float64 sums
+finished in the same launch; its banded mode
 (:func:`minmax_step_vjp_banded`) passes frozen bricks through, its block
 mode (:func:`minmax_step_block_vjp`) gathers one shard's owned cells from a
-2-cell halo.  :func:`minmax_scan` is the differentiable fixed-step scan,
+2-cell halo.  A backward solve passes :class:`VjpBuffers`, which also add
+the scalar cotangents up on the device.  :func:`minmax_scan` is the differentiable fixed-step scan,
 dense or banded (bitwise the same values and gradients).
 
 The wrappers run the plain version only for a CPU tensor; for a CUDA tensor
@@ -47,6 +49,7 @@ from .. import cuda_build
 from . import reverse
 from .stencil import global_interior_mask, interior_mask, shift
 from .weno_cuda import (VJP_HALO, BlockGeom, SolveBuffers, _sum_args,
+                        _tickets,
                         box_cells, brick_cells, brick_grid,
                         check_adjoint_geom, check_block, check_cuda,
                         check_inputs, check_packed, chunk_lengths,
@@ -270,13 +273,14 @@ def minmax_step_packed(phi, dx, h1, live, band_radius=4.1, threshold=0.0, *,
 minmax_step_packed.launches = 0
 
 
-def _vjp_plain(phi, g, sc, origin, gshape, live, owned):
+def _vjp_cells(phi, g, sc, origin, gshape, live, owned):
     """The gather-form VJP of one step on an array whose cell 0 lies at
     global ``origin`` of a ``gshape`` grid (the face rule in global
     coordinates); ``live``: the cells of active bricks, which gather (None:
     all; the others pass ``g`` through), ``owned``: the cells the sums
-    count.  Array-shaped ``cot_phi``, right where the neighbours lie in the
-    array."""
+    count.  Returns the array-shaped ``cot_phi`` (right where the
+    neighbours lie in the array) and the per-cell terms of the two sums,
+    ``cot_lap * lap`` and ``F g`` (0 where not counted)."""
     sum6 = (shift(phi, 0, -1) + shift(phi, 0, 1) + shift(phi, 1, -1)
             + shift(phi, 1, 1) + shift(phi, 2, 1) + shift(phi, 2, -1))
     lap = (sum6 - 6.0 * phi) * sc["inv_dx2"]
@@ -300,10 +304,15 @@ def _vjp_plain(phi, g, sc, origin, gshape, live, owned):
         counted = counted & live
     if owned is not None:
         counted = counted & owned
-    cot_dx = (-2.0 / sc["dx"]) * torch.where(counted, cot_lap * lap,
-                                             zero).double().sum()
-    cot_h1 = torch.where(counted, f * g, zero).double().sum()
-    return cot_phi, cot_dx, cot_h1
+    return (cot_phi, torch.where(counted, cot_lap * lap, zero),
+            torch.where(counted, f * g, zero))
+
+
+def _vjp_plain(phi, g, sc, origin, gshape, live, owned):
+    """:func:`_vjp_cells` with the sums: ``(cot_phi, cot_dx, cot_h1)``."""
+    cot_phi, tdx, th = _vjp_cells(phi, g, sc, origin, gshape, live, owned)
+    return (cot_phi, (-2.0 / sc["dx"]) * tdx.double().sum(),
+            th.double().sum())
 
 
 def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0, *,
@@ -320,50 +329,117 @@ def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0, *,
     return _vjp_plain(phi, g, sc, (0, 0, 0), tuple(phi.shape), live, None)
 
 
+class VjpBuffers:
+    """What K6's wrappers resolve once per backward solve and reuse in each
+    of its launches, as K3's :class:`..weno_cuda.SolveBuffers`: the scalars
+    rounded once, the block record (``geom``), the brick grid and the owned
+    box, the device and its current stream, the float64 partials and the
+    ticket counter; and ``sums``, the solve's running ``(cot_dx, cot_h1)``
+    (float64, zero at first): each launch adds its two scalar cotangents
+    into them on the device, as a caller adds each step's to its total
+    (``total + step``, in launch order).  For a CPU tensor only ``sums``
+    (the plain versions add into it).  ``running=False``: one launch's own
+    sums, written, not added (a call without buffers)."""
+
+    def __init__(self, phi, dx, h1, band_radius=4.1, threshold=0.0, *,
+                 geom: Optional[BlockGeom] = None, name="minmax_step_vjp",
+                 running=True):
+        self.args = (dx, h1, band_radius, threshold)
+        self.geom, self.shape, self.device = geom, tuple(phi.shape), \
+            phi.device
+        if geom is None:
+            self.nb, self.owned = brick_grid(phi.shape), self.shape
+        else:
+            check_adjoint_geom(name, phi.shape, geom, VJP_HALO["minmax"], 0)
+            self.nb = geom.bricks(phi.shape)
+            self.owned = tuple(s.stop - s.start for s in owned_slices(geom))
+        self.sc = sc = minmax_scalars(phi.dtype, dx, h1, band_radius,
+                                      threshold)
+        make = torch.zeros if running else torch.empty
+        self.sums = make(2, dtype=torch.float64, device=phi.device)
+        if phi.device.type != "cuda":
+            return
+        self.scal = (sc["h1"], sc["inv_dx2"], sc["band_dx"], sc["threshold"])
+        self.scale = -2.0 / sc["dx"]
+        self.ints = None if geom is None else geom.ints(self.shape)
+        self.stream = torch.cuda.current_stream(phi.device).cuda_stream
+        self.partials = torch.empty(2 * self.nb[0] * self.nb[1] * self.nb[2],
+                                    dtype=torch.float64, device=phi.device)
+        self.tickets = _tickets(phi.device, self.stream, 1)
+
+    def check(self, name, phi, args, geom):
+        """Raise unless this launch is the one the buffers were made for."""
+        if (self.shape != tuple(phi.shape) or self.device != phi.device
+                or self.args != args
+                or (self.geom is not geom and self.geom != geom)):
+            raise ValueError(f"{name}: the buffers are for another grid, "
+                             f"device, geometry or scalars")
+
+
+def _with_bufs(name, phi, args, geom, bufs, plain):
+    """A plain VJP's result (``plain()``), its sums added into ``bufs``
+    when given."""
+    if bufs is None:
+        return plain()
+    bufs.check(name, phi, args, geom)
+    res = plain()
+    bufs.sums += torch.stack(res[1:])
+    return res[0], None, None
+
+
 def _minmax_vjp_cuda(name, phi, g, dx, h1, band_radius, threshold, geom,
-                     active):
+                     active, bufs):
     """Launch K6 on a solo grid (``geom`` None) or on one shard's padded
-    block; ``cot_phi`` has the owned box's shape."""
-    nb = brick_grid(phi.shape) if geom is None else geom.bricks(phi.shape)
-    check_inputs(name, phi, (g,), active, nb)
-    if geom is not None:
-        check_adjoint_geom(name, phi.shape, geom, VJP_HALO["minmax"], 0)
-    owned = phi.shape if geom is None else tuple(
-        s.stop - s.start for s in owned_slices(geom))
-    cot_phi = torch.empty(owned, dtype=phi.dtype, device=phi.device)
-    sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
-    partials = torch.empty(2 * nb[0] * nb[1] * nb[2], dtype=torch.float64,
-                           device=phi.device)
-    sums = torch.empty(2, dtype=torch.float64, device=phi.device)
-    scal = (sc["h1"], sc["inv_dx2"], sc["band_dx"], sc["threshold"])
-    with torch.cuda.device(phi.device):
+    block; ``cot_phi`` has the owned box's shape.  With ``bufs`` the scalar
+    cotangents go into ``bufs.sums`` and None takes their place."""
+    args = (dx, h1, band_radius, threshold)
+    if bufs is None:
+        nb = brick_grid(phi.shape) if geom is None else geom.bricks(phi.shape)
+        check_inputs(name, phi, (g,), active, nb)
+        b = VjpBuffers(phi, *args, geom=geom, name=name, running=False)
+    else:
+        bufs.check(name, phi, args, geom)
+        check_inputs(name, phi, (g,), active, bufs.nb)
+        b = bufs
+    cot_phi = torch.empty(b.owned, dtype=phi.dtype, device=phi.device)
+    with on_device(phi.device):
         if geom is None:
             cuda_build.launch(
                 "lsf_minmax_bwd_f32", phi.data_ptr(), g.data_ptr(),
-                cot_phi.data_ptr(), *phi.shape, *scal, ptr(active),
-                partials.data_ptr(), sums.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                cot_phi.data_ptr(), *b.shape, *b.scal, ptr(active),
+                b.partials.data_ptr(), b.sums.data_ptr(),
+                b.tickets.data_ptr(), int(bufs is not None), b.scale,
+                b.stream)
         else:
             cuda_build.launch(
                 "lsf_minmax_bwd_block_f32", phi.data_ptr(), g.data_ptr(),
-                cot_phi.data_ptr(), *phi.shape, geom.ints(tuple(phi.shape)),
-                *scal, partials.data_ptr(), sums.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-    return cot_phi, (-2.0 / sc["dx"]) * sums[0], sums[1]
+                cot_phi.data_ptr(), *b.shape, b.ints, *b.scal,
+                b.partials.data_ptr(), b.sums.data_ptr(),
+                b.tickets.data_ptr(), int(bufs is not None), b.scale,
+                b.stream)
+    if bufs is not None:
+        return cot_phi, None, None
+    return cot_phi, b.sums[0], b.sums[1]
 
 
-def minmax_step_vjp(phi, g, dx, h1, band_radius=4.1, threshold=0.0):
+def minmax_step_vjp(phi, g, dx, h1, band_radius=4.1, threshold=0.0, *,
+                    bufs: Optional[VjpBuffers] = None):
     """VJP of the dense :func:`minmax_step` at ``(phi, dx, h1)`` for the
     output cotangent ``g`` (kernel K6, ``csrc/minmax_bwd.cu``).
 
     Returns ``(cot_phi, cot_dx, cot_h1)``, the scalars as float64 0-d
     tensors; ``band_radius`` and ``threshold`` enter through comparisons
     only, so their cotangents are exactly zero (``minmax_pallas.py:1116``)
-    and are not returned."""
+    and are not returned.  ``bufs`` (:class:`VjpBuffers` of ``phi`` and the
+    same scalars): a backward solve's reused state; the scalar cotangents
+    are then added into ``bufs.sums`` and returned as None."""
     if phi.device.type == "cpu":
-        return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold)
+        return _with_bufs(
+            "minmax_step_vjp", phi, (dx, h1, band_radius, threshold), None,
+            bufs, lambda: minmax_step_vjp_plain(phi, g, dx, h1, band_radius,
+                                                threshold))
     res = _minmax_vjp_cuda("minmax_step_vjp", phi, g, dx, h1, band_radius,
-                           threshold, None, None)
+                           threshold, None, None, bufs)
     minmax_step_vjp.launches += 1
     return res
 
@@ -372,17 +448,21 @@ minmax_step_vjp.launches = 0
 
 
 def minmax_step_vjp_banded(phi, g, dx, h1, active, band_radius=4.1,
-                           threshold=0.0):
+                           threshold=0.0, *,
+                           bufs: Optional[VjpBuffers] = None):
     """K6's banded mode (the TPU kernel's ``active``): bricks with
     ``active == 0`` pass ``g`` through.  With the ``band4`` mask of the
     chunk-start iterate of a banded min/max solve it equals
     :func:`minmax_step_vjp` bitwise (no cell within 4 of a frozen brick
-    updates in the chunk).  Returns what :func:`minmax_step_vjp` returns."""
+    updates in the chunk).  Returns what :func:`minmax_step_vjp` returns;
+    ``bufs`` as there."""
     if phi.device.type == "cpu":
-        return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold,
-                                     active=active)
+        return _with_bufs(
+            "minmax_step_vjp_banded", phi, (dx, h1, band_radius, threshold),
+            None, bufs, lambda: minmax_step_vjp_plain(
+                phi, g, dx, h1, band_radius, threshold, active=active))
     res = _minmax_vjp_cuda("minmax_step_vjp_banded", phi, g, dx, h1,
-                           band_radius, threshold, None, active)
+                           band_radius, threshold, None, active, bufs)
     minmax_step_vjp_banded.launches += 1
     return res
 
@@ -405,18 +485,23 @@ def minmax_step_block_vjp_plain(pad, g_pad, dx, h1, geom: BlockGeom,
 
 
 def minmax_step_block_vjp(pad, g_pad, dx, h1, geom: BlockGeom,
-                          band_radius=4.1, threshold=0.0):
+                          band_radius=4.1, threshold=0.0, *,
+                          bufs: Optional[VjpBuffers] = None):
     """VJP of one block-mode min/max step at one shard's padded block (K6's
     block mode, the TPU kernel's ``offsets``), in gather form: ``pad`` and
     the exchanged upstream cotangent ``g_pad`` hold the owned box and
     ``VJP_HALO["minmax"]`` cells around it, ``geom`` places the array and
     lays the brick grid over the owned box.  Returns ``(cot_phi, cot_dx,
-    cot_h1)`` for the owned cells, each cell bitwise the solo kernel's."""
+    cot_h1)`` for the owned cells, each cell bitwise the solo kernel's;
+    ``bufs`` (:class:`VjpBuffers` of ``pad`` with ``geom``) as in
+    :func:`minmax_step_vjp`."""
     if pad.device.type == "cpu":
-        return minmax_step_block_vjp_plain(pad, g_pad, dx, h1, geom,
-                                           band_radius, threshold)
+        return _with_bufs(
+            "minmax_step_block_vjp", pad, (dx, h1, band_radius, threshold),
+            geom, bufs, lambda: minmax_step_block_vjp_plain(
+                pad, g_pad, dx, h1, geom, band_radius, threshold))
     res = _minmax_vjp_cuda("minmax_step_block_vjp", pad, g_pad, dx, h1,
-                           band_radius, threshold, geom, None)
+                           band_radius, threshold, geom, None, bufs)
     minmax_step_block_vjp.launches += 1
     return res
 
@@ -455,7 +540,8 @@ class _MinmaxScanBanded(torch.autograd.Function):
     def backward(ctx, g):
         args = ctx.args
         zero = torch.zeros((), dtype=torch.float64, device=g.device)
-        gp, cdx, ch = g.contiguous(), zero, zero
+        gp = g.contiguous()
+        bufs = VjpBuffers(gp, *args)
         for p, n in zip(reversed(ctx.starts), reversed(ctx.chunks)):
             act_f = tile_activity(p, args[0], args[2], window="owned")
             act_b = tile_activity(p, args[0], args[2], window="band4")
@@ -463,10 +549,9 @@ class _MinmaxScanBanded(torch.autograd.Function):
             for _ in range(n - 1):
                 traj.append(minmax_step(traj[-1], *args, active=act_f))
             for p_in in reversed(traj):
-                gp, cdxi, chi = minmax_step_vjp_banded(p_in, gp, args[0],
-                                                       args[1], act_b,
-                                                       *args[2:])
-                cdx, ch = cdx + cdxi, ch + chi
+                gp = minmax_step_vjp_banded(p_in, gp, args[0], args[1],
+                                            act_b, *args[2:], bufs=bufs)[0]
+        cdx, ch = bufs.sums[0], bufs.sums[1]
         ctx.starts = None
         # band_radius and threshold enter through comparisons only
         return (gp, reverse.scalar_cotangent(ctx.meta[0], cdx),

@@ -747,23 +747,26 @@ class _MinmaxFixedSharded(torch.autograd.Function):
         wb = sharded_widths(mesh, weno_cuda.VJP_HALO["minmax"])
         geoms = minmax_geoms(mesh, gshape, wb)
 
-        def bstep(carry, p_in):
-            gp, cdx, ch = carry
-            out = [[], [], []]
-            for i, (pad, gpad, g) in enumerate(zip(
-                    halo_exchange(p_in, wb, mesh),
-                    halo_exchange(gp, wb, mesh), geoms)):
-                cp, cdxi, chi = minmax_cuda.minmax_step_block_vjp(
-                    pad, gpad, args[0], args[1], g, *args[2:])
-                for acc, v in zip(out, (cp, cdx[i] + cdxi, ch[i] + chi)):
-                    acc.append(v)
-            return tuple(out)
+        bufs = []                     # per shard, made at the first step
+
+        def bstep(gp, p_in):
+            pads = halo_exchange(p_in, wb, mesh)
+            if not bufs:
+                bufs.extend(minmax_cuda.VjpBuffers(
+                    pad, *args, geom=g, name="minmax_step_block_vjp")
+                    for pad, g in zip(pads, geoms))
+            return [minmax_cuda.minmax_step_block_vjp(
+                pad, gpad, args[0], args[1], g, *args[2:], bufs=b)[0]
+                for pad, gpad, g, b in zip(
+                    pads, halo_exchange(gp, wb, mesh), geoms, bufs)]
 
         zeros = [torch.zeros((), dtype=torch.float64, device=b.device)
                  for b in blocks]
-        gp, cdx, ch = reverse.run_reverse(
+        gp = reverse.run_reverse(
             "minmax_fixed_sharded", ctx.fstep, bstep, list(blocks),
-            ([g.contiguous() for g in gs], zeros, zeros), steps, ctx.traj)
+            [g.contiguous() for g in gs], steps, ctx.traj)
+        cdx = [b.sums[0] for b in bufs] or zeros
+        ch = [b.sums[1] for b in bufs] or zeros
         ctx.traj = None
         zero = zeros[0]
         # band_radius and threshold enter through comparisons only

@@ -136,15 +136,15 @@ class _MinmaxFixed(torch.autograd.Function):
         def fstep(p):
             return minmax_cuda.minmax_step(p, *args)
 
-        def bstep(carry, p_in):
-            gp, cdx, ch = carry
-            cp, cdxi, chi = minmax_cuda.minmax_step_vjp(p_in, gp, *args)
-            return cp, cdx + cdxi, ch + chi
+        bufs = minmax_cuda.VjpBuffers(phi0, *args)
+
+        def bstep(gp, p_in):
+            return minmax_cuda.minmax_step_vjp(p_in, gp, *args, bufs=bufs)[0]
 
         zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
-        carry = (g.contiguous(), zero, zero)
-        gp, cdx, ch = reverse.run_reverse(
-            "minmax_flow_fixed", fstep, bstep, phi0, carry, steps, ctx.traj)
+        gp = reverse.run_reverse("minmax_flow_fixed", fstep, bstep, phi0,
+                                 g.contiguous(), steps, ctx.traj)
+        cdx, ch = bufs.sums[0], bufs.sums[1]
         ctx.traj = None
         # band_radius and threshold enter through comparisons only
         return (gp, reverse.scalar_cotangent(ctx.meta[0], cdx),

@@ -1,8 +1,9 @@
 """CPU models of the schedules of the kernels redesigned for the H100,
 written in torch from the plain helpers and held bitwise against the plain
 versions, so that their index arithmetic is checked before the card runs
-them (the CUDA kernels themselves run only on the card).  (c) and (d), the
-min/max step's march and the reinit step's bricks, are at the end.
+them (the CUDA kernels themselves run only on the card).  (c), (d) and
+(e), the min/max step's march, the reinit step's bricks and the min/max
+adjoint's march, are at the end.
 
 (a) K5 (``csrc/reinit_bwd.cu``) in two stages: pass 1 runs the forward
     once per cell and stops at the one per-cell input of the per-axis
@@ -536,10 +537,13 @@ class _Tile:
                 m[ty * BRICK:(ty + 1) * BRICK, tz * BRICK:(tz + 1) * BRICK] = on
         return m
 
-    def slab_partials(self, dq, parts, q, bxl):
+    def slab_partials(self, dq, parts, q, bxl, square=True):
         """One slab's partials: block_sum's x-tree per column over the BRICK
-        planes dq (float32 changes), then the y- and z-trees per brick."""
-        dd = torch.stack(dq).double() ** 2                  # (8, ty, 32)
+        planes dq (float32 changes, squared; or the values themselves),
+        then the y- and z-trees per brick."""
+        dd = torch.stack(dq).double()                       # (8, ty, 32)
+        if square:
+            dd = dd ** 2
         xt = _tree(dd.permute(1, 2, 0))
         for byl, bzl in self.bricks:
             ly, lz = (byl - self.byl0) * BRICK, (bzl - self.bzl0) * BRICK
@@ -618,10 +622,10 @@ def k3_march(pad, sc, q, chunk, active=None, copy_inactive=True, out=None,
     return out, parts
 
 
-def box_partials(d, q):
+def box_partials(d, q, square=True):
     """``block_sum`` over each brick of the launch box of the float32
-    changes ``d`` (0 where the sum does not count): the partials of a
-    brick-per-block launch, in its order."""
+    changes ``d`` (0 where the sum does not count), squared (or the values
+    themselves): the partials of a brick-per-block launch, in its order."""
     tn, c, t0 = q["tn"], q["c"], q["t0"]
     full = torch.zeros(tuple(n * BRICK for n in tn), dtype=torch.float64)
     src, dst = [], []
@@ -630,7 +634,7 @@ def box_partials(d, q):
         s0, s1 = max(lo, 0), min(lo + tn[a] * BRICK, d.shape[a])
         src.append(slice(s0, s1))
         dst.append(slice(s0 - lo, s1 - lo))
-    full[tuple(dst)] = d[tuple(src)].double() ** 2
+    full[tuple(dst)] = d[tuple(src)].double() ** (2 if square else 1)
     full = full.reshape(tn[0], BRICK, tn[1], BRICK, tn[2], BRICK)
     return _tree(full.permute(0, 2, 4, 1, 3, 5).reshape(-1, BRICK ** 3))
 
@@ -893,3 +897,202 @@ def test_k1_bricks_match_plain_bitwise(mode, shape):
         if mode.startswith("block"):
             assert abs(float(_reduce_partials(parts)) - float(dsq)) <= \
                 1e-12 * float(dsq)
+
+
+# ------------------------- (e) K6's march ----------------------------------
+# ``csrc/minmax_bwd.cu:minmax_bwd_march_kernel``: K3's column tiles and x
+# chunks split into runs of live slabs; each step evaluates cot_lap once per
+# cell of the next plane over the column and a 1-cell y/z rim (phi read with
+# a 2-cell rim), keeps cs = cot_lap / dx^2 of two planes (the y/z
+# neighbours) and the column's own of the planes around (x), and gathers
+# the current plane in the order x+, x-, y+, y-, z-, z+ into the owned box;
+# a frozen slab run passes g through.  Both sums take block_sum's trees per
+# brick and reduce_partials's order.
+
+def _k6_frame(w, gw, ev, sc):
+    """cot_lap, lap and cot_h1 over one plane's 1-rim frame: ``w`` the phi
+    planes p - 1 .. p + 1 with a 2-cell rim, ``gw`` plane p of g with a
+    1-cell rim, ``ev`` the cells that evaluate."""
+    c = w[1, 1:-1, 1:-1]
+    sum6 = ((((w[0, 1:-1, 1:-1] + w[2, 1:-1, 1:-1]) + w[1, :-2, 1:-1])
+             + w[1, 2:, 1:-1]) + w[1, 1:-1, 2:]) + w[1, 1:-1, :-2]
+    lap = (sum6 - 6.0 * c) * sc["inv_dx2"]
+    sel = (sum6 + c) * (1.0 / 7.0) < sc["threshold"]
+    f = torch.where(sel, torch.clamp_max(lap, 0.0),
+                    torch.clamp_min(lap, 0.0))
+    zero = torch.zeros_like(c)
+    tie = torch.where(lap == 0.0, 0.5 + zero, zero)
+    dlap = torch.where(sel, torch.where(lap < 0.0, 1.0 + zero, tie),
+                       torch.where(lap > 0.0, 1.0 + zero, tie))
+    gate = ev & (torch.abs(c) < sc["band_dx"])
+    g = gw[0]
+    return (torch.where(gate, (sc["h1"] * g) * dlap, zero),
+            torch.where(gate, lap, zero), torch.where(gate, f * g, zero))
+
+
+def k6_march(pad, g, sc, q, chunk, active=None):
+    """K6's march on one array: ``cot_phi`` of the owned box (q's rms box)
+    and the launch's two partial vectors (cot_lap * lap, F g)."""
+    TY = 16
+    nx, ny, nz = pad.shape
+    gs, o, box, tn = q["g"], q["o"], q["rms"], q["tn"]
+    out = torch.full((box[1] - box[0], box[3] - box[2], box[5] - box[4]),
+                     float("nan"), dtype=pad.dtype)
+    nbr = tn[0] * tn[1] * tn[2]
+    pdx = torch.full((nbr,), float("nan"), dtype=torch.float64)
+    ph = torch.full((nbr,), float("nan"), dtype=torch.float64)
+    inv = sc["inv_dx2"]
+    for byl0, bzl0 in _march_tiles(q, TY):
+        t = _Tile(q, pad.shape, TY, byl0, bzl0)
+        col_w = t.col_in & t.in_range & t.box
+        fj = (t.y0 - 1 + torch.arange(TY + 2)).reshape(-1, 1)
+        fk = (t.z0 - 1 + torch.arange(MZ + 2)).reshape(1, -1)
+        yz_ev = ((o[1] + fj >= 1) & (o[1] + fj <= gs[1] - 2)
+                 & (o[2] + fk >= 1) & (o[2] + fk <= gs[2] - 2)
+                 & (fj >= 1) & (fj <= ny - 2) & (fk >= 1) & (fk <= nz - 2))
+        rj = (t.gj - box[2]).expand(TY, MZ)
+        rk = (t.gk - box[4]).expand(TY, MZ)
+
+        def x0_of(bxl):
+            return q["c"][0] + (q["t0"][0] + bxl) * BRICK
+
+        def live(bxl):
+            x0 = x0_of(bxl)
+            if x0 + BRICK <= 0 or x0 >= nx:
+                return False
+            return active is None or bool(t.active_map(q, active, bxl).any()
+                                          and any(True for _ in t.bricks))
+
+        def write(i, vals):
+            """Plane i's cells into the owned box; the mask of cells it
+            wrote (none when the plane lies outside the box)."""
+            if not box[0] <= o[0] + i < box[1]:
+                return torch.zeros_like(col_w)
+            out[o[0] + i - box[0], rj[col_w], rk[col_w]] = vals[col_w]
+            return col_w
+
+        def evaluate(p):
+            w = _window(pad, [p - 1, p, p + 1], t.y0, t.z0, TY, 2)
+            gw = _window(g, [p], t.y0, t.z0, TY, 1)
+            x_ok = 1 <= o[0] + p <= gs[0] - 2 and 1 <= p <= nx - 2
+            cl, lap, ch = _k6_frame(w, gw, yz_ev & x_ok, sc)
+            return cl * inv, cl, lap, ch, gw[0]
+
+        def brick_slots(bxl):
+            return [(bxl * tn[1] + byl) * tn[2] + bzl for byl, bzl in t.bricks]
+
+        for cx in range(-(-tn[0] // chunk)):
+            bxa, bxb = cx * chunk, min(cx * chunk + chunk, tn[0])
+            for kind, first, last in _runs(bxa, bxb, live):
+                if kind == "dead":
+                    x0 = x0_of(first)
+                    for i in range(max(x0, 0), min(x0 + BRICK, nx)):
+                        write(i, t.cells(g, i) + 0.0)
+                    for n in brick_slots(first):
+                        pdx[n] = ph[n] = 0.0
+                    continue
+                xs, xe = max(x0_of(first), 0), min(x0_of(last + 1), nx)
+                own = (slice(1, -1), slice(1, -1))
+                csm = evaluate(xs - 1)[0][own]
+                cur = evaluate(xs)
+                ring = {xs & 1: cur[0]}         # cs planes: y/z neighbours
+                for sl in range(first, last + 1):
+                    act = t.col_in & t.in_range & t.active_map(q, active, sl)
+                    vdx, vh = [], []
+                    for m in range(BRICK):
+                        i = x0_of(sl) + m
+                        zero = torch.zeros(TY, MZ, dtype=pad.dtype)
+                        if not xs <= i < xe:
+                            vdx.append(zero)
+                            vh.append(zero)
+                            continue
+                        nxt = evaluate(i + 1)
+                        ring[(i + 1) & 1] = nxt[0]
+                        csc = ring[i & 1]
+                        cl, lap, ch, gi = (v[own] for v in cur[1:])
+                        acc = gi - (6.0 * inv) * cl
+                        acc = acc + nxt[0][own]                    # x+
+                        acc = acc + csm                            # x-
+                        acc = acc + csc[2:, 1:-1]                  # y+
+                        acc = acc + csc[:-2, 1:-1]                 # y-
+                        acc = acc + csc[1:-1, :-2]                 # z-
+                        acc = acc + csc[1:-1, 2:]                  # z+
+                        wm = write(i, torch.where(act, acc, gi + 0.0))
+                        vdx.append(torch.where(wm & act, cl * lap, zero))
+                        vh.append(torch.where(wm & act, ch, zero))
+                        csm, cur = cur[0][own], nxt
+                    t.slab_partials(vdx, pdx, q, sl, square=False)
+                    t.slab_partials(vh, ph, q, sl, square=False)
+    return out, pdx, ph
+
+
+K6_SHAPES = [(37, 45, 39), (20, 9, 35), (6, 30, 41)]
+K6_MODES = ["dense", "banded", "block221", "block222"]
+
+
+def _k6_inputs(mode, shape, dx, dtype, rng):
+    """[(pad, g, geom, active)] of a mode: a sphere after one min/max step
+    (rounded so that exact ties lap == 0 occur), a standard-normal g; a
+    random brick mask; the blocks of a (2,2,1) or (2,2,2) cut whose sizes
+    are not multiples of 8 on the sharded axes."""
+    def field(s):
+        phi = _geom_sphere(s, dx, 1.0)[0].to(dtype)
+        phi = torch.round(phi / (dx / 8)) * (dx / 8)
+        return phi, torch.tensor(rng.standard_normal(s), dtype=dtype)
+    if mode in ("dense", "banded"):
+        phi, g = field(shape)
+        act = None
+        if mode == "banded":
+            act = torch.tensor(rng.random(wc.brick_grid(shape)) < 0.5,
+                               dtype=torch.int32)
+        return [(phi, g, wc.BlockGeom(tuple(shape)), act)]
+    mesh = make_mesh((2, 2, 1) if mode == "block221" else (2, 2, 2), ["cpu"])
+    gs = tuple(max(-(-n // m), 3) * m if m > 1 else n
+               for n, m in zip(shape, mesh.shape))
+    phi, g = field(gs)
+    w = sh.sharded_widths(mesh, wc.VJP_HALO["minmax"])
+    geoms = sh.minmax_geoms(mesh, gs, w)
+    pads, gpads = ([p.contiguous() for p in halo_exchange(
+        split_blocks(mesh, f), w, mesh)] for f in (phi, g))
+    return [(p, q, ge, None) for p, q, ge in zip(pads, gpads, geoms)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", K6_SHAPES)
+@pytest.mark.parametrize("mode", K6_MODES)
+def test_k6_march_matches_plain_bitwise(mode, shape, dtype):
+    """K6's march against the plain versions, bitwise: the owned box's
+    cotangent field, and each sum's partials against block_sum's tree over
+    the plain per-cell terms (a brick-per-block launch), reduced in
+    reduce_partials's order; the sums themselves against the plain ones
+    (another order) to 1e-12.  Two chunkings: the card's (264 resident
+    blocks) and one block walking the whole x extent."""
+    dx = 0.05
+    h1 = 0.3 * dx * dx
+    rng = np.random.default_rng(5)
+    sc = mc.minmax_scalars(dtype, dx, h1, 4.1, 0.0)
+    for pad, g, geom, act in _k6_inputs(mode, shape, dx, dtype, rng):
+        q = _launch_record(geom, pad.shape)
+        solo = not mode.startswith("block")
+        if solo:
+            want = mc.minmax_step_vjp_plain(pad, g, dx, h1, active=act)
+            live = None if act is None else wc.brick_cells(act, pad.shape)
+            _, tdx, th = mc._vjp_cells(pad, g, sc, (0, 0, 0),
+                                       tuple(pad.shape), live, None)
+        else:
+            want = mc.minmax_step_block_vjp_plain(pad, g, dx, h1, geom)
+            _, tdx, th = mc._vjp_cells(pad, g, sc, geom.origin, geom.gshape,
+                                       None, wc.box_cells(geom, pad.shape,
+                                                          "cpu"))
+        for slots in (264, 1):
+            chunk, _ = _march_cut(q["tn"], 16, 1, slots, 2)
+            got, pdx, ph = k6_march(pad, g, sc, q, chunk, act)
+            assert torch.equal(_bits(got), _bits(want[0]))
+            for parts, terms, total, scale in (
+                    (pdx, tdx, want[1], -2.0 / sc["dx"]),
+                    (ph, th, want[2], 1.0)):
+                ref = box_partials(terms, q, square=False)
+                assert torch.equal(_bits(parts), _bits(ref))
+                s = scale * float(_reduce_partials(parts))
+                assert abs(s - float(total)) <= 1e-12 * max(
+                    abs(float(total)), 1e-300)

@@ -2,23 +2,29 @@
 """Kernel-level measurements of the PyTorch port on one NVIDIA card.
 
 Default: each CUDA source's register, shared memory and spill counts as
-``nvcc -Xptxas -v`` prints them; the SASS instruction counts of the K1 and
-K3 kernels; a ``torch.profiler`` split of K5 and K4 by CUDA kernel; then
-every mode of K1 and K3 (dense, banded, pack, block) timed three ways: CUDA
-events around one call (median of 20), the device time per call under
-``torch.profiler`` (every CUDA kernel the call launches), and the wrapper's
-host time per call (N calls enqueued with no synchronize, the host clock
-over N); then the kernel phases of ``chip_smoke.py`` (2 and 2d) alone.
+``nvcc -Xptxas -v`` prints them; the SASS instruction counts of the K1, K3
+and K6 kernels; a ``torch.profiler`` split of K5, K4 and K6 by CUDA kernel;
+then every mode of K1, K3 and K6 (dense, banded, pack, block; K6 also with
+a solve's buffers) timed three ways: CUDA events around one call (median
+of 20), the device time per call under ``torch.profiler`` (every CUDA
+kernel the call launches), and the wrapper's host time per call (N calls
+enqueued with no synchronize, the host clock over N); then the kernel
+phases of ``chip_smoke.py`` (2 and 2d) alone.
 
-``--against DIR [DIR ...]``: the same K1 and K3 cases in other checkouts
-(trees of this repository, e.g. the parent commit unpacked into the
-git-ignored ``_archive/``) and this one, each in its own process, in turns
-(the others, this, this, the others reversed) on one card; every output
-field and sum of this tree is compared with the first DIR's bitwise, and
-the times are printed side by side.
+``--against DIR [DIR ...]``: the same K1, K3 and K6 cases in other
+checkouts (trees of this repository, e.g. the parent commit unpacked into
+the git-ignored ``_archive/``) and this one, each in its own process, in
+turns (the others, this, this, the others reversed) on one card; every
+output field and sum of this tree is compared with the first DIR's bitwise
+(a case the other tree lacks, such as a call with a solve's buffers, is
+only timed), and the times are printed side by side.
+
+``--cases K3,K6``: with ``--against`` (or alone), only the mode cases
+whose names start with one of these prefixes.
 
 ``--sass OUT [DIR ...]``: the SASS counts of this tree's and the other
-trees' K1 and K3 sources, each listing written into the directory OUT.
+trees' K1, K3 and K6 sources, each listing written into the directory
+OUT.
 
 ``--run-g-memory``: only run G's gradient (run D's configuration on a
 (2,2,1) mesh, one card), and the peak device memory after the forward and
@@ -28,10 +34,11 @@ A development helper, not the smoke check: it prints no result line.  Run
 from the repository root on a machine with one NVIDIA card:
 
     python3 tools/torch_kernels.py [--against DIR [DIR ...] | --sass OUT [DIR ...]
-                                    | --run-g-memory]
+                                    | --run-g-memory] [--cases PREFIX,...]
 """
 
 import importlib.util
+import inspect
 import os
 import re
 import subprocess
@@ -40,8 +47,6 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: Enqueued calls per host-time measurement.
-HOST_CALLS = 100
 #: H100 SXM: SMs, warp schedulers per SM (one warp instruction per clock
 #: each), lanes per warp.
 SMS, SCHEDULERS, LANES = 132, 4, 32
@@ -78,7 +83,7 @@ def resource_usage():
 
 
 def sass_counts(csrc=None, dump=None):
-    """SASS instructions of every kernel of the K1 and K3 sources (of
+    """SASS instructions of every kernel of the K1, K3 and K6 sources (of
     ``csrc``, default this checkout's), from ``nvdisasm`` of each source's
     cubin: all of them, the main body (up to the first ``$__internal``
     subroutine: the slow paths of IEEE division and square root), and a few
@@ -92,7 +97,7 @@ def sass_counts(csrc=None, dump=None):
     src_dir = cuda_build.CSRC if csrc is None else csrc
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("reinit_step.cu", "minmax_step.cu"):
+        for name in ("reinit_step.cu", "minmax_step.cu", "minmax_bwd.cu"):
             cubin = os.path.join(tmp, name + ".cubin")
             subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
                             os.path.join(src_dir, name)], check=True,
@@ -156,22 +161,8 @@ def max_sm_clock():
         return float("nan")
 
 
-def host_ms(fn, calls=HOST_CALLS):
-    """Host time per call: ``calls`` calls enqueued with no synchronize
-    between them, the host clock over the count."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e3
-
-
 def mode_cases(cs):
-    """Every mode of K1 and K3 on the shapes ``chip_smoke.py`` uses:
+    """Every mode of K1, K3 and K6 on the shapes ``chip_smoke.py`` uses:
     {name: (call, timed)}; ``call()`` returns the output tensors (fields
     and sums), ``timed`` says whether the case is timed."""
     import torch
@@ -282,6 +273,84 @@ def mode_cases(cs):
             cases[f"K3 block banded {n} {tag}"] = (partial_(
                 mc.minmax_step_block, p, dx, h1, g, active=act,
                 with_rms=True), False)
+    cases.update(k6_cases(cs))
+    return cases
+
+
+def k6_cases(cs):
+    """K6 at the shapes of ``chip_smoke.py``'s K6 lines: dense at 222^3 (a
+    sphere after one K1 step) and at 256^3 (the bench sphere), banded at
+    256^3 with its band4 mask (timed) and with random masks, block on the
+    256^3 bench sphere cut (2,2,1) (shard 0 timed) and on (66, 46, 38) cut
+    (2,2,2); with a standard-normal cotangent.  Where the package's K6
+    takes a solve's buffers, the timed cases also with them (their field
+    only: the buffers add the sums up)."""
+    import numpy as np
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.halo import halo_exchange
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh, split_blocks
+
+    bufs_ok = "bufs" in inspect.signature(mc.minmax_step_vjp).parameters
+    rng = np.random.default_rng(11)
+    cases = {}
+
+    def add(name, fn, make, timed, **kw):
+        cases[name] = (partial_(fn, **kw), timed)
+        if timed and bufs_ok:
+            b = make()
+            cases[name + " (solve buffers)"] = (
+                lambda kw=kw, b=b: fn(bufs=b, **kw)[:1], True)
+
+    def normal(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    for shape, dx, r in ((cs.MAIN_SHAPE, 0.01, 1.0),
+                         ((cs.BENCH_N,) * 3, cs.BENCH_DX, cs.BENCH_R),
+                         (cs.SHAPES[0], 0.05, 0.6)):
+        phi = cs.sphere(shape, dx, r)
+        h1 = 0.01 * dx * dx
+        mm = wc.reinit_step(phi, cs.sphere(shape, dx, 1.1 * r), dx, 0.1 * dx)
+        g = normal(shape)
+        tag = "x".join(map(str, shape))
+        timed = shape != cs.SHAPES[0]
+        add(f"K6 dense {tag}", mc.minmax_step_vjp,
+            lambda mm=mm, dx=dx, h1=h1: mc.VjpBuffers(mm, dx, h1), timed,
+            phi=mm, g=g, dx=dx, h1=h1)
+        if shape[0] != cs.BENCH_N:
+            continue
+        masks = [wc.tile_activity(mm, dx, 4.1, window="band4")]
+        nb = masks[0].shape
+        masks += [torch.tensor((rng.random(nb) < p).astype(np.int32),
+                               device="cuda") for p in (0.5, 0.15)]
+        for n, act in enumerate(masks):
+            add(f"K6 banded {tag} mask {n}", mc.minmax_step_vjp_banded,
+                lambda mm=mm, dx=dx, h1=h1: mc.VjpBuffers(mm, dx, h1), n == 0,
+                phi=mm, g=g, dx=dx, h1=h1, active=act)
+    for shape, mshape, dx, r in (((cs.BENCH_N,) * 3, (2, 2, 1), cs.BENCH_DX,
+                                  cs.BENCH_R),
+                                 ((66, 46, 38), (2, 2, 2), 0.05, 0.6)):
+        mesh = make_mesh(mshape, ["cuda"])
+        phi = cs.sphere(shape, dx, r)
+        h1 = 0.01 * dx * dx
+        mm = wc.reinit_step(phi, cs.sphere(shape, dx, 1.1 * r), dx, 0.1 * dx)
+        g = normal(shape)
+        w = sh.sharded_widths(mesh, wc.VJP_HALO["minmax"])
+        geoms = sh.minmax_geoms(mesh, shape, w)
+        pads, gpads = ([p.contiguous() for p in halo_exchange(
+            split_blocks(mesh, f), w, mesh)] for f in (mm, g))
+        tag = f"{'x'.join(map(str, shape))} on {mshape}"
+        for n, (p, q, ge) in enumerate(zip(pads, gpads, geoms)):
+            if n not in (0, len(pads) - 1):
+                continue
+            add(f"K6 block {n} {tag}", mc.minmax_step_block_vjp,
+                lambda p=p, dx=dx, h1=h1, ge=ge: mc.VjpBuffers(
+                    p, dx, h1, geom=ge),
+                n == 0 and mshape == (2, 2, 1), pad=p, g_pad=q, dx=dx,
+                h1=h1, geom=ge)
     return cases
 
 
@@ -293,21 +362,23 @@ def flat(res):
     return list(res) if isinstance(res, (tuple, list)) else [res]
 
 
-def run_cases(out_path=None):
-    """Every K1/K3 mode case of this process's package: its outputs (saved
+def run_cases(out_path=None, only=None):
+    """Every K1/K3/K6 mode case of this process's package: its outputs (saved
     to ``out_path`` as CPU tensors when given) and, for the timed cases,
     events, device and host times per call."""
     import torch
     cs = _chip_smoke()
     outs, times = {}, {}
     for name, (fn, timed) in mode_cases(cs).items():
+        if only and not name.startswith(tuple(only)):
+            continue
         a = [t.detach().cpu() for t in flat(fn())]
         b = [t.detach().cpu() for t in flat(fn())]
         same = all(torch.equal(x, y) for x, y in zip(a, b))
         outs[name] = a
         line = f"[modes] {name}: two calls bitwise equal {same}"
         if timed:
-            t = (cs.median_ms(fn, 20), cs.device_ms(fn), host_ms(fn))
+            t = (cs.median_ms(fn, 20), cs.device_ms(fn), cs.host_ms(fn))
             times[name] = t
             line += (f"; events {t[0]:.4f} ms, device {t[1]:.4f} ms, "
                      f"host {t[2]:.4f} ms per call")
@@ -320,10 +391,11 @@ def run_cases(out_path=None):
     return outs, times
 
 
-def against(others):
-    """This tree's K1/K3 cases against other trees' (the first: the
+def against(others, only=None):
+    """This tree's K1/K3/K6 cases against other trees' (the first: the
     reference), in turns (others, this, this, others reversed), each in its
-    own process: bitwise against the first, and timed."""
+    own process: bitwise against the first where it has the case, and
+    timed."""
     import torch
     others = [os.path.abspath(o) for o in others]
     trees = others + [HERE, HERE] + others[::-1]
@@ -333,20 +405,25 @@ def against(others):
             path = os.path.join(tmp, f"{n}.pt")
             env = dict(os.environ, PYTHONPATH=tree)
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--child", tree, path], check=True, env=env)
+                            "--child", tree, path,
+                            *(["--cases", ",".join(only)] if only else [])],
+                           check=True, env=env)
             res.append(torch.load(path))
     ref, new = res[0]["outs"], res[len(others)]["outs"]
+    bitwise = _chip_smoke().bitwise
     bad = []
     for name in ref:
-        eq = all(torch.equal(a, b) for a, b in zip(ref[name], new[name]))
+        eq = len(ref[name]) == len(new[name]) and all(
+            bitwise(a, b) for a, b in zip(ref[name], new[name]))
         if not eq:
             bad.append(name)
         print(f"[against] {name}: bitwise equal to {others[0]}'s {eq}",
               flush=True)
     labels = [os.path.relpath(t, HERE) or "this tree" for t in trees]
-    for name in res[0]["times"]:
+    for name in res[len(others)]["times"]:
         cells = "; ".join(
-            f"{label} " + "/".join(f"{v:.4f}" for v in r["times"][name])
+            f"{label} " + ("/".join(f"{v:.4f}" for v in r["times"][name])
+                           if name in r["times"] else "-")
             for label, r in zip(labels, res))
         print(f"[against] {name}: events/device/host ms per call: {cells}",
               flush=True)
@@ -355,8 +432,8 @@ def against(others):
 
 
 def profile_kernels():
-    """Device time per CUDA kernel (torch.profiler, 10 calls) of K5 and K4
-    at the main shape: which pass of a launch takes the time."""
+    """Device time per CUDA kernel (torch.profiler, 10 calls) of K5, K4 and
+    K6 at the main shape: which pass of a launch takes the time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
@@ -375,6 +452,9 @@ def profile_kernels():
                                               active=act, with_rms=True),
         "K1 dense": lambda: wc.reinit_step(phi, sgn, dx, h, with_rms=True),
         "K3 dense": lambda: mc.minmax_step(phi, dx, h1, with_rms=True)}
+    for name, (fn, timed) in k6_cases(cs).items():
+        if timed:
+            cases[name] = fn
     for name, fn in cases.items():
         fn()
         torch.cuda.synchronize()
@@ -424,15 +504,21 @@ def run_g_memory():
 
 def main() -> int:
     args = sys.argv[1:]
+    only = None
+    if "--cases" in args:
+        n = args.index("--cases")
+        only = args[n + 1].split(",")
+        del args[n:n + 2]
     if args[:1] == ["--child"]:
         sys.path.insert(0, args[1])
         import torch
         cs = _chip_smoke()
         cs.start()
+        import levelsetfortran_tpu_torch as pkg
         print(f"[child] {args[1]}: package from "
-              f"{os.path.dirname(cs.__file__)}; "
+              f"{os.path.dirname(pkg.__file__)}; "
               f"{torch.cuda.get_device_name(0)}", flush=True)
-        run_cases(args[2])
+        run_cases(args[2], only)
         return 0
     sys.path.insert(0, HERE)
     import torch
@@ -457,7 +543,7 @@ def main() -> int:
         return 0
     if "--against" in args:
         resource_usage()
-        against(args[args.index("--against") + 1:])
+        against(args[args.index("--against") + 1:], only)
         return 0
     resource_usage()
     counts = sass_counts()
@@ -472,7 +558,7 @@ def main() -> int:
                   f" once: {issue_bound_ms(body, cells, clock):.4f} ms at "
                   f"{clock:.0f} MHz", flush=True)
     profile_kernels()
-    run_cases()
+    run_cases(only=only)
     record = {n: {"max_abs_err": 0.0, "library_ms": None}
               for n in cs.kernel_names()}
     cs.kernel_phase(record)
