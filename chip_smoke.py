@@ -68,7 +68,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      solo solvers, bitwise; and the differentiable narrow-band solves
      (phase 4c) on the bench sphere: ``reinit_scan_banded`` beside the
      dense solve, ``minmax_scan(banded=True)`` bitwise the dense one, the
-     banded sharded reinit bitwise the solo banded one.
+     banded sharded reinit bitwise the solo banded one;
+  9. run H, the operations path: run C's configuration with
+     ``--checkpoint-dir``, ``--checkpoint-chunk 100`` and
+     ``--metrics-every 100``, through the CLI and in process with the
+     launch counters read around it: phi_init and phi_smoothed bitwise run
+     C's, 13 / 1064 iterations, at most 3 steps kept per stage, the metrics
+     events of the JAX package's rule; then a run preempted after 500
+     min/max steps and resumed on its directory (the converged reinit
+     stage takes one more step, min/max resumes from 500), phi_smoothed
+     bitwise run C's;
+ 10. the resumable solvers at 222^3 (the kernel phases' sphere), solo and
+     on (2,2,1) blocks of one card, stopped after two chunks of 20 and
+     resumed to 100 steps: bitwise the uninterrupted solo solves; save and
+     restore times per call;
+ 11. run I, run B's mesh through ``run()`` with ``init_mode="reference"``
+     (the dense initial reinit, banded min/max and final reinit) and a
+     metrics event every 9 iterations: no wrong sign farther than 2 dx
+     from the sphere, phi_init's near-surface error under 2 dx, the events
+     at the banded cadences; then ``measure_cell_updates_per_sec`` on
+     dense K1 at 256^3 (the JAX package's headline shape).
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per run.
 """
@@ -146,13 +165,44 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def sphere(shape, dx, radius):
+class Logged:
+    """Collect the port's structured log records while the block runs."""
+
+    def __enter__(self):
+        import logging
+        from levelsetfortran_tpu_torch.utils.logging import logger
+        records = self.records = []
+
+        class Keep(logging.Handler):
+            def emit(self, rec):
+                records.append(json.loads(rec.getMessage()))
+
+        self._handler, self._level = Keep(), logger.level
+        logger.addHandler(self._handler)
+        logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        from levelsetfortran_tpu_torch.utils.logging import logger
+        logger.removeHandler(self._handler)
+        logger.setLevel(self._level)
+
+
+def run_counters():
+    """The launch counters of the kernels a pipeline run may launch."""
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    return (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
+            wc.reinit_step_block, mc.minmax_step_block)
+
+
+def sphere(shape, dx, radius, device="cuda"):
     """Sphere SDF centered in the box, on the device, float32."""
     import torch
     axes = [(np.arange(n) - (n - 1) / 2.0) * dx for n in shape]
     gx, gy, gz = np.meshgrid(*axes, indexing="ij")
     phi = np.sqrt(gx ** 2 + gy ** 2 + gz ** 2) - radius
-    return torch.tensor(phi, dtype=torch.float32, device="cuda")
+    return torch.tensor(phi, dtype=torch.float32, device=device)
 
 
 def median_ms(fn, reps):
@@ -531,10 +581,7 @@ def near_surface_errors(path, truth_fn):
 
 def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     """Phase 3: one run through the CLI and one through run()."""
-    import torch
     from levelsetfortran_tpu_torch import LevelSetConfig, write_stl
-    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
-    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     from levelsetfortran_tpu_torch.pipeline.cli import (build_parser,
                                                         config_from_args)
     from levelsetfortran_tpu_torch.pipeline.run import run
@@ -559,8 +606,7 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     check(cfg.reinit_iters == LevelSetConfig().reinit_iters
           and cfg.minmax_iters == LevelSetConfig().minmax_iters,
           "default iteration caps")
-    counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
-                wc.reinit_step_block, mc.minmax_step_block)
+    counters = run_counters()
     for c in counters:
         c.launches = 0
     res = run(stl, cfg, out_dir=os.path.join(tmp, f"{label}_py"))
@@ -1200,8 +1246,6 @@ def block_phase(record):
 
 def run_f_phase(ball, ball_sdf, res_b, card, tmp):
     """Phase 6: run B's mesh through the domain-decomposed pipeline."""
-    import logging
-
     import torch
     from levelsetfortran_tpu_torch import LevelSetConfig
     from levelsetfortran_tpu_torch.ops.init_sign import \
@@ -1211,26 +1255,15 @@ def run_f_phase(ball, ball_sdf, res_b, card, tmp):
                                                          make_mesh)
     from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
     from levelsetfortran_tpu_torch.solvers.reinit import reinit
-    from levelsetfortran_tpu_torch.utils.logging import logger
 
-    dx, logged = 0.01, []
-
-    class Keep(logging.Handler):
-        def emit(self, rec):
-            logged.append(json.loads(rec.getMessage()))
-
-    handler = Keep()
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
-    try:
+    dx = 0.01
+    with Logged() as log:
         launches, res = run_phase("F", ball, ball_sdf, dx,
                                   ["--mesh-shape", "2,2,1"], tmp)
-    finally:
-        logger.removeHandler(handler)
     check(res.grid.shape == res_b.grid.shape, "run F: grid differs from B's")
     # where the run says it put its shards: round-robin over every visible
     # card (all four blocks on the one card when there is one)
-    events = [r for r in logged if r["stage"] == "grid"]
+    events = [r for r in log.records if r["stage"] == "grid"]
     devices = [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))]
     check(len(events) == 1 and events[0]["mesh"] == [2, 2, 1]
           and events[0]["devices"] == devices
@@ -1817,8 +1850,6 @@ def run_e_phase(card, tmp):
     (its launch counters read around it), each geometry held to the run
     A/B gates; then the packed solver stages held against the solo dense
     solvers on the same init and h, bitwise."""
-    import logging
-
     import torch
     from levelsetfortran_tpu_torch import write_stl
     from levelsetfortran_tpu_torch.io.vti import read_vti
@@ -1829,7 +1860,7 @@ def run_e_phase(card, tmp):
                                                         config_from_args)
     from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
     from levelsetfortran_tpu_torch.solvers.reinit import reinit
-    from levelsetfortran_tpu_torch.utils.logging import StageTimer, logger
+    from levelsetfortran_tpu_torch.utils.logging import StageTimer
 
     meshes, truths, names, caps = run_e_meshes()
     paths = [os.path.join(tmp, f"{n}.stl") for n in names]
@@ -1851,20 +1882,13 @@ def run_e_phase(card, tmp):
     check('"strategy": "packed"' in proc.stderr, "run E CLI: not packed")
 
     cfg = config_from_args(build_parser().parse_args(args))
-    inits, logged = [], []
+    inits = []
     real_init = batch.signed_distance_init
 
     def keep(*a, **k):
         inits.append(real_init(*a, **k))
         return inits[-1]
 
-    class Keep(logging.Handler):
-        def emit(self, rec):
-            logged.append(json.loads(rec.getMessage()))
-
-    handler = Keep()
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
     batch.signed_distance_init = keep
     counters = (wc.reinit_step_packed, mc.minmax_step_packed, wc.reinit_step,
                 mc.minmax_step, mc.minmax_fusedk)
@@ -1872,12 +1896,12 @@ def run_e_phase(card, tmp):
         c.launches = 0
     timer = StageTimer()
     try:
-        items = batch.run_batch(paths, cfg, timer=timer)
+        with Logged() as log:
+            items = batch.run_batch(paths, cfg, timer=timer)
     finally:
         batch.signed_distance_init = real_init
-        logger.removeHandler(handler)
     launches = {c.__name__: c.launches for c in counters}
-    strategy = [r["strategy"] for r in logged
+    strategy = [r["strategy"] for r in log.records
                 if r["stage"] == "batch_strategy"]
     check(strategy == ["packed"], f"run E: strategy {strategy}")
     check(launches["reinit_step_packed"] > 0
@@ -1964,6 +1988,354 @@ def run_e_phase(card, tmp):
           f"{max(mp.iterations)} steps packed {t_mp:.3f} s vs sequential "
           f"{t_ms:.3f} s; card {card}")
     return launches
+
+
+# ----------------------------- operations -----------------------------
+
+#: Run H: run C's configuration with checkpoints every RUN_H_CHUNK
+#: iterations and a metrics event every RUN_H_METRICS; at full size the
+#: resumable solvers at 222^3 in chunks of RUN_H_FULL_CHUNK, stopped after
+#: two chunks and resumed to RUN_H_FULL_ITERS (stop test off).
+RUN_H_CHUNK, RUN_H_METRICS = 100, 100
+RUN_H_FULL_CHUNK, RUN_H_FULL_ITERS = 20, 100
+#: Run I: run B's mesh with the reference-mode init and a metrics event
+#: every 9 iterations (the banded cadences: 9-step reinit chunks, 20-step
+#: min/max chunks); its near-surface gate on phi_init, in units of dx.
+RUN_I_METRICS, RUN_I_NEAR_DX = 9, 2.0
+
+
+class Stream:
+    """A fresh metrics sink while the block runs: ``.events`` as
+    (stage, iteration) pairs, ``.raw`` the events themselves."""
+
+    def __enter__(self):
+        from levelsetfortran_tpu_torch.utils import metrics
+        self._old = metrics.get_stream()
+        self._new = metrics.set_stream(metrics.MetricsStream(log=False))
+        return self
+
+    def __exit__(self, *exc):
+        from levelsetfortran_tpu_torch.utils import metrics
+        metrics.set_stream(self._old)
+        self.raw = list(self._new.events)
+        self.events = [(e["stage_name"], e["iteration"]) for e in self.raw]
+
+
+def ckpt_steps(directory):
+    """The complete steps of each stage's checkpoint directory."""
+    return {stage: sorted(int(n) for n in os.listdir(
+        os.path.join(directory, stage)) if n.isdigit())
+        for stage in ("reinit", "minmax")}
+
+
+def run_h_phase(mesh, res_c, card, tmp, device="cuda"):
+    """Phase 9, run H: run C's configuration (dense) with checkpoints and
+    the metrics stream, through the CLI and in process (its launch
+    counters read around it); every field bitwise run C's.  Then a run
+    preempted after 500 min/max steps and resumed on its directory."""
+    import torch
+    from levelsetfortran_tpu_torch import write_stl
+    from levelsetfortran_tpu_torch.grid import grid as gridmod
+    from levelsetfortran_tpu_torch.io.vti import read_vti
+    from levelsetfortran_tpu_torch.pipeline.cli import (build_parser,
+                                                        config_from_args)
+    from levelsetfortran_tpu_torch.pipeline.run import run
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+
+    dx = 0.05
+    stl = os.path.join(tmp, "H.stl")
+    write_stl(stl, mesh)
+
+    def args(name):
+        return [stl, "--dx", str(dx), "--narrow-band", "off",
+                "--checkpoint-dir", os.path.join(tmp, f"H_{name}_ck"),
+                "--checkpoint-chunk", str(RUN_H_CHUNK), "--metrics-every",
+                str(RUN_H_METRICS), "--device", device, "--out-dir",
+                os.path.join(tmp, f"H_{name}")]
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "levelsetfortran_tpu_torch", *args("cli")],
+        cwd=HERE, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"run H CLI failed:\n{proc.stdout}\n{proc.stderr[-4000:]}")
+    it_c = EXPECTED_ITERS["C"]
+    check(f"reinit_iters={it_c[0]} minmax_iters={it_c[1]}" in proc.stdout,
+          f"run H CLI printed {proc.stdout!r}")
+    cli_out = os.path.join(tmp, "H_cli")
+    for f, ref in (("signedDistanceFunction.vti", res_c.phi_init),
+                   ("smoothedDistanceFunction.vti", res_c.phi_smoothed)):
+        check(np.array_equal(read_vti(os.path.join(cli_out, f))[0], ref),
+              f"run H CLI: {f} differs from run C's")
+
+    cfg = config_from_args(build_parser().parse_args(args("py")))
+    for c in run_counters():
+        c.launches = 0
+    with Stream() as stream:
+        res, wall = sync_time(lambda: run(stl, cfg, out_dir=os.path.join(
+            tmp, "H_py")))
+    launches = {c.__name__: c.launches for c in run_counters()}
+    check(np.array_equal(res.phi_init, res_c.phi_init)
+          and np.array_equal(res.phi_smoothed, res_c.phi_smoothed),
+          "run H: phi_init / phi_smoothed differ from run C's")
+    check((res.reinit_iters, res.minmax_iters) == it_c,
+          f"run H: iterations {res.reinit_iters} / {res.minmax_iters}")
+    check(not (res.reinit_diverged or res.minmax_diverged),
+          "run H: diverged")
+    check(device != "cuda" or launches["reinit_step"] > 0
+          and launches["minmax_step"] > 0
+          and launches["minmax_fusedk"] == 0
+          and launches["reinit_step_block"] == 0
+          and launches["minmax_step_block"] == 0,
+          f"run H: launches {launches}")
+    kept = {d: ckpt_steps(os.path.join(tmp, f"H_{d}_ck"))
+            for d in ("cli", "py")}
+    check(all(len(v) <= 3 for k in kept.values() for v in k.values())
+          and kept["py"] == {"reinit": [it_c[0]],
+                             "minmax": [900, 1000, it_c[1]]}
+          and kept["cli"] == kept["py"], f"run H: checkpoints kept {kept}")
+    # JAX's rule: the chunked stages emit nothing, the final reinit (dense
+    # here) an event every RUN_H_METRICS steps; its count from the same
+    # solve on run C's phi_smoothed, whose field is the run's phi_final
+    dxx = dx / gridmod.surface_diag(mesh.vertices)
+    rf = reinit(torch.tensor(res.phi_smoothed, dtype=torch.float32,
+                             device=device),
+                dx, cfg.final_reinit_cfl * dxx, cfg.final_reinit_iters,
+                cfg.reinit_tol, eps_scale=cfg.weno_eps_scale,
+                eps_floor=cfg.eps_floor)
+    check(np.array_equal(rf.phi.double().cpu().numpy(), res.phi_final),
+          "run H: the final reinit's count could not be read back")
+    want = [("reinit", k) for k in range(RUN_H_METRICS, rf.iterations + 1,
+                                         RUN_H_METRICS)]
+    check(stream.events == want,
+          f"run H: metrics events {stream.events}, want {want}")
+    t, tc = res.timers, res_c.timers
+    phase("run H", f"run C's configuration with --checkpoint-dir, "
+          f"--checkpoint-chunk {RUN_H_CHUNK}, --metrics-every "
+          f"{RUN_H_METRICS}: CLI and run() phi_init / phi_smoothed bitwise "
+          f"run C's, iterations {res.reinit_iters} / {res.minmax_iters}, "
+          f"steps kept {kept['py']}, metrics events {len(stream.events)} "
+          f"(the final reinit took {rf.iterations} steps), launches "
+          f"{launches}; walls: CLI {cli_s:.1f} s, run() {wall:.3f} s, "
+          f"stages reinit {t['initialization'] - t['search']:.4f} s / "
+          f"min/max {t['minmax'] - t['initialization']:.4f} s (run C "
+          f"{tc['initialization'] - tc['search']:.4f} / "
+          f"{tc['minmax'] - tc['initialization']:.4f} s); card {card}")
+
+    # preempted after 500 min/max steps, then the full run on its directory
+    ck = os.path.join(tmp, "H_resume_ck")
+    with Logged() as log:
+        (cut, again), t_res = sync_time(lambda: (
+            run(stl, cfg.replace(checkpoint_dir=ck, minmax_iters=500),
+                write_outputs=False),
+            run(stl, cfg.replace(checkpoint_dir=ck), write_outputs=False)))
+    resumes = [(r["stage"], r["step"]) for r in log.records
+               if r.get("event") == "resume"]
+    check(cut.minmax_iters == 500 and np.array_equal(cut.phi_init,
+                                                     res_c.phi_init),
+          f"run H preempted: {cut.reinit_iters} / {cut.minmax_iters}")
+    check(resumes == [("reinit", it_c[0]), ("minmax", 500)],
+          f"run H resumed: resume events {resumes}")
+    check((again.reinit_iters, again.minmax_iters) == (it_c[0] + 1, it_c[1])
+          and np.array_equal(again.phi_smoothed, res_c.phi_smoothed),
+          f"run H resumed: iterations {again.reinit_iters} / "
+          f"{again.minmax_iters}, or phi_smoothed differs from run C's")
+    phase("run H", f"preempted after 500 min/max steps, then resumed on "
+          f"the same directory: resumed {resumes} (the converged reinit "
+          f"stage takes one more step, {again.reinit_iters}, as in the JAX "
+          f"package), min/max {again.minmax_iters}, phi_smoothed bitwise "
+          f"run C's; both calls {t_res:.3f} s; card {card}")
+    return launches
+
+
+def run_h_full_phase(card, tmp, device="cuda", n=MAIN_SHAPE[0], dx=0.01):
+    """Phase 10: the resumable solvers at the kernels' main shape (the
+    kernel phases' sphere, 222^3), solo and on (2,2,1) blocks of one card:
+    stopped after two chunks, resumed from a fresh checkpointer, bitwise
+    an uninterrupted solo solve; save and restore timed per call."""
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh)
+    from levelsetfortran_tpu_torch.parallel.sharded import ShardedLevelSet
+    from levelsetfortran_tpu_torch.solvers import checkpointed as ck
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+    from levelsetfortran_tpu_torch.utils.checkpoint import FieldCheckpointer
+
+    times = {"save": [], "restore": []}
+
+    class Timed(FieldCheckpointer):
+        def save(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().save(*a, **k)
+            times["save"].append(time.perf_counter() - t0)
+            return out
+
+        def restore(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().restore(*a, **k)
+            if out is not None:
+                times["restore"].append(time.perf_counter() - t0)
+            return out
+
+    phi0 = sphere((n, n, n), dx, 1.0, device)
+    mesh = make_mesh((2, 2, 1), [device])
+    solver = ShardedLevelSet(mesh, phi0.shape, dx)
+    blocks = solver.device_put(phi0)
+    chunk, total = RUN_H_FULL_CHUNK, RUN_H_FULL_ITERS
+    h = {"reinit": 0.1 * dx / 3.0, "minmax": 0.01 * dx / 3.0}
+    cases = (
+        ("reinit", reinit, lambda x, **k: ck.reinit_resumable(
+            phi0, dx, h["reinit"], x, 0.0, **k)),
+        ("minmax", minmax_flow, lambda x, **k: ck.minmax_resumable(
+            phi0, dx, h["minmax"], x, 0.0, **k)),
+        ("reinit sharded", reinit, lambda x, **k: ck.reinit_resumable_sharded(
+            solver, blocks, h["reinit"], x, 0.0, **k)),
+        ("minmax sharded", minmax_flow,
+         lambda x, **k: ck.minmax_resumable_sharded(
+             solver, blocks, h["minmax"], x, 0.0, **k)))
+    lines = []
+    for name, plain, solve in cases:
+        ref, t_plain = sync_time(lambda: plain(
+            phi0, dx, h[name.split()[0]], total, 0.0))
+        d = os.path.join(tmp, "H_full_" + name.replace(" ", "_"))
+        times["save"].clear()
+        times["restore"].clear()
+        part, t_part = sync_time(lambda: solve(2 * chunk, ckpt=Timed(d),
+                                               chunk=chunk))
+        res, t_res = sync_time(lambda: solve(total, ckpt=Timed(d),
+                                             chunk=chunk))
+        got = gather_blocks(mesh, res.phi) if "sharded" in name else res.phi
+        check(part.iterations == 2 * chunk and res.resumed_from == 2 * chunk
+              and res.iterations == total and not res.diverged,
+              f"run H 222^3 {name}: {part.iterations}, {res.iterations}, "
+              f"resumed from {res.resumed_from}, diverged {res.diverged}")
+        check(bitwise(got, ref.phi), f"run H 222^3 {name}: the resumed "
+              f"solve differs from the uninterrupted solo one by "
+              f"{err(got, ref.phi):.3g}")
+        lines.append(
+            f"{name} {t_part + t_res:.3f} s against {t_plain:.3f} s "
+            f"uninterrupted (save {1e3 * np.median(times['save']):.1f} ms "
+            f"x {len(times['save'])}, restore "
+            f"{1e3 * np.median(times['restore']):.1f} ms)")
+    mb = phi0.numel() * phi0.element_size() / 1e6
+    phase("run H 222^3", f"resumable solvers, {total} steps in chunks of "
+          f"{chunk} (stop test off), stopped after two chunks and resumed: "
+          f"bitwise the uninterrupted solo solves, solo and on (2, 2, 1) "
+          f"blocks; {mb:.1f} MB per save; " + "; ".join(lines)
+          + f"; card {card}")
+
+
+def run_i_phase(mesh, truth_fn, res_b, card, tmp, device="cuda", dx=0.01):
+    """Phase 11, run I: run B's mesh through run() with the reference-mode
+    init (dense initial reinit, banded min/max and final reinit) and the
+    metrics stream, its launch counters read around it."""
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig, write_stl
+    from levelsetfortran_tpu_torch.pipeline.run import run
+
+    stl = os.path.join(tmp, "I.stl")
+    write_stl(stl, mesh)
+    cfg = LevelSetConfig(dx=dx, init_mode="reference",
+                         metrics_every=RUN_I_METRICS, device=device)
+    for c in run_counters():
+        c.launches = 0
+    with Stream() as stream:
+        res, wall = sync_time(lambda: run(stl, cfg, write_outputs=False))
+    launches = {c.__name__: c.launches for c in run_counters()}
+    truth = truth_fn(res.grid.coords(dtype=torch.float64).numpy())
+    phi = res.phi_init
+    finite = all(np.isfinite(f).all() for f in
+                 (res.phi_init, res.phi_smoothed, res.phi_final,
+                  res.advected))
+    far = np.abs(truth) > 2 * dx
+    wrong = int((np.sign(phi[far]) != np.sign(truth[far])).sum())
+    near = np.abs(truth) < 0.2
+    e_near = float(np.abs(phi - truth)[near].max())
+    by = {}
+    for stage, it in stream.events:
+        by.setdefault(stage, []).append(it)
+    chunk_m = 4 * (1 + 2 * ((cfg.minmax_nb_refresh_every // 4) // 2))
+    chunk_r = 1 + 2 * (cfg.nb_refresh_every // 2)
+    every_m = chunk_m * max(1, RUN_I_METRICS // chunk_m)
+    every_r = chunk_r * max(1, RUN_I_METRICS // chunk_r)
+    want_r = list(range(RUN_I_METRICS, res.reinit_iters + 1, RUN_I_METRICS))
+    want_m = list(range(every_m, res.minmax_iters + 1, every_m))
+    final = by.get("reinit_narrowband", [])
+    bands = [e.get("band_tiles", 0) for e in stream.raw
+             if e["stage_name"].endswith("narrowband")]
+    counts = {k: len(v) for k, v in by.items()}
+    t, tb = res.timers, res_b.timers
+
+    def stages(tt):
+        return (f"init {tt['search']:.3f} s, reinit "
+                f"{tt['initialization'] - tt['search']:.4f} s, min/max "
+                f"{tt['minmax'] - tt['initialization']:.4f} s, advect "
+                f"{tt['advect'] - tt['minmax']:.3f} s, final reinit "
+                f"{tt['total'] - tt['advect']:.4f} s")
+
+    phase("run I", f"icosphere {mesh.n_elems} triangles, dx {dx}, grid "
+          f"{res.grid.shape}, init_mode reference, metrics every "
+          f"{RUN_I_METRICS}: reinit_iters {res.reinit_iters} (dense, cap "
+          f"{cfg.reinit_iters}), minmax_iters {res.minmax_iters}; phi_init "
+          f"sign wrong at {wrong} of {int(far.sum())} points with |truth| > "
+          f"2 dx, near-surface max err {e_near:.4g} "
+          f"({e_near / dx:.3f} dx, gate {RUN_I_NEAR_DX} dx); events "
+          f"{counts}, banded events' "
+          f"band_tiles {min(bands, default=0)}-{max(bands, default=0)}; "
+          f"launches {launches}; wall {wall:.3f} s: {stages(t)} (run B: "
+          f"{stages(tb)}); card {card}")
+    check(finite and not (res.reinit_diverged or res.minmax_diverged),
+          "run I: diverged or non-finite")
+    check(wrong == 0, f"run I: phi_init takes the wrong sign at {wrong} "
+          f"points farther than 2 dx from the surface")
+    check(e_near < RUN_I_NEAR_DX * dx,
+          f"run I: near-surface error {e_near} >= {RUN_I_NEAR_DX} dx")
+    check(by.get("reinit", []) == want_r and by.get(
+        "minmax_narrowband", []) == want_m and final == list(
+        range(every_r, every_r * len(final) + 1, every_r))
+          and set(by) <= {"reinit", "minmax_narrowband",
+                          "reinit_narrowband"} and min(bands, default=1) > 0,
+          f"run I: metrics events {by}")
+    # (the counters count kernel launches: none off the card)
+    check(device != "cuda" or launches["reinit_step"] > 0
+          and launches["minmax_fusedk"] > 0
+          and launches["reinit_step_block"] == 0
+          and launches["minmax_step_block"] == 0,
+          f"run I: launches {launches}")
+    return launches
+
+
+def throughput_line(card, device="cuda", n=BENCH_N):
+    """``utils/profiling.measure_cell_updates_per_sec`` on dense K1 at the
+    shape of the JAX package's headline ``bench.py:920``
+    (``weno5_reinit_cell_updates_per_sec_2563``: the bench sphere, h = 0.1
+    dx, a step scan of ``reinit_fixed``'s forward)."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.utils.profiling import \
+        measure_cell_updates_per_sec
+
+    xs = np.linspace(-1.0, 1.0, n)
+    gx, gy, gz = np.meshgrid(xs, xs, xs, indexing="ij")
+    phi0 = torch.tensor(np.sqrt(gx ** 2 + gy ** 2 + gz ** 2) - BENCH_R,
+                        dtype=torch.float32, device=device)
+    dx = 2.0 / (n - 1)
+
+    def scan(steps):
+        def go(p):
+            bufs = (torch.empty_like(p), torch.empty_like(p))
+            q = p
+            for s in range(steps):
+                q = wc.reinit_step(q, p, dx, 0.1 * dx, out=bufs[s % 2])
+            return q
+        return go
+
+    out = measure_cell_updates_per_sec(scan, phi0)
+    phase("profiling", f"dense K1 at {n}^3, two-point protocol (5 and 40 "
+          f"steps): {out['cell_updates_per_sec']:.4g} cell-updates/s, "
+          f"{1e3 * out['seconds_per_step']:.4f} ms per step; card {card}")
+    return out
 
 
 def start():
@@ -2068,6 +2440,19 @@ def main() -> int:
         run_a_fused(results["A"], cubes)
         count(run_f_phase(ball, ball_sdf, results["B"], card, tmp))
         count(run_e_phase(card, tmp))
+        walls = {}
+        launches, walls["run H"] = sync_time(
+            lambda: run_h_phase(cubes, results["C"], card, tmp))
+        count(launches)
+        _, walls["run H 222^3"] = sync_time(
+            lambda: run_h_full_phase(card, tmp))
+        launches, walls["run I"] = sync_time(
+            lambda: run_i_phase(ball, ball_sdf, results["B"], card, tmp))
+        count(launches)
+        _, walls["profiling"] = sync_time(lambda: throughput_line(card))
+        phase("operations", "walls " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items())
+            + f", together {sum(walls.values()):.1f} s; card {card}")
     launches, run_d = run_d_phase(ball, card, record)
     count(launches)
     count(run_g_phase(ball, card, run_d))

@@ -1,14 +1,14 @@
 """Configuration schema for the PyTorch level-set engine.
 
 Same fields, defaults and reference citations as the JAX package's
-``levelsetfortran_tpu/config.py`` for everything the single-device and the
-domain-decomposed pipelines use (``mesh_shape``, ``steps_per_exchange``,
-``overlap``, ``gather_results``).  Dropped: ``checkpoint_chunk`` (and
-``checkpoint_dir`` in all but name: any value makes the pipeline raise),
-``init_mode`` (only the exact-distance init is ported), the in-loop metrics
-stream, ``mesh_axis_names`` and ``halo_width`` (nothing reads them), the
-dead ``sign_eps`` literal, and the TPU-only ``use_pallas`` switch — here
-the tensor's device decides whether a step runs its CUDA kernel.
+``levelsetfortran_tpu/config.py``: the single-device and the
+domain-decomposed pipelines (``mesh_shape``, ``steps_per_exchange``,
+``overlap``, ``gather_results``), both init modes (``init_mode``), the
+checkpointed solves (``checkpoint_dir``, ``checkpoint_chunk``) and the
+in-loop metrics stream (``metrics_every``).  Dropped: ``mesh_axis_names``
+and ``halo_width`` (nothing reads them), the dead ``sign_eps`` literal,
+and the TPU-only ``use_pallas`` switch — here the tensor's device decides
+whether a step runs its CUDA kernel.
 """
 
 from __future__ import annotations
@@ -38,13 +38,9 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 #: Fields of the JAX config that the port lacks, with the JAX defaults they
 #: must hold for a config to carry across (``use_pallas`` is ignored).
 _DROPPED_DEFAULTS = {
-    "init_mode": "distance",
-    "metrics_every": 0,
     "sign_eps": 1e-13,
     "mesh_axis_names": ("x", "y", "z"),
     "halo_width": 4,
-    "checkpoint_dir": None,
-    "checkpoint_chunk": 500,
 }
 
 
@@ -55,6 +51,9 @@ class LevelSetConfig:
     # --- grid (reference set3d.f90:140-157) ---
     dx: float = 0.05                    # set3d.f90:140
     pad_cells: int = 10                 # set3d.f90:148 ("dd")
+    #: "distance": exact signed-distance init; "reference": the reference's
+    #: smeared +-1 nearest-centroid field (set3d.f90:196-268).
+    init_mode: str = "distance"
     #: Spatial candidate culling for the distance init ("auto"/"off").
     init_culling: str = "auto"
     #: Grid-points-per-side of a culling block.
@@ -100,6 +99,9 @@ class LevelSetConfig:
     #: The torch device the pipeline runs on, taken as given: "cuda" (the
     #: kernels) or "cpu" (their plain versions); no fallback between them.
     device: str = "cuda"
+    #: In-loop {iteration, rms, cells/s} events every N iterations (0 = off;
+    #: the reference's per-iteration print, subs.f90:923).
+    metrics_every: int = 0
 
     # --- domain decomposition ---
     #: (mx, my, mz) shards over (x, y, z); "auto": one shard per visible
@@ -116,9 +118,12 @@ class LevelSetConfig:
     #: Under a mesh, False leaves them as lists of device blocks; a run
     #: without a mesh always returns host arrays.
     gather_results: bool = True
-    #: Checkpointed, resumable solves are not ported yet: any value makes
-    #: the pipeline raise ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+
+    # --- checkpoint/resume (absent in reference; SURVEY.md §5) ---
+    #: Run the initial reinit and the min/max flow as chunked, resumable
+    #: solves with checkpoints in ``<dir>/reinit`` and ``<dir>/minmax``.
     checkpoint_dir: Optional[str] = None
+    checkpoint_chunk: int = 500         # iterations between checkpoints
 
     quirks: QuirkConfig = dataclasses.field(default_factory=QuirkConfig)
 
@@ -126,6 +131,9 @@ class LevelSetConfig:
         if self.narrow_band not in ("auto", "on", "off"):
             raise ValueError("narrow_band must be 'auto', 'on' or 'off'; "
                              f"got {self.narrow_band!r}")
+        if self.init_mode not in ("distance", "reference"):
+            raise ValueError("init_mode must be 'distance' or 'reference'; "
+                             f"got {self.init_mode!r}")
         if self.init_culling not in ("auto", "off"):
             raise ValueError("init_culling must be 'auto' or 'off'; "
                              f"got {self.init_culling!r}")

@@ -1,5 +1,6 @@
-"""Signed-distance initialization from a triangle surface mesh (port of the
-exact-distance init of ``levelsetfortran_tpu/ops/init_sign.py``).
+"""Signed-distance initialization from a triangle surface mesh (port of
+``levelsetfortran_tpu/ops/init_sign.py``: the exact-distance init, and the
+reference-mode init :func:`initialize_sign_field` at the end).
 
 phi0 = exact point-triangle distance (Ericson's region-based closest point)
 signed by the angle-weighted pseudonormal of every triangle tied for the
@@ -555,3 +556,112 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
             sub, v, elements, dtype=dtype, device=dev, tile=tile,
             culling=culling, cull_block=cull_block, block_of=(grid, off)))
     return blocks
+
+
+# ------------------------- reference-mode init -------------------------
+
+#: Bound on the (points, centroids) pairs of one nearest-centroid step:
+#: 2^25 pairs, a few 128 MB float32 temporaries (the JAX package scans
+#: every point at once, which at 222^3 would be ~19 GB per tile).
+_CENTROID_PAIRS = 2 ** 25
+
+
+def nearest_centroid(points: torch.Tensor, centroids: torch.Tensor,
+                     tile: int = 512) -> torch.Tensor:
+    """Index of the nearest centroid per point (``init_sign.py:726-764`` of
+    the JAX package; reference ``set3d.f90:222-236``).
+
+    The distance term is ``|c|^2 - 2 p.c`` per (point, centroid) pair,
+    the dot product formed elementwise in the points' dtype, so no TF32
+    matmul setting can reach it (the JAX package pins its matmul to
+    HIGHEST for the same reason).  Centroids go in tiles of ``tile``; ties
+    resolve to the lowest index: the first minimum within a tile, a strict
+    ``<`` across tiles.  Points go in chunks (each point is independent,
+    so chunking does not change the result)."""
+    n_pts = points.shape[0]
+    cn_all = torch.sum(centroids * centroids, dim=-1)
+    best = torch.empty(n_pts, dtype=torch.long, device=points.device)
+    step = max(1, _CENTROID_PAIRS // tile)
+    for p0 in range(0, n_pts, step):
+        px, py, pz = (points[p0:p0 + step, a, None] for a in range(3))
+        best_d = torch.full((px.shape[0],), math.inf, dtype=points.dtype,
+                            device=points.device)
+        best_i = torch.zeros(px.shape[0], dtype=torch.long,
+                             device=points.device)
+        for base in range(0, centroids.shape[0], tile):
+            c = centroids[base:base + tile]
+            dot = px * c[:, 0]
+            dot += py * c[:, 1]
+            dot += pz * c[:, 2]
+            d = cn_all[base:base + tile] - 2.0 * dot
+            tile_best = torch.argmin(d, dim=1)
+            tile_d = torch.gather(d, 1, tile_best[:, None])[:, 0]
+            better = tile_d < best_d
+            best_d = torch.where(better, tile_d, best_d)
+            best_i = torch.where(better, base + tile_best, best_i)
+        best[p0:p0 + step] = best_i
+    return best
+
+
+def orientation_sign(points: torch.Tensor, tri_verts: torch.Tensor
+                     ) -> torch.Tensor:
+    """Negated scalar triple product of the vectors point -> triangle
+    vertices (``set3d.f90:239-258``): positive outside a CCW-outward
+    surface."""
+    a = tri_verts[..., 0, :] - points
+    b = tri_verts[..., 1, :] - points
+    c = tri_verts[..., 2, :] - points
+    return -torch.sum(torch.linalg.cross(a, b, dim=-1) * c, dim=-1)
+
+
+def subbox_ranges(grid: Grid3D, lo, hi, margin: int = 3):
+    """Index sub-box per axis, clamped to the grid (set3d.f90:180-186)."""
+    ranges = []
+    for a in range(3):
+        i0 = int(math.floor((lo[a] - grid.origin[a]) / grid.dx)) - margin
+        i1 = int(math.floor((hi[a] - grid.origin[a]) / grid.dx)) + margin
+        ranges.append((max(i0, 0), min(i1, grid.shape[a] - 1)))
+    return ranges
+
+
+def initialize_sign_field(grid: Grid3D, vertices, elements, *,
+                          dtype=torch.float32, device=None, tile: int = 512,
+                          margin: int = 3) -> torch.Tensor:
+    """Reference-parity smeared +-1 inside/outside field, +1 far field
+    (``init_sign.py:1091-1125`` of the JAX package; ``set3d.f90:196-268``).
+
+    Nearest *centroid* search over the grid points of the bbox +- margin
+    sub-box, the triple-product sign of that triangle, smeared with gM = 1
+    (:func:`~.sign.smeared_sign`).  ``vertices`` is a numpy array or a
+    tensor, ``device`` defaults to its (the CPU for numpy).  No kernel:
+    PyTorch tensor ops on ``device``."""
+    from .sign import smeared_sign
+    if isinstance(vertices, torch.Tensor):
+        v = vertices.detach().to(dtype=dtype, device=device or
+                                 vertices.device)
+    else:
+        v = torch.as_tensor(np.asarray(vertices), dtype=dtype,
+                            device=device or "cpu")
+    elems = torch.as_tensor(np.asarray(
+        elements.cpu() if isinstance(elements, torch.Tensor) else elements),
+        dtype=torch.long, device=v.device)
+    tri = v[elems]
+    centroids = tri.mean(dim=1)
+
+    host_v = v.cpu().numpy()
+    (i0, i1), (j0, j1), (k0, k1) = subbox_ranges(
+        grid, host_v.min(axis=0), host_v.max(axis=0), margin)
+    ni, nj, nk = i1 - i0 + 1, j1 - j0 + 1, k1 - k0 + 1
+    xs, ys, zs = (grid.origin[a] + grid.dx * (o + torch.arange(
+        n, dtype=dtype, device=v.device))
+        for a, o, n in ((0, i0, ni), (1, j0, nj), (2, k0, nk)))
+    gx, gy, gz = torch.meshgrid(xs, ys, zs, indexing="ij")
+    points = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+    nearest = nearest_centroid(points, centroids, tile=tile)
+    ps = orientation_sign(points, tri[nearest])
+    sgn = smeared_sign(ps, torch.tensor(grid.dx, dtype=dtype,
+                                        device=v.device),
+                       torch.tensor(1.0, dtype=dtype, device=v.device))
+    phi = torch.ones(grid.shape, dtype=dtype, device=v.device)
+    phi[i0:i1 + 1, j0:j1 + 1, k0:k1 + 1] = sgn.reshape(ni, nj, nk)
+    return phi

@@ -38,8 +38,10 @@ to six slabs of bricks, not four strips of tiles; the min/max halo is one
 cell wide; the solver loops are Python loops with one host read of the
 global sum per check; the adjoints gather from a wider halo (6 cells for
 K5, 2 for K6) where the JAX route scatters onto the halo and sends it back
-with :func:`~.halo.halo_exchange_transpose`.  Left out: the in-loop metrics
-stream and ``dryrun``.
+with :func:`~.halo.halo_exchange_transpose`; the metrics stream gets one
+event per check for the whole mesh (the JAX package emits from shard
+(0, 0, 0), with that shard's tile count), whose ``band_tiles`` is the
+active bricks of every shard.  Left out: ``dryrun``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch.nn.functional as F
 from ..ops import minmax_cuda, reverse, weno_cuda
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
+from ..utils.metrics import emit_iteration
 from .halo import crop, halo_exchange, local_offsets, refresh_halos
 from .mesh import ShardMesh, gather_blocks, make_mesh, split_blocks
 
@@ -388,13 +391,17 @@ class ShardedLevelSet:
     min/max: one solve-long mask); ``overlap`` (k = 1, dense) runs the
     exchange beside the interior launch.  Every block step is the K1/K3
     block-mode kernel on CUDA blocks and its plain version on CPU blocks.
+    ``metrics_every``: one metrics event per check for the whole mesh
+    (``"reinit"`` / ``"minmax"``) when the iteration count is a multiple.
     """
 
     def __init__(self, mesh: ShardMesh, gshape, dx: float, *,
                  eps_scale=1e-6, eps_floor=None, quirk_y_p5_zero=False,
                  steps_per_exchange: int = 1, narrow_band: bool = False,
-                 band_radius: float = 8.1, overlap: bool = False):
+                 band_radius: float = 8.1, overlap: bool = False,
+                 metrics_every: int = 0):
         self.mesh = mesh
+        self.metrics_every = int(metrics_every)
         self.mesh_shape = tuple(mesh.shape)
         self.gshape = tuple(int(g) for g in gshape)
         self.dx = dx
@@ -493,6 +500,8 @@ class ShardedLevelSet:
                                                  self.k, True)
             n += self.k
             rms = _global_rms(dsqs, self.gshape)
+            emit_iteration("reinit", self.metrics_every, n, rms,
+                           cells=math.prod(self.gshape))
             if rms < tol or math.isnan(rms):
                 break
         return [crop(p, self.widths).contiguous() for p in pads], n, rms
@@ -515,6 +524,8 @@ class ShardedLevelSet:
                 actives=actives, with_rms=True)
             n += 1
             rms = _global_rms(dsqs, self.gshape)
+            emit_iteration("minmax", self.metrics_every, n, rms,
+                           band_tiles=actives, cells=math.prod(self.gshape))
             if rms < tol or math.isnan(rms):
                 break
         return [crop(p, self.mwidths).contiguous() for p in pads], n, rms

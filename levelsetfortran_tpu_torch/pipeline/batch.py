@@ -41,7 +41,7 @@ from ..io.s3d import read_s3d, write_s3d
 from ..io.stl import SurfaceMesh, read_stl
 from ..io.vti import write_vti
 from ..ops import minmax_cuda, weno_cuda
-from ..ops.init_sign import signed_distance_init
+from ..ops.init_sign import initialize_sign_field, signed_distance_init
 from ..ops.weno_cuda import np_dtype, packed_vector
 from ..solvers.advect import advect_nodes
 from ..solvers.minmax_flow import minmax_flow
@@ -200,12 +200,19 @@ def run_batch(inputs: Sequence[MeshLike],
     log_event("batch_grid", shape=list(shape), b=len(meshes), dx=cfg.dx,
               device=str(device))
 
-    culling = None if cfg.init_culling == "off" else "auto"
-    phi0 = torch.stack([
-        signed_distance_init(g, m.vertices, m.elements, dtype=dtype,
-                             device=device, culling=culling,
-                             cull_block=cfg.init_cull_block)
-        for g, m in zip(grids, meshes)])
+    # per-geometry init, either mode (JAX batch.py:358-363)
+    if cfg.init_mode == "distance":
+        culling = None if cfg.init_culling == "off" else "auto"
+
+        def init(g, m):
+            return signed_distance_init(
+                g, m.vertices, m.elements, dtype=dtype, device=device,
+                culling=culling, cull_block=cfg.init_cull_block)
+    else:
+        def init(g, m):
+            return initialize_sign_field(g, m.vertices, m.elements,
+                                         dtype=dtype, device=device)
+    phi0 = torch.stack([init(g, m) for g, m in zip(grids, meshes)])
     sync()
     timer.mark("search")
 

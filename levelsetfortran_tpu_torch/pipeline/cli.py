@@ -1,7 +1,8 @@
 """Command line: ``python -m levelsetfortran_tpu_torch <mesh.stl> [...]``.
 
-Flags for every field of the port's config (the JAX package's CLI, less
-the checkpoint, data-parallel and init-mode flags the port lacks).  One
+Flags for every field of the port's config: the JAX package's CLI, less
+``--data-parallel`` (several processes are not ported) and
+``--use-pallas`` (the device picks the kernel), plus ``--device``.  One
 input runs the pipeline (``run``); several run as one batch
 (``run_batch``), one output directory and one printed line per geometry.
 """
@@ -31,6 +32,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "its own convergence)")
     p.add_argument("--dx", type=float, default=d.dx)
     p.add_argument("--pad-cells", type=int, default=d.pad_cells)
+    p.add_argument("--init-mode", choices=["distance", "reference"],
+                   default=d.init_mode,
+                   help="'distance': exact point-triangle SDF init; "
+                        "'reference': the reference's smeared +-1 "
+                        "nearest-centroid field (set3d.f90:196-268)")
     p.add_argument("--init-culling", choices=["auto", "off"],
                    default=d.init_culling,
                    help="per-block candidate triangle culling of the init")
@@ -74,6 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nb-refresh-every", type=int, default=d.nb_refresh_every)
     p.add_argument("--minmax-nb-refresh-every", type=int,
                    default=d.minmax_nb_refresh_every)
+    p.add_argument("--metrics-every", type=int, default=d.metrics_every,
+                   help="emit in-loop {iteration, rms, cells/s} events every "
+                        "N iterations (0 = off; subs.f90:923 analogue)")
     p.add_argument("--quirks", default="",
                    help="comma-separated reference-as-written quirk flags "
                         "(weno_y_p5_zero,deriv8_y_jp1,deriv1_plus_sign) "
@@ -105,6 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "the interior launch runs beside the halo copies, "
                         "the shell bricks after arrival; needs --narrow-band "
                         "off and --steps-per-exchange 1")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="enable checkpoint/resume for the solver stages "
+                        "(composes with --mesh-shape: sharded fields "
+                        "save/restore block by block)")
+    p.add_argument("--checkpoint-chunk", type=int, default=d.checkpoint_chunk)
     return p
 
 
@@ -122,7 +136,7 @@ def config_from_args(args) -> LevelSetConfig:
     return LevelSetConfig(
         mesh_shape=mesh_shape, steps_per_exchange=args.steps_per_exchange,
         overlap=args.overlap, gather_results=args.gather_results,
-        dx=args.dx, pad_cells=args.pad_cells,
+        dx=args.dx, pad_cells=args.pad_cells, init_mode=args.init_mode,
         init_culling=args.init_culling, init_cull_block=args.init_cull_block,
         reinit_iters=args.reinit_iters, reinit_cfl=args.reinit_cfl,
         reinit_tol=args.reinit_tol, minmax_iters=args.minmax_iters,
@@ -139,6 +153,9 @@ def config_from_args(args) -> LevelSetConfig:
         weno_eps_floor=args.weno_eps_floor, narrow_band=args.narrow_band,
         nb_refresh_every=args.nb_refresh_every,
         minmax_nb_refresh_every=args.minmax_nb_refresh_every,
+        metrics_every=args.metrics_every,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_chunk=args.checkpoint_chunk,
         dtype={"float32": torch.float32, "float64": torch.float64}[args.dtype],
         device=args.device,
         quirks=QuirkConfig(**{q: True for q in qnames}))

@@ -8,6 +8,15 @@ and stays in blocks from the init to the outputs: sharded init,
 :class:`~..parallel.sharded.ShardedLevelSet` for the three solver stages,
 sharded advection, ``.vti`` files streamed in z-slabs.  It is the way to
 run a grid that one device does not hold.
+
+With ``config.checkpoint_dir`` the initial reinit and the min/max flow run
+as chunked, resumable solves (:mod:`..solvers.checkpointed`) that save
+their state into ``<dir>/reinit`` and ``<dir>/minmax`` every
+``checkpoint_chunk`` iterations, with or without a mesh; a run on the same
+directory resumes where a preempted one stopped.  Without a mesh these are
+the dense solvers, as in the JAX package.  ``init_mode="reference"``
+starts from the reference's smeared +-1 field, whose far field only a
+dense initial reinit grows to distance (:func:`_banded`).
 """
 
 from __future__ import annotations
@@ -25,12 +34,17 @@ from ..grid import grid as gridmod
 from ..io.s3d import read_s3d, write_s3d
 from ..io.stl import SurfaceMesh, read_stl
 from ..io.vti import write_vti, write_vti_streaming
-from ..ops.init_sign import signed_distance_init, signed_distance_init_sharded
+from ..ops.init_sign import (initialize_sign_field, signed_distance_init,
+                              signed_distance_init_sharded)
 from ..parallel.mesh import default_devices, factor3, make_mesh
 from ..parallel.sharded import ShardedLevelSet, advect_nodes_sharded
 from ..solvers.advect import advect_nodes
+from ..solvers.checkpointed import (minmax_resumable,
+                                    minmax_resumable_sharded,
+                                    reinit_resumable, reinit_resumable_sharded)
 from ..solvers.minmax_flow import minmax_flow, minmax_flow_narrowband
 from ..solvers.reinit import reinit, reinit_narrowband, rms_denominator
+from ..utils.checkpoint import FieldCheckpointer
 from ..utils.logging import StageTimer, log_event
 
 
@@ -83,10 +97,6 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir: checkpointed, resumable solves (with and "
-            "without a mesh) are not ported yet: ROADMAP Queue 1 item 9")
     if cfg.mesh_shape:
         return _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
                                  write_outputs)
@@ -96,42 +106,63 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     dxx = cfg.dx / gridmod.surface_diag(mesh.vertices)   # set3d.f90:301
     log_event("grid", shape=list(grid.shape), dx=cfg.dx, device=str(device))
 
-    # --- exact signed-distance init ---
-    phi0 = signed_distance_init(
-        grid, mesh.vertices, mesh.elements, dtype=dtype, device=device,
-        culling=None if cfg.init_culling == "off" else "auto",
-        cull_block=cfg.init_cull_block)
+    # --- inside/outside classification (set3d.f90:196-268) ---
+    if cfg.init_mode == "distance":
+        phi0 = signed_distance_init(
+            grid, mesh.vertices, mesh.elements, dtype=dtype, device=device,
+            culling=None if cfg.init_culling == "off" else "auto",
+            cull_block=cfg.init_cull_block)
+    else:
+        phi0 = initialize_sign_field(grid, mesh.vertices, mesh.elements,
+                                     dtype=dtype, device=device)
     sync()
     timer.mark("search")                    # set3d.f90:271-273
 
-    # --- initial reinitialization (set3d.f90:298-308) ---
-    # "auto" and "on" band both reinits (the distance init is already
-    # |grad| = 1, and the final reinit starts from a converged SDF)
-    banded = _banded(cfg)
     rkw = dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,
                quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero)
-    if banded:
-        r = reinit_narrowband(phi0, cfg.dx, cfg.reinit_cfl * dxx,
-                              cfg.reinit_iters, cfg.reinit_tol,
+    fkw = dict(rkw, metrics_every=cfg.metrics_every)
+    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
+    h_r, h_m = cfg.reinit_cfl * dxx, cfg.minmax_cfl * dxx
+    # --- initial reinitialization (set3d.f90:298-308) ---
+    # checkpointed: chunked dense solves with resume and no metrics, as in
+    # the JAX package (run.py:229-256)
+    if cfg.checkpoint_dir:
+        with FieldCheckpointer(
+                os.path.join(cfg.checkpoint_dir, "reinit")) as ck:
+            r = reinit_resumable(phi0, cfg.dx, h_r, cfg.reinit_iters,
+                                 cfg.reinit_tol, ckpt=ck,
+                                 chunk=cfg.checkpoint_chunk, **rkw)
+    elif _banded(cfg, initial=True):
+        r = reinit_narrowband(phi0, cfg.dx, h_r, cfg.reinit_iters,
+                              cfg.reinit_tol,
                               band_radius=cfg.stencil_band_radius,
-                              refresh_every=cfg.nb_refresh_every, **rkw)
+                              refresh_every=cfg.nb_refresh_every, **fkw)
     else:
-        r = reinit(phi0, cfg.dx, cfg.reinit_cfl * dxx, cfg.reinit_iters,
-                   cfg.reinit_tol, **rkw)
+        r = reinit(phi0, cfg.dx, h_r, cfg.reinit_iters, cfg.reinit_tol,
+                   **fkw)
     phi_init = r.phi
     sync()
     timer.mark("initialization")            # set3d.f90:314-316
 
     # --- min/max smoothing (set3d.f90:394-462) ---
-    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
-    if banded and cfg.minmax_avg_halfwidth == 1:
+    if cfg.checkpoint_dir:
+        with FieldCheckpointer(
+                os.path.join(cfg.checkpoint_dir, "minmax")) as ck:
+            m = minmax_resumable(phi_init, cfg.dx, h_m, cfg.minmax_iters,
+                                 cfg.minmax_tol, ckpt=ck,
+                                 chunk=cfg.checkpoint_chunk,
+                                 avg_halfwidth=cfg.minmax_avg_halfwidth,
+                                 **mkw)
+    elif _banded(cfg, initial=False) and cfg.minmax_avg_halfwidth == 1:
         m = minmax_flow_narrowband(
-            phi_init, cfg.dx, cfg.minmax_cfl * dxx, cfg.minmax_iters,
-            cfg.minmax_tol, refresh_every=cfg.minmax_nb_refresh_every, **mkw)
+            phi_init, cfg.dx, h_m, cfg.minmax_iters, cfg.minmax_tol,
+            refresh_every=cfg.minmax_nb_refresh_every,
+            metrics_every=cfg.metrics_every, **mkw)
     else:
-        m = minmax_flow(phi_init, cfg.dx, cfg.minmax_cfl * dxx,
-                        cfg.minmax_iters, cfg.minmax_tol,
-                        avg_halfwidth=cfg.minmax_avg_halfwidth, **mkw)
+        m = minmax_flow(phi_init, cfg.dx, h_m, cfg.minmax_iters,
+                        cfg.minmax_tol,
+                        avg_halfwidth=cfg.minmax_avg_halfwidth,
+                        metrics_every=cfg.metrics_every, **mkw)
     phi_smoothed = m.phi
     sync()
     timer.mark("minmax")
@@ -155,11 +186,11 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     # --- final reinit (set3d.f90:576-582) ---
     fargs = (phi_smoothed, cfg.dx, cfg.final_reinit_cfl * dxx,
              cfg.final_reinit_iters, cfg.reinit_tol)
-    if banded:
+    if _banded(cfg, initial=False):
         rf = reinit_narrowband(*fargs, band_radius=cfg.stencil_band_radius,
-                               refresh_every=cfg.nb_refresh_every, **rkw)
+                               refresh_every=cfg.nb_refresh_every, **fkw)
     else:
-        rf = reinit(*fargs, **rkw)
+        rf = reinit(*fargs, **fkw)
     sync()
     timer.mark("total")                     # set3d.f90:652-654
 
@@ -190,12 +221,22 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
         timers=dict(timer.marks))
 
 
-def _banded(cfg) -> bool:
-    """Whether the solver stages run on the narrow band: float32 only.
+def _banded(cfg, *, initial: bool) -> bool:
+    """Whether a solver stage runs on the narrow band (``run.py:42-57`` of
+    the JAX package).
+
     float64 takes the dense solvers, as in the JAX package, whose banded
     solvers fall back to the dense ones wherever their kernel does not
-    apply (every float64 run)."""
-    return cfg.narrow_band != "off" and cfg.dtype == torch.float32
+    apply (every float64 run).  "on"/"off" are forced.  "auto" bands every
+    stage except the initial reinit of a ``reference`` init: that field is
+    a smeared +-1 whose far field must be grown to distance by full-grid
+    relaxation, which frozen bricks would leave at +-1.  The min/max flow
+    and the final reinit ask with ``initial=False``."""
+    if cfg.dtype != torch.float32:
+        return False
+    if cfg.narrow_band != "auto":
+        return cfg.narrow_band == "on"
+    return not (initial and cfg.init_mode == "reference")
 
 
 def _host(t):
@@ -205,9 +246,12 @@ def _host(t):
 def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
                       write_outputs) -> PipelineResult:
     """The domain-decomposed pipeline (``run.py:108-228, 306-391`` of the
-    JAX package): every O(grid) field is a list of blocks throughout."""
+    JAX package): every O(grid) field is a list of blocks throughout, but
+    for a reference init, computed on the whole grid and then cut.  One
+    solver runs the three stages, banded as the initial reinit is
+    (``_banded(initial=True)``, as in the JAX package)."""
     dtype = cfg.dtype
-    banded = _banded(cfg)
+    banded = _banded(cfg, initial=True)
     if cfg.overlap and (cfg.narrow_band != "off"
                         or cfg.steps_per_exchange != 1):
         raise ValueError(
@@ -238,30 +282,60 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
         smesh, grid.shape, cfg.dx, eps_scale=cfg.weno_eps_scale,
         eps_floor=cfg.eps_floor, quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero,
         steps_per_exchange=cfg.steps_per_exchange, narrow_band=banded,
-        band_radius=cfg.stencil_band_radius, overlap=cfg.overlap)
+        band_radius=cfg.stencil_band_radius, overlap=cfg.overlap,
+        metrics_every=cfg.metrics_every)
     log_event("grid", shape=list(grid.shape), dx=cfg.dx, device=str(device),
               mesh=list(smesh.shape),
               devices=sorted({str(d) for d in smesh.devices}),
               steps_per_exchange=solver.k, narrow_band=banded,
               overlap=solver.use_overlap)
 
-    # --- sharded exact signed-distance init ---
-    phi0 = signed_distance_init_sharded(
-        grid, mesh.vertices, mesh.elements, smesh, dtype=dtype,
-        culling=None if cfg.init_culling == "off" else "auto",
-        cull_block=cfg.init_cull_block)
+    # --- init: sharded exact distance, or the whole-grid reference init
+    # cut into blocks (JAX run.py:149-152, 182, 208) ---
+    if cfg.init_mode == "distance":
+        phi0 = signed_distance_init_sharded(
+            grid, mesh.vertices, mesh.elements, smesh, dtype=dtype,
+            culling=None if cfg.init_culling == "off" else "auto",
+            cull_block=cfg.init_cull_block)
+    else:
+        phi0 = solver.device_put(initialize_sign_field(
+            grid, mesh.vertices, mesh.elements, dtype=dtype,
+            device=smesh.devices[0]))
     sync()
     timer.mark("search")
 
     # --- the solver stages on the blocks ---
-    phi_init, r_it, r_rms = solver.reinit(
-        phi0, cfg.reinit_cfl * dxx, cfg.reinit_iters, cfg.reinit_tol)
+    h_r, h_m = cfg.reinit_cfl * dxx, cfg.minmax_cfl * dxx
+    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
+    # checkpointed: resumable chunks of the sharded solvers, saved block by
+    # block (JAX run.py:173-214)
+    if cfg.checkpoint_dir:
+        with FieldCheckpointer(
+                os.path.join(cfg.checkpoint_dir, "reinit")) as ck:
+            rr = reinit_resumable_sharded(
+                solver, phi0, h_r, cfg.reinit_iters, cfg.reinit_tol,
+                ckpt=ck, chunk=cfg.checkpoint_chunk)
+        phi_init, r_it, r_rms, r_div = (rr.phi, rr.iterations,
+                                        rr.final_rms, rr.diverged)
+    else:
+        phi_init, r_it, r_rms = solver.reinit(
+            phi0, h_r, cfg.reinit_iters, cfg.reinit_tol)
+        r_div = math.isnan(r_rms)
     sync()
     timer.mark("initialization")
 
-    phi_smoothed, m_it, m_rms = solver.minmax_flow(
-        phi_init, cfg.minmax_cfl * dxx, cfg.minmax_iters, cfg.minmax_tol,
-        band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
+    if cfg.checkpoint_dir:
+        with FieldCheckpointer(
+                os.path.join(cfg.checkpoint_dir, "minmax")) as ck:
+            mm = minmax_resumable_sharded(
+                solver, phi_init, h_m, cfg.minmax_iters, cfg.minmax_tol,
+                ckpt=ck, chunk=cfg.checkpoint_chunk, **mkw)
+        phi_smoothed, m_it, m_rms, m_div = (mm.phi, mm.iterations,
+                                            mm.final_rms, mm.diverged)
+    else:
+        phi_smoothed, m_it, m_rms = solver.minmax_flow(
+            phi_init, h_m, cfg.minmax_iters, cfg.minmax_tol, **mkw)
+        m_div = math.isnan(m_rms)
     sync()
     timer.mark("minmax")
 
@@ -290,7 +364,6 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     timer.mark("total")
 
     advected_h = _host(adv.positions)
-    r_div, m_div = math.isnan(r_rms), math.isnan(m_rms)
     log_event("reinit", iterations=r_it, rms=r_rms, diverged=r_div)
     log_event("minmax", iterations=m_it, rms=m_rms, diverged=m_div)
     log_event("asymptotic_error", rms=asym)

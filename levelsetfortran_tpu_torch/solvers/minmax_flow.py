@@ -19,6 +19,7 @@ from ..ops.band import narrow_band
 from ..ops.minmax import minmax_rhs
 from ..ops.stencil import interior_mask
 from ..ops.weno_cuda import solve_buffers, tile_activity
+from ..utils.metrics import emit_iteration
 from .reinit import rms_denominator
 
 
@@ -40,10 +41,12 @@ def minmax_step(phi, dx, h1, *, band_radius=4.1, threshold=0.0,
 
 
 def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
-                threshold=0.0, avg_halfwidth=1) -> MinMaxResult:
-    """Up to ``iters`` dense steps with RMS early exit.  The default
-    half-width 1 runs kernel K3; other half-widths have no kernel (as in
-    the JAX package) and run :func:`minmax_step`."""
+                threshold=0.0, avg_halfwidth=1,
+                metrics_every: int = 0) -> MinMaxResult:
+    """Up to ``iters`` dense steps with RMS early exit; a ``"minmax"``
+    metrics event every ``metrics_every`` steps.  The default half-width 1
+    runs kernel K3; other half-widths have no kernel (as in the JAX
+    package) and run :func:`minmax_step`."""
     denom = rms_denominator(phi0.shape)
     bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
     sums = solve_buffers(phi0)
@@ -61,6 +64,7 @@ def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
             dsq = (d * d).sum()
         p, n = new, n + 1
         rms = math.sqrt(dsq.item() / denom)
+        emit_iteration("minmax", metrics_every, n, rms, cells=phi0.numel())
         if rms < tol or math.isnan(rms):
             break
     return MinMaxResult(p, n, rms, math.isnan(rms))
@@ -68,7 +72,8 @@ def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
 
 def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
                            band_radius=4.1, threshold=0.0,
-                           refresh_every: int = 16) -> MinMaxResult:
+                           refresh_every: int = 16,
+                           metrics_every: int = 0) -> MinMaxResult:
     """Narrow-band min/max flow on the fused-K kernel (``minmax_flow.py:
     155-316`` of the JAX package); equal to the dense solve bitwise.
 
@@ -76,13 +81,17 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     pairs`` calls per chunk (a mint call, then zero-copy ping-pong pairs),
     the ``owned`` brick mask refreshed per chunk (exact: a cell updates
     only when its own value is in band).  Full chunks run while they fit;
-    an exact single-step tail (kernel K3) finishes the count.
+    an exact single-step tail (kernel K3) finishes the count.  Metrics
+    events (``"minmax_narrowband"``) fire at chunk ends, ``metrics_every``
+    rounded to a whole number of chunks; the tail emits none.
     """
     denom = rms_denominator(phi0.shape)
     K = 4 if min(phi0.shape) >= 16 else 1
     pairs = max(0, (refresh_every // K) // 2)
     calls = 1 + 2 * pairs
     chunk_steps = K * calls
+    every = (chunk_steps * max(1, metrics_every // chunk_steps)
+             if metrics_every else 0)
     if iters <= 0:
         return MinMaxResult(phi0, 0, math.inf, False)
     args = (dx, h1, band_radius, threshold)
@@ -98,6 +107,8 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
         n += chunk_steps
         dsq = r[1]
         rms = math.sqrt(dsq.item() / denom)
+        emit_iteration("minmax_narrowband", every, n, rms, band_tiles=active,
+                       cells=phi0.numel())
         done = rms < tol or math.isnan(rms)
     rem = 0 if done else iters - n
     if rem:

@@ -21,6 +21,7 @@ from ..ops import reverse, weno_cuda
 from ..ops.sign import smeared_sign
 from ..ops.stencil import boundary_extrapolate, interior_mask
 from ..ops.weno import weno_godunov
+from ..utils.metrics import emit_iteration
 
 
 class ReinitResult(NamedTuple):
@@ -50,8 +51,10 @@ def rms_denominator(shape) -> int:
 
 
 def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
-           eps_floor=None, quirk_y_p5_zero=False) -> ReinitResult:
-    """Up to ``iters`` dense steps, stopping at RMS < tol or NaN."""
+           eps_floor=None, quirk_y_p5_zero=False,
+           metrics_every: int = 0) -> ReinitResult:
+    """Up to ``iters`` dense steps, stopping at RMS < tol or NaN; a
+    ``"reinit"`` metrics event every ``metrics_every`` steps."""
     sign = phi0 if sign_src is None else sign_src
     denom = rms_denominator(phi0.shape)
     bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
@@ -64,6 +67,7 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
             bufs=sums)
         n += 1
         rms = math.sqrt(dsq.item() / denom)
+        emit_iteration("reinit", metrics_every, n, rms, cells=phi0.numel())
         if rms < tol or math.isnan(rms):
             break
     return ReinitResult(p, n, rms, math.isnan(rms))
@@ -71,7 +75,8 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
 
 def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
                       refresh_every: int = 8, sign_src=None, eps_scale=1e-6,
-                      eps_floor=None, quirk_y_p5_zero=False) -> ReinitResult:
+                      eps_floor=None, quirk_y_p5_zero=False,
+                      metrics_every: int = 0) -> ReinitResult:
     """Narrow-band reinitialization (``reinit.py:185-355`` of the JAX
     package), at 8^3-brick granularity.
 
@@ -83,13 +88,16 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
     cells are the same.  The chunk's last step carries the fused RMS, so
     iterations advance in chunks of ``1 + 2 * (refresh_every // 2)``.
     Frozen bricks keep their values; in band the field equals the dense
-    solver's up to the sub-tolerance far-field residual.
+    solver's up to the sub-tolerance far-field residual.  Metrics events
+    (``"reinit_narrowband"``) fire at chunk ends: ``metrics_every`` is
+    rounded to a whole number of chunks.
     """
     sign = phi0 if sign_src is None else sign_src
     denom = rms_denominator(phi0.shape)
     pairs = refresh_every // 2
     chunk = 1 + 2 * pairs
     margin = chunk * h / dx
+    every = chunk * max(1, metrics_every // chunk) if metrics_every else 0
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
               quirk_y_p5_zero=quirk_y_p5_zero,
               bufs=weno_cuda.solve_buffers(phi0))
@@ -105,6 +113,8 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
             p, q = q, p
         n += chunk
         rms = math.sqrt(r[1].item() / denom)
+        emit_iteration("reinit_narrowband", every, n, rms, band_tiles=active,
+                       cells=phi0.numel())
         if rms < tol or math.isnan(rms):
             break
     return ReinitResult(p, n, rms, math.isnan(rms))

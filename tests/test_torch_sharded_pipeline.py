@@ -12,6 +12,7 @@ other way when the candidates arrive in another order), 0 on the cubes.
 """
 
 import dataclasses
+import os
 import sys
 
 import jax.numpy as jnp
@@ -227,19 +228,21 @@ def test_auto_mesh_on_the_cpu_is_one_shard(monkeypatch):
         np.testing.assert_array_equal(getattr(ours, f), getattr(ref, f), f)
 
 
-def test_mesh_run_raises_without_a_card_and_with_checkpoints():
+def test_mesh_run_raises_without_a_card_and_with_checkpoints(tmp_path):
+    """Without a card the default device raises, with or without a mesh and
+    with checkpoints too, before anything is written (checkpointed runs
+    themselves: tests/test_torch_pipeline_ops.py)."""
     mesh = icosphere_mesh(subdivisions=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_run.run_mesh(mesh, LevelSetConfig(
-            device="cpu", mesh_shape=(2, 2, 1), checkpoint_dir="ckpt"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_run.run_mesh(mesh, LevelSetConfig(device="cpu",
-                                               checkpoint_dir="ckpt"))
     with pytest.raises(ValueError):
         LevelSetConfig(mesh_shape=(2, 2))
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            port_run.run_mesh(mesh, LevelSetConfig(mesh_shape=(2, 2, 1)))
+        ck = str(tmp_path / "ckpt")
+        for extra in (dict(mesh_shape=(2, 2, 1)),
+                      dict(mesh_shape=(2, 2, 1), checkpoint_dir=ck),
+                      dict(checkpoint_dir=ck)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                port_run.run_mesh(mesh, LevelSetConfig(**extra))
+        assert not os.path.exists(ck)
 
 
 @pytest.mark.parametrize("extra,exc,match", [
