@@ -43,7 +43,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      against the solo dense solvers on the same init, bitwise;
   6. the block modes of K1 and K3 (phase 2c: one shard's halo-padded block
      of a domain-decomposed grid) on a (2,2,1) split of the 222^3 sphere
-     field and a (2,2,2) split of (66, 46, 38): against their plain
+     field (times taken here), its (2,1,1) split (run J's other mesh) and
+     a (2,2,2) split of (66, 46, 38): against their plain
      versions over the whole padded output, the gathered field against the
      solo kernel on the whole grid (bitwise), the owned-range sums against
      the solo sum, two steps per exchange and the overlapped step against
@@ -87,9 +88,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      metrics event every 9 iterations: no wrong sign farther than 2 dx
      from the sphere, phi_init's near-surface error under 2 dx, the events
      at the banded cadences; then ``measure_cell_updates_per_sec`` on
-     dense K1 at 256^3 (the JAX package's headline shape).
+     dense K1 at 256^3 (the JAX package's headline shape);
+ 12. run K (after run E), run E's eight meshes with ``--data-parallel 2``
+     through the CLI and in process: two shares of four geometries, each
+     its own pack launch per step (on two cards, or both on one), the
+     fields, advected nodes and counts bitwise run E's, the outputs held to
+     run E's gates;
+ 13. run J, ``ShardedLevelSet`` on two ranks that this script starts
+     (``chip_smoke.py --rank ...``; NCCL with a card per rank, else gloo
+     with both ranks on the one card and the slabs through host memory, a
+     choice made before the run), on the kernel phases' 222^3 sphere cut
+     (2,1,1) and (2,2,1): 50 reinit steps at tol 0 with k = 1, k = 2, the
+     narrow band and the overlapped step, 50 min/max steps dense and
+     banded; every rank's blocks (sha256 of their bytes), iterations and
+     RMS bitwise the one-process solve here, the ranks' block-kernel
+     launches added to the record, the wall per step beside the one
+     process's; the ranks are killed after RANK_TIMEOUT seconds;
+ 14. ``parallel.dryrun(4)`` on the card(s), the kernels' counters read
+     around it (the block modes of K1, K3 and K5 must launch).
 The second-to-last line is the kernels' JSON record, the last line the
-device record.  Needs no network; starts one child process per run.
+device record.  Needs no network; starts one child process per CLI run and
+one per rank of run J, and waits for each.
 """
 
 from __future__ import annotations
@@ -1037,9 +1056,13 @@ def block_phase(record):
                                                          make_mesh,
                                                          split_blocks)
 
+    # (2, 1, 1) on the main shape is run J's other mesh: its padded blocks,
+    # (119, 222, 222) for K1 and (113, 222, 222) for K3, are held here too;
+    # the times are taken on (2, 2, 1)
     for shape, mshape, dx, radius in ((MAIN_SHAPE, (2, 2, 1), 0.01, 1.0),
+                                      (MAIN_SHAPE, (2, 1, 1), 0.01, 1.0),
                                       ((66, 46, 38), (2, 2, 2), 0.05, 0.6)):
-        main = shape == MAIN_SHAPE
+        main = (shape, mshape) == (MAIN_SHAPE, (2, 2, 1))
         mesh = make_mesh(mshape, ["cuda"])
         phi, sgn = sphere(shape, dx, radius), sphere(shape, dx, 1.1 * radius)
         h, h1 = 0.1 * dx / 3.0, 0.01 * dx / 3.0
@@ -1844,12 +1867,11 @@ def run_e_meshes():
     return meshes, truths, names, caps
 
 
-def run_e_phase(card, tmp):
-    """Phase 5: the batched serving path at full size.  Eight meshes
-    through the CLI with eight inputs and in process through run_batch
-    (its launch counters read around it), each geometry held to the run
-    A/B gates; then the packed solver stages held against the solo dense
-    solvers on the same init and h, bitwise."""
+def batch_run(label, card, tmp, extra=()):
+    """Run E's eight meshes through the CLI with eight inputs and in process
+    through run_batch (its launch counters read around it; ``extra``: more
+    CLI flags), each geometry held to the run A/B gates.  Returns the
+    launches, the items, the inits, the config and the walls."""
     import torch
     from levelsetfortran_tpu_torch import write_stl
     from levelsetfortran_tpu_torch.io.vti import read_vti
@@ -1858,30 +1880,30 @@ def run_e_phase(card, tmp):
     from levelsetfortran_tpu_torch.pipeline import batch
     from levelsetfortran_tpu_torch.pipeline.cli import (build_parser,
                                                         config_from_args)
-    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
-    from levelsetfortran_tpu_torch.solvers.reinit import reinit
     from levelsetfortran_tpu_torch.utils.logging import StageTimer
 
     meshes, truths, names, caps = run_e_meshes()
     paths = [os.path.join(tmp, f"{n}.stl") for n in names]
     for path, mesh in zip(paths, meshes):
         write_stl(path, mesh)
-    cli_dir = os.path.join(tmp, "E_cli")
+    cli_dir = os.path.join(tmp, f"{label}_cli")
     args = [*paths, "--dx", str(RUN_E_DX), "--advect-iters",
-            str(RUN_E_ADVECT_ITERS), "--out-dir", cli_dir]
+            str(RUN_E_ADVECT_ITERS), "--out-dir", cli_dir, *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "levelsetfortran_tpu_torch", *args],
         cwd=HERE, capture_output=True, text=True, timeout=900)
     cli_s = time.perf_counter() - t0
     check(proc.returncode == 0,
-          f"run E CLI failed:\n{proc.stdout}\n{proc.stderr[-4000:]}")
+          f"run {label} CLI failed:\n{proc.stdout}\n{proc.stderr[-4000:]}")
     lines = proc.stdout.strip().splitlines()
     check([ln.split("]")[0][1:] for ln in lines] == names,
-          f"run E CLI printed {lines}")
-    check('"strategy": "packed"' in proc.stderr, "run E CLI: not packed")
+          f"run {label} CLI printed {lines}")
+    check('"strategy": "packed"' in proc.stderr, f"run {label} CLI: not "
+          f"packed")
 
     cfg = config_from_args(build_parser().parse_args(args))
+    dp = build_parser().parse_args(args).data_parallel
     inits = []
     real_init = batch.signed_distance_init
 
@@ -1897,19 +1919,33 @@ def run_e_phase(card, tmp):
     timer = StageTimer()
     try:
         with Logged() as log:
-            items = batch.run_batch(paths, cfg, timer=timer)
+            items = batch.run_batch(paths, cfg, timer=timer,
+                                    data_parallel=dp)
     finally:
         batch.signed_distance_init = real_init
     launches = {c.__name__: c.launches for c in counters}
     strategy = [r["strategy"] for r in log.records
                 if r["stage"] == "batch_strategy"]
-    check(strategy == ["packed"], f"run E: strategy {strategy}")
-    check(launches["reinit_step_packed"] > 0
+    check(strategy == ["packed"], f"run {label}: strategy {strategy}")
+    check(cfg.device != "cuda" or launches["reinit_step_packed"] > 0
           and launches["minmax_step_packed"] > 0,
-          f"run E: pack kernels not launched {launches}")
+          f"run {label}: pack kernels not launched {launches}")
     check(all(launches[n] == 0 for n in ("reinit_step", "minmax_step",
                                          "minmax_fusedk")),
-          f"run E: solo kernels launched in the batched stages {launches}")
+          f"run {label}: solo kernels launched in the batched stages "
+          f"{launches}")
+    shares = [r for r in log.records if r["stage"] == "batch_dp"]
+    if dp:
+        visible = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                   if cfg.device == "cuda" else [cfg.device])
+        cards = [visible[i % len(visible)] for i in range(dp)]
+        check(len(shares) == 1 and shares[0]["devices"] == cards
+              and sum(shares[0]["shares"]) == len(names),
+              f"run {label}: shares {shares}")
+        check(f'"devices": {json.dumps(cards)}' in proc.stderr,
+              f"run {label} CLI: not on {cards}")
+    else:
+        check(not shares, f"run {label}: shares {shares}")
 
     shape = items[0].grid.shape
     dx = cfg.dx
@@ -1924,36 +1960,57 @@ def run_e_phase(card, tmp):
         cli_phi, _ = read_vti(os.path.join(cli_dir, name,
                                            "signedDistanceFunction.vti"))
         check(np.array_equal(cli_phi, it.phi_init),
-              f"run E {name}: CLI and run_batch fields differ")
+              f"run {label} {name}: CLI and run_batch fields differ")
         check(os.path.exists(os.path.join(cli_dir, name, f"{name}.s3d")),
-              f"run E {name}: CLI wrote no .s3d")
+              f"run {label} {name}: CLI wrote no .s3d")
         finite = all(np.isfinite(f).all() for f in
                      (it.phi_init, it.phi_smoothed, it.advected))
-        phase("run E", f"{name}: reinit_iters {it.reinit_iters}, "
+        phase(f"run {label}", f"{name}: reinit_iters {it.reinit_iters}, "
               f"minmax_iters {it.minmax_iters}, asymptotic_error "
               f"{it.asymptotic_error:.4g}, sdf near-surface max err "
               f"{e_sdf.max():.4g}, smoothed median err "
               f"{np.median(e_smooth):.4g}, advected max |sdf| "
               f"{adv.max():.4g} = {adv.max() / dx:.3g} dx (cap "
               f"{cap.min() / dx:g}-{cap.max() / dx:g} dx)")
-        check(e_sdf.max() < 5e-3, f"run E {name}: sdf error {e_sdf.max()}")
+        check(e_sdf.max() < 5e-3, f"run {label} {name}: sdf error "
+              f"{e_sdf.max()}")
         check(np.median(e_smooth) < 6e-3,
-              f"run E {name}: smoothed median error")
-        check((adv <= cap).all(), f"run E {name}: advected {adv.max()}")
-        check(it.reinit_iters < cfg.reinit_iters, f"run E {name}: cap")
-        check(finite, f"run E {name}: non-finite output")
+              f"run {label} {name}: smoothed median error")
+        check((adv <= cap).all(), f"run {label} {name}: advected "
+              f"{adv.max()}")
+        check(it.reinit_iters < cfg.reinit_iters, f"run {label} {name}: cap")
+        check(finite, f"run {label} {name}: non-finite output")
     marks = timer.marks
     stages = {"init": marks["search"],
               "reinit": marks["initialization"] - marks["search"],
               "minmax": marks["minmax"] - marks["initialization"],
               "advect": marks["advect"] - marks["minmax"],
               "outputs": marks["total"] - marks["advect"]}
-    phase("run E", f"{len(items)} geometries on {shape} (dx {dx}, "
+    where = (f"{dp} shares {shares[0]['shares']} on {shares[0]['devices']}"
+             if dp else "one batch")
+    phase(f"run {label}", f"{len(items)} geometries on {shape} (dx {dx}, "
           f"{len(items) * int(np.prod(shape))} cells stacked, "
           f"{cfg.advect_iters} advection iterations), strategy packed, "
-          f"launches {launches}; run_batch wall {marks['total']:.3f}"
-          f" s: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          f"{where}, launches {launches}; run_batch wall "
+          f"{marks['total']:.3f} s: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in stages.items())
           + f"; CLI {cli_s:.1f} s; card {card}")
+    return launches, items, inits, cfg, (marks["total"], cli_s)
+
+
+def run_e_phase(card, tmp):
+    """Phase 5: the batched serving path at full size (:func:`batch_run`);
+    then the packed solver stages held against the solo dense solvers on
+    the same init and h, bitwise.  Returns the launches and the batch's
+    items and walls (run K's reference)."""
+    import torch
+    from levelsetfortran_tpu_torch.pipeline import batch
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+
+    launches, items, inits, cfg, walls = batch_run("E", card, tmp)
+    meshes, _, names, _ = run_e_meshes()
+    dx = cfg.dx
 
     # the packed solver stages against the solo dense solvers, same init
     phi0 = torch.stack(inits)
@@ -1987,8 +2044,282 @@ def run_e_phase(card, tmp):
           f"packed {t_rp:.3f} s vs sequential {t_rs:.3f} s, min/max "
           f"{max(mp.iterations)} steps packed {t_mp:.3f} s vs sequential "
           f"{t_ms:.3f} s; card {card}")
+    return launches, items, walls
+
+
+
+def run_k_phase(card, tmp, run_e):
+    """Phase 5b: run E with ``--data-parallel 2`` through the CLI and in
+    process: two shares of four geometries, each its own pack launch per
+    step (on two cards, or both on the one card), the solver fields, the
+    advected nodes and the counts bitwise run E's."""
+    items_e, (wall_e, cli_e) = run_e
+    launches, items, _, _, (wall, cli_s) = batch_run(
+        "K", card, tmp, ["--data-parallel", "2"])
+    for a, b in zip(items, items_e):
+        check((a.reinit_iters, a.minmax_iters) == (b.reinit_iters,
+                                                    b.minmax_iters)
+              and all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+                      ("phi_init", "phi_smoothed", "advected")),
+              f"run K {a.name}: differs from run E")
+    phase("run K", f"counts equal and fields and advected nodes bitwise "
+          f"run E's for all {len(items)} geometries; run_batch wall "
+          f"{wall:.3f} s (run E {wall_e:.3f} s), CLI {cli_s:.1f} s (run E "
+          f"{cli_e:.1f} s); card {card}")
     return launches
 
+
+# --------------------------- several processes ---------------------------
+
+#: Run J: two ranks on a mesh split across them, each case at tol 0 for
+#: RUN_J_STEPS steps on the kernel phases' 222^3 sphere, against the
+#: one-process solve.  Cases: (label, solver, ShardedLevelSet keywords).
+RUN_J_MESHES = ((2, 1, 1), (2, 2, 1))
+RUN_J_STEPS = 50
+RUN_J_CASES = (("reinit k=1", "reinit", {}),
+               ("reinit k=2", "reinit", {"steps_per_exchange": 2}),
+               ("reinit banded", "reinit", {"narrow_band": True}),
+               ("reinit overlap", "reinit", {"overlap": True}),
+               ("minmax dense", "minmax", {}),
+               ("minmax banded", "minmax", {"narrow_band": True}))
+#: Seconds the ranks of one run may take before they are killed.
+RANK_TIMEOUT = 600
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes: the ranks and the parent compare blocks
+    bitwise through it without moving the fields."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def rank_cases(spec, phi, devices=None):
+    """Every (mesh, case) of ``spec`` on ``phi`` with ShardedLevelSet at tol
+    0, in this process (a mesh across the processes under a group): per
+    solve the iterations, the RMS, each local block's digest and the wall
+    per step (host clock, synchronised), after one warm-up solve."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    gshape, dx = tuple(phi.shape), spec["dx"]
+    out = []
+    for mesh_shape in spec["meshes"]:
+        mesh = make_mesh(mesh_shape, devices)
+        for warm, (label, kind, kw, steps, step) in (
+                [(True, spec["cases"][0])]
+                + [(False, c) for c in spec["cases"]]):
+            s = sh.ShardedLevelSet(mesh, gshape, dx, **kw)
+            check(not kw.get("overlap") or s.use_overlap,
+                  f"{label}: the overlapped step did not engage")
+            blocks = s.device_put(phi)
+            sync()
+            t0 = time.perf_counter()
+            fn = s.reinit if kind == "reinit" else s.minmax_flow
+            res, n, rms = fn(blocks, step, 2 if warm else steps, 0.0)
+            sync()
+            dt = time.perf_counter() - t0
+            if warm:
+                continue
+            out.append({"mesh": list(mesh_shape), "case": label, "n": n,
+                        "rms": rms, "step_ms": 1e3 * dt / steps,
+                        "blocks": {str(i): digest(b)
+                                   for i, b in enumerate(res)
+                                   if b is not None}})
+    return out
+
+
+def rank_main(argv) -> int:
+    """One rank of a run across processes (``chip_smoke.py --rank R --world
+    W --port P --backend B --spec FILE --out FILE``): join the group, run
+    the spec's cases, write the results and the block kernels' launch
+    counts."""
+    import argparse
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import distributed
+    p = argparse.ArgumentParser()
+    for name in ("--rank", "--world", "--port"):
+        p.add_argument(name, type=int, required=True)
+    for name in ("--backend", "--spec", "--out"):
+        p.add_argument(name, required=True)
+    a = p.parse_args(argv)
+    with open(a.spec) as f:
+        spec = json.load(f)
+    check(distributed.init_distributed(
+        f"127.0.0.1:{a.port}", a.world, a.rank, backend=a.backend,
+        device=spec["device"]), "no process group")
+    phi = torch.load(spec["field"])
+    devices = None if spec["device"] == "cuda" else [spec["device"]]
+    if devices:
+        torch.set_num_threads(1)      # ranks that share the host's cores
+    counters = (wc.reinit_step_block, mc.minmax_step_block)
+    for c in counters:
+        c.launches = 0
+    results = rank_cases(spec, phi, devices)
+    launches = {c.__name__: c.launches for c in counters}
+    dev = (f"cuda:{torch.cuda.current_device()}"
+           if spec["device"] == "cuda" else "cpu")
+    torch.distributed.destroy_process_group()
+    with open(a.out, "w") as f:
+        json.dump({"rank": a.rank, "device": dev, "backend": a.backend,
+                   "results": results, "launches": launches}, f)
+    return 0
+
+
+def rank_backend(world, device="cuda"):
+    """NCCL when every rank has a card of its own, else gloo (two ranks on
+    one card: NCCL refuses them, so their slabs pass through host memory).
+    Chosen here, never after a failure."""
+    import torch
+    if device == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(spec, world, backend, tmp, tag):
+    """Start ``world`` ranks of this script on ``spec``, wait for them
+    (killed after RANK_TIMEOUT s), and return their results."""
+    spec_path = os.path.join(tmp, f"{tag}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs, logs, outs = [], [], []
+    for r in range(world):
+        outs.append(os.path.join(tmp, f"{tag}_rank{r}.json"))
+        logs.append(open(os.path.join(tmp, f"{tag}_rank{r}.log"), "w+"))
+        env = dict(os.environ, LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--world", str(world), "--port", str(port), "--backend",
+             backend, "--spec", spec_path, "--out", outs[-1]],
+            cwd=HERE, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    for r, (proc, text) in enumerate(zip(procs, texts)):
+        check(proc.returncode == 0, f"{tag} rank {r}: rc {proc.returncode} "
+              f"(killed after {RANK_TIMEOUT} s if negative):\n"
+              f"{text[-4000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def ranks_against_one(tag, spec, phi, ranks, card):
+    """Hold the ranks' results against the one-process solves in this
+    process, bitwise (block digests, counts, RMS); print the walls.
+    Returns the ranks' launches added up."""
+    one = rank_cases(spec, phi, None if spec["device"] == "cuda"
+                     else [spec["device"]])
+    for k, ref in enumerate(one):
+        got = [r["results"][k] for r in ranks]
+        blocks = {}
+        for g in got:
+            check(g["case"] == ref["case"] and g["mesh"] == ref["mesh"],
+                  f"{tag}: the ranks ran other cases")
+            check(g["n"] == ref["n"] and g["rms"] == ref["rms"],
+                  f"{tag} {ref['mesh']} {ref['case']}: iterations / RMS "
+                  f"{g['n']} / {g['rms']!r} on rank {got.index(g)}, one "
+                  f"process {ref['n']} / {ref['rms']!r}")
+            blocks.update(g["blocks"])
+        check(blocks == ref["blocks"],
+              f"{tag} {ref['mesh']} {ref['case']}: the ranks' blocks "
+              f"differ from the one-process solve")
+    lines = [f"{tuple(ref['mesh'])} {ref['case']} "
+             f"{max(r['results'][k]['step_ms'] for r in ranks):.3f} ms "
+             f"(one process {ref['step_ms']:.3f})"
+             for k, ref in enumerate(one)]
+    phase(tag, f"{len(ranks)} ranks on {[r['device'] for r in ranks]} over "
+          f"{ranks[0]['backend']}: every rank's blocks, the iterations and "
+          f"the RMS bitwise the one-process ShardedLevelSet for "
+          f"{len(one)} solves; wall per step (slowest rank): "
+          + "; ".join(lines) + f"; card {card}")
+    total = {}
+    for r in ranks:
+        for n, v in r["launches"].items():
+            total[n] = total.get(n, 0) + v
+    return total
+
+
+def run_j_phase(card, tmp, device="cuda", shape=MAIN_SHAPE, dx=0.01,
+                radius=1.0, steps=RUN_J_STEPS):
+    """Phase 12: run J, ShardedLevelSet on two ranks started here, on the
+    meshes (2,1,1) and (2,2,1) of the kernel phases' sphere (two shards
+    per rank on (2,2,1): same-rank copies and cross-rank slabs), with k =
+    1, k = 2, the narrow band and the overlapped step, and the min/max
+    flow dense and banded: every rank's blocks and RMS bitwise the
+    one-process solve.  Returns the ranks' block-kernel launches."""
+    import torch
+    backend = rank_backend(2, device)
+    phi = sphere(shape, dx, radius, device="cpu")
+    field = os.path.join(tmp, "J_field.pt")
+    torch.save(phi, field)
+    h, h1 = 0.1 * dx / 3.0, 0.01 * dx / 3.0
+    spec = {"device": device, "field": field, "dx": dx,
+            "meshes": [list(m) for m in RUN_J_MESHES],
+            "cases": [[label, kind, kw, steps, h if kind == "reinit" else h1]
+                      for label, kind, kw in RUN_J_CASES]}
+    phase("run J", f"2 ranks on {shape} over {backend} "
+          f"({torch.cuda.device_count() if device == 'cuda' else 0} "
+          f"card(s) visible)")
+    ranks = run_ranks(spec, 2, backend, tmp, "J")
+    launches = ranks_against_one("run J", spec, phi.to(device), ranks, card)
+    check(device != "cuda" or all(v > 0 for v in launches.values()) and all(
+        r["launches"]["reinit_step_block"] > 0 for r in ranks),
+          f"run J: block kernels not launched on every rank {launches}")
+    return launches
+
+
+def dryrun_phase(card, n=4, device="cuda"):
+    """Phase 13: the sharded dry run of the JAX package's multi-chip hook
+    on the card(s), every kernel's counter read around it.  Returns the
+    launches; on the card the block modes of K1 and K3 and K5's block mode
+    must be among them."""
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import dryrun
+    counters = [getattr(wc, k, None) or getattr(mc, k)
+                for k in kernel_names()]
+    for c in counters:
+        c.launches = 0
+    _, t = sync_time(lambda: dryrun(n, device=device))
+    launches = {c.__name__: c.launches for c in counters}
+    need = ("reinit_step_block", "minmax_step_block",
+            "reinit_step_block_vjp")
+    check(device != "cuda" or all(launches[k] > 0 for k in need),
+          f"dryrun: a block kernel never launched {launches}")
+    phase("dryrun", f"dryrun({n}) passed in {t:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    return launches
 
 # ----------------------------- operations -----------------------------
 
@@ -2397,6 +2728,8 @@ def kernel_names():
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2439,7 +2772,12 @@ def main() -> int:
             count(launches)
         run_a_fused(results["A"], cubes)
         count(run_f_phase(ball, ball_sdf, results["B"], card, tmp))
-        count(run_e_phase(card, tmp))
+        launches, items_e, walls_e = run_e_phase(card, tmp)
+        count(launches)
+        launches, wall_k = sync_time(
+            lambda: run_k_phase(card, tmp, (items_e, walls_e)))
+        count(launches)
+        del items_e
         walls = {}
         launches, walls["run H"] = sync_time(
             lambda: run_h_phase(cubes, results["C"], card, tmp))
@@ -2458,6 +2796,14 @@ def main() -> int:
     count(run_g_phase(ball, card, run_d))
     del run_d
     count(banded_solves_phase(card))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, wall_j = sync_time(lambda: run_j_phase(card, tmp))
+        count(launches)
+    launches, wall_dry = sync_time(lambda: dryrun_phase(card))
+    count(launches)
+    phase("several", f"walls run K {wall_k:.1f} s, run J {wall_j:.1f} s, "
+          f"dryrun {wall_dry:.1f} s, together "
+          f"{wall_k + wall_j + wall_dry:.1f} s; card {card}")
     small_holds()
 
     kernels = []

@@ -6,8 +6,9 @@ curvature-flow smoothing -> surface-node advection -> .vti/.s3d outputs)
 and its differentiable path (rendered pixels -> STL vertex gradients)
 ported to PyTorch, with the TPU's Pallas kernels rewritten by hand in CUDA
 for Hopper (``csrc/``); ``run_batch`` serves several geometries through the
-solver stages together (the kernels' pack modes).  Imports neither JAX nor
-the JAX package.
+solver stages together (the kernels' pack modes, optionally in shares over
+the cards); ``parallel`` cuts a grid into blocks over a shard mesh, in one
+process or across several.  Imports neither JAX nor the JAX package.
 """
 
 from .config import LevelSetConfig, QuirkConfig, REFERENCE_PARITY

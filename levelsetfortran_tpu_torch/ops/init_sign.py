@@ -540,6 +540,10 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     on the surface, ROADMAP H8).  The JAX package's rebalancing of uneven
     candidate counts (``_overflow_split``) is not ported."""
     from ..parallel.halo import local_offsets
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "signed_distance_init_sharded runs in one process: across "
+            "processes it is not ported yet (ROADMAP Queue 1 item 11c)")
     if not (culling is None or (isinstance(culling, str)
                                 and culling == "auto")):
         raise ValueError(f"signed_distance_init_sharded: culling must be "

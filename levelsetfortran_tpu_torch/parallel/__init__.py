@@ -1,2 +1,7 @@
 """Domain decomposition: a 3-D grid cut into blocks over a logical mesh of
-shards (port of ``levelsetfortran_tpu/parallel``)."""
+shards, in one process or across several (port of
+``levelsetfortran_tpu/parallel``)."""
+
+from .distributed import init_distributed, is_primary
+from .mesh import ShardMesh, make_mesh
+from .sharded import ShardedLevelSet, dryrun

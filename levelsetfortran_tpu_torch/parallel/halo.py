@@ -6,8 +6,12 @@ derivatives: 4).  Where the JAX package runs ``lax.ppermute`` under
 ``shard_map``, these functions take the whole list of blocks and copy face
 slabs from block to block (``Tensor.copy_`` / ``.to``, device to device
 when the shards lie on several cards).  They are the only place where
-shards talk, so a multi-process exchange can later replace the copies here
-and nowhere else.
+shards talk.  Under a process group (a mesh that spans processes, see
+:mod:`.mesh`) a slab between two shards of one process is still a copy, and
+a slab to or from a shard of another process goes through
+``torch.distributed``: per axis, every rank posts all its sends and
+receives in one ``batch_isend_irecv`` and waits for them (gloo stages a
+card's slabs through host memory).
 
 Axes are exchanged one after the other on the already padded arrays, which
 also fills the edge and corner halos.  A shard on a global face has no
@@ -20,7 +24,10 @@ solvers' global-coordinate masks never read those cells.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
+from .distributed import comm_device
 from .mesh import ShardMesh
 
 
@@ -44,28 +51,44 @@ def halo_exchange(blocks, width, mesh: ShardMesh, periodic: bool = False):
     first three axes; returns the new list.
 
     ``width``: an int or a per-axis tuple (0 skips an axis).  Global-face
-    halos are zeros, or with ``periodic=True`` wrap from the other end of
-    the GLOBAL grid (a ring), which makes a sharded stencil equal the
-    single-device ops' circular ``torch.roll`` at the global faces too (the
-    sharded advection gradient, whose single-device form masks nothing)."""
-    for axis, w in enumerate(_widths(width)):
+    halos are zeros: every block is zero-padded and :func:`refresh_halos`
+    fills the halos, in one process and across processes alike (None, the
+    block of another rank, stays None).  With ``periodic=True`` the
+    global-face halos wrap from the other end of the GLOBAL grid (a ring),
+    which makes a sharded stencil equal the single-device ops' circular
+    ``torch.roll`` at the global faces too (the sharded advection gradient,
+    whose single-device form masks nothing); that exchange concatenates
+    the slabs, in one process only."""
+    widths = _widths(width)
+    if not periodic:
+        pads = [None if b is None else F.pad(b, _pad_spec(b, widths))
+                for b in blocks]
+        refresh_halos(pads, widths, mesh)
+        return pads
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "a periodic halo exchange across processes serves only the "
+            "sharded advection, which runs in one process (ROADMAP "
+            "Queue 1 item 11c)")
+    for axis, w in enumerate(widths):
         if not w:
             continue
         new = []
         for coord, x in zip(mesh.coords(), blocks):
             parts = []
             for step, lo in ((-1, x.shape[axis] - w), (1, 0)):
-                nb = _neighbour(mesh, coord, axis, step, periodic)
-                if nb is None:
-                    shape = list(x.shape)
-                    shape[axis] = w
-                    parts.append(torch.zeros(shape, dtype=x.dtype,
-                                             device=x.device))
-                else:
-                    parts.append(blocks[nb].narrow(axis, lo, w).to(x.device))
+                nb = _neighbour(mesh, coord, axis, step, True)
+                parts.append(blocks[nb].narrow(axis, lo, w).to(x.device))
             new.append(torch.cat([parts[0], x, parts[1]], dim=axis))
         blocks = new
     return blocks
+
+
+def _pad_spec(x: torch.Tensor, widths):
+    """``F.pad``'s spec for ``widths`` halo cells on both sides of the first
+    three axes of ``x`` (none on any trailing axis)."""
+    return [0, 0] * (x.dim() - 3) + [v for w in reversed(widths)
+                                     for v in (w, w)]
 
 
 def halo_exchange_axis_transpose(cots, width: int, axis: int,
@@ -118,11 +141,15 @@ def refresh_halos(pads, width, mesh: ShardMesh) -> None:
     cells.  The slabs sent are always OWNED cells (``[w, 2w)`` and
     ``[size-2w, size-w)``), so the refresh is sound even when the halo of
     the sending block holds stale or unwritten data.  Global-face halos
-    become zeros."""
+    become zeros.  Under a process group the slabs that cross to another
+    rank go through :func:`_exchange_remote`; None (another rank's block)
+    is skipped."""
     for axis, w in enumerate(_widths(width)):
         if not w:
             continue
         for coord, pad in zip(mesh.coords(), pads):
+            if pad is None:
+                continue
             size = pad.shape[axis]
             for step, src_lo, dst_lo in ((-1, size - 2 * w, 0),
                                          (1, w, size - w)):
@@ -130,8 +157,53 @@ def refresh_halos(pads, width, mesh: ShardMesh) -> None:
                 dst = pad.narrow(axis, dst_lo, w)
                 if nb is None:
                     dst.zero_()
-                else:
+                elif mesh.is_local(nb):
                     dst.copy_(pads[nb].narrow(axis, src_lo, w))
+        if mesh.spans_processes:
+            _exchange_remote(pads, w, axis, mesh)
+
+
+def _exchange_remote(pads, w: int, axis: int, mesh: ShardMesh):
+    """The cross-process slabs of one axis of :func:`refresh_halos`.
+
+    Every rank walks the same global list of transfers (each shard's low
+    and high halo, in shard order) and posts a send for each transfer whose
+    source shard it owns and a receive for each whose destination it owns,
+    so the two ends of every pair of ranks post their operations in the
+    same order (NCCL matches them by order, gloo by the tag, the
+    transfer's index).  Sends are contiguous copies of the narrowed owned
+    slabs; receives land in contiguous buffers, copied into the halo once
+    they have arrived."""
+    ops, landing = [], []
+    for tag, (coord, step) in enumerate(
+            (c, s) for c in mesh.coords() for s in (-1, 1)):
+        dst_i = mesh.index(coord)
+        src_i = _neighbour(mesh, coord, axis, step, False)
+        if src_i is None or mesh.owners[src_i] == mesh.owners[dst_i]:
+            continue
+        if pads[src_i] is not None:           # I own the source: send
+            src = pads[src_i]
+            size = src.shape[axis]
+            lo = size - 2 * w if step == -1 else w
+            slab = src.narrow(axis, lo, w)
+            buf = slab.to(comm_device(slab), copy=True,
+                          memory_format=torch.contiguous_format)
+            ops.append(dist.P2POp(dist.isend, buf, mesh.owners[dst_i],
+                                  tag=tag))
+        if pads[dst_i] is not None:           # I own the destination
+            size = pads[dst_i].shape[axis]
+            dst = pads[dst_i].narrow(axis, 0 if step == -1 else size - w, w)
+            buf = torch.empty(dst.shape, dtype=dst.dtype,
+                              device=comm_device(dst))
+            ops.append(dist.P2POp(dist.irecv, buf, mesh.owners[src_i],
+                                  tag=tag))
+            landing.append((dst, buf))
+    if not ops:
+        return
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for dst, buf in landing:
+        dst.copy_(buf)
 
 
 def crop(x: torch.Tensor, width) -> torch.Tensor:

@@ -41,7 +41,16 @@ K5, 2 for K6) where the JAX route scatters onto the halo and sends it back
 with :func:`~.halo.halo_exchange_transpose`; the metrics stream gets one
 event per check for the whole mesh (the JAX package emits from shard
 (0, 0, 0), with that shard's tile count), whose ``band_tiles`` is the
-active bricks of every shard.  Left out: ``dryrun``.
+active bricks of every shard.
+
+Across processes (a :class:`~.mesh.ShardMesh` made under a process group,
+:mod:`.distributed`), :class:`ShardedLevelSet` steps this rank's shards
+only, its exchange crosses the processes (:mod:`.halo`), and the global RMS
+is the all-gathered per-shard sums added in shard order, so every rank
+takes the one-process solve's stop decision.  The differentiable sharded
+solvers and the sharded advection stay in one process (ROADMAP Queue 1
+item 11c) and raise on such a mesh.  :func:`dryrun` checks every sharded
+path on tiny shapes.
 """
 
 from __future__ import annotations
@@ -57,10 +66,25 @@ from ..ops import minmax_cuda, reverse, weno_cuda
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
 from ..utils.metrics import emit_iteration
+from .distributed import shard_order_sum
 from .halo import crop, halo_exchange, local_offsets, refresh_halos
-from .mesh import ShardMesh, gather_blocks, make_mesh, split_blocks
+from .mesh import (ShardMesh, default_devices, factor3, gather_blocks,
+                   make_mesh, split_blocks)
 
 HALO = 4   # max stencil radius: WENO5 needs 3, order-8 derivatives need 4
+
+
+def _each(fn, *lists) -> list:
+    """``fn`` over the shards of this process: ``lists`` side by side in
+    shard order, None where the first holds another rank's (None) block."""
+    return [None if args[0] is None else fn(*args) for args in zip(*lists)]
+
+
+def _one_process(mesh: ShardMesh, what: str) -> None:
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            f"{what} runs in one process: across processes it is not ported "
+            f"yet (ROADMAP Queue 1 item 11c)")
 
 
 # ----------------------- global-coordinate masks -----------------------
@@ -227,18 +251,17 @@ def reinit_k_steps_persistent(pads, outs, sign_pads, dx, h, k, *, geoms,
     refresh_halos(pads, widths, mesh)
     actives = [None] * len(pads)
     if band_radius is not None:
-        actives = [weno_cuda.tile_activity(p, dx, band_radius, k * h / dx,
-                                           window="band4", geom=g)
-                   for p, g in zip(pads, geoms)]
+        actives = _each(lambda p, g: weno_cuda.tile_activity(
+            p, dx, band_radius, k * h / dx, window="band4", geom=g),
+            pads, geoms)
     dsqs = None
     for i in range(int(k)):
         rms = with_rms and i == int(k) - 1
-        res = [weno_cuda.reinit_step_block(p, s, dx, h, g, active=a, out=o,
-                                           with_rms=rms, **kw)
-               for p, o, s, g, a in zip(pads, outs, sign_pads, geoms,
-                                        actives)]
+        res = _each(lambda p, o, s, g, a: weno_cuda.reinit_step_block(
+            p, s, dx, h, g, active=a, out=o, with_rms=rms, **kw),
+            pads, outs, sign_pads, geoms, actives)
         if rms:
-            dsqs = [r[1] for r in res]
+            dsqs = [None if r is None else r[1] for r in res]
         pads, outs = outs, pads
     return pads, outs, dsqs
 
@@ -279,9 +302,12 @@ def _overlapped(pads, side_streams, interior, exchange):
     ``exchange()`` runs on a second stream per device; afterwards the
     current streams wait for the exchange.  The second streams first wait
     for the work already queued (the previous step), because the exchange
-    reads what that step wrote.  On the CPU: one after the other."""
-    devs = sorted({p.device for p in pads if p.device.type == "cuda"},
-                  key=str)
+    reads what that step wrote.  Across processes the exchange's waits for
+    the other ranks' slabs (and their copies into the halos) are queued on
+    the second streams too, so the shells wait for them.  On the CPU: one
+    after the other."""
+    devs = sorted({p.device for p in pads
+                   if p is not None and p.device.type == "cuda"}, key=str)
     for d in devs:
         if d not in side_streams:
             side_streams[d] = torch.cuda.Stream(d)
@@ -322,16 +348,17 @@ def reinit_step_overlap_persistent(pads, outs, sign_pads, dx, h, *, geoms,
 
     def interior():
         for n, (p, o, s, g, (inner, _)) in enumerate(shards):
-            launch(n, p, o, s, g, inner)
+            if p is not None:
+                launch(n, p, o, s, g, inner)
 
     _overlapped(pads, side_streams, interior,
                 lambda: refresh_halos(pads, widths, mesh))
     for n, (p, o, s, g, (_, shells)) in enumerate(shards):
-        for tile_range in shells:
+        for tile_range in shells if p is not None else ():
             launch(n, p, o, s, g, tile_range)
     dsqs = None
     if with_rms:
-        dsqs = [torch.stack(ps).sum() for ps in parts]
+        dsqs = [torch.stack(ps).sum() if ps else None for ps in parts]
     return outs, pads, dsqs
 
 
@@ -340,8 +367,8 @@ def minmax_tile_activity_local(blocks, dx, band_radius) -> list:
     block's own brick mask.  A solve-long mask is sound: a frozen cell
     never changes, and the update gate is the cell's OWN value, so it can
     never enter the band."""
-    return [weno_cuda.tile_activity(b, dx, band_radius, window="owned")
-            for b in blocks]
+    return _each(lambda b: weno_cuda.tile_activity(b, dx, band_radius,
+                                                    window="owned"), blocks)
 
 
 def minmax_step_persistent(pads, outs, dx, h1, band_radius, threshold, *,
@@ -353,24 +380,21 @@ def minmax_step_persistent(pads, outs, dx, h1, band_radius, threshold, *,
     :func:`reinit_k_steps_persistent`."""
     refresh_halos(pads, widths, mesh)
     actives = actives or [None] * len(pads)
-    res = [minmax_cuda.minmax_step_block(p, dx, h1, g, band_radius,
-                                         threshold, active=a, out=o,
-                                         with_rms=with_rms)
-           for p, o, g, a in zip(pads, outs, geoms, actives)]
-    dsqs = [r[1] for r in res] if with_rms else None
+    res = _each(lambda p, o, g, a: minmax_cuda.minmax_step_block(
+        p, dx, h1, g, band_radius, threshold, active=a, out=o,
+        with_rms=with_rms), pads, outs, geoms, actives)
+    dsqs = [None if r is None else r[1] for r in res] if with_rms else None
     return outs, pads, dsqs
 
 
-def _global_rms(dsqs, gshape) -> float:
+def _global_rms(dsqs, gshape, mesh: ShardMesh) -> float:
     """RMS over the reference's ``(nx-1)(ny-1)(nz-1)`` denominator from the
     shards' sums of squared changes, added on the host in shard order in
-    float64 (one host read)."""
+    float64 (one host read; across processes the sums all-gathered first,
+    :func:`~.distributed.shard_order_sum`), so the same number in one
+    process or several and on every rank."""
     denom = (gshape[0] - 1) * (gshape[1] - 1) * (gshape[2] - 1)
-    dev = dsqs[0].device
-    total = 0.0
-    for v in torch.stack([d.to(dev) for d in dsqs]).tolist():
-        total += v
-    return math.sqrt(total / denom)
+    return math.sqrt(shard_order_sum(dsqs, mesh.owners) / denom)
 
 
 # --------------------------- public wrapper ---------------------------
@@ -393,6 +417,8 @@ class ShardedLevelSet:
     block-mode kernel on CUDA blocks and its plain version on CPU blocks.
     ``metrics_every``: one metrics event per check for the whole mesh
     (``"reinit"`` / ``"minmax"``) when the iteration count is a multiple.
+    On a mesh across processes the lists hold this rank's blocks (None for
+    the others') and every rank runs the same loop.
     """
 
     def __init__(self, mesh: ShardMesh, gshape, dx: float, *,
@@ -442,8 +468,9 @@ class ShardedLevelSet:
 
     @staticmethod
     def auto_mesh(devices=None) -> ShardMesh:
-        """One shard per device, balanced factors (the CUDA kernels keep no
-        axis whole, so no ``(a, b, 1)`` preference as on the TPU)."""
+        """One shard per device (per process under a process group),
+        balanced factors (the CUDA kernels keep no axis whole, so no
+        ``(a, b, 1)`` preference as on the TPU)."""
         return make_mesh(None, devices)
 
     def device_put(self, phi) -> list:
@@ -454,22 +481,27 @@ class ShardedLevelSet:
                              f"shape {self.gshape}")
         return split_blocks(self.mesh, phi)
 
-    def gather(self, blocks, device=None) -> torch.Tensor:
+    def gather(self, blocks, device=None):
+        """The global field (across processes on rank 0; None on the
+        others)."""
         return gather_blocks(self.mesh, blocks, device)
 
     def _padded(self, blocks, widths):
         spec = [v for w in reversed(widths) for v in (w, w)]
-        return [F.pad(b, spec).contiguous() for b in blocks]
+        return _each(lambda b: F.pad(b, spec).contiguous(), blocks)
+
+    def _cropped(self, pads, widths):
+        return _each(lambda p: crop(p, widths).contiguous(), pads)
 
     def reinit_step(self, blocks, sign_blocks, h) -> list:
         """One reinit step of a sharded field (exchange, one block-mode
         launch per shard, crop)."""
         pads = self._padded(blocks, self.widths)
-        outs = [torch.zeros_like(p) for p in pads]
-        spads = [s.contiguous() for s in
-                 halo_exchange(sign_blocks, self.widths, self.mesh)]
+        outs = _each(torch.zeros_like, pads)
+        spads = _each(torch.Tensor.contiguous,
+                      halo_exchange(sign_blocks, self.widths, self.mesh))
         pads, _, _ = self._reinit_once(pads, outs, spads, h, 1, False)
-        return [crop(p, self.widths).contiguous() for p in pads]
+        return self._cropped(pads, self.widths)
 
     def _reinit_once(self, pads, outs, spads, h, k, with_rms):
         if self.use_overlap and k == 1:
@@ -490,21 +522,21 @@ class ShardedLevelSet:
         stays in the padded layout for the whole solve; the sign source is
         exchanged once."""
         sign = blocks if sign_src is None else sign_src
-        spads = [s.contiguous() for s in
-                 halo_exchange(sign, self.widths, self.mesh)]
+        spads = _each(torch.Tensor.contiguous,
+                      halo_exchange(sign, self.widths, self.mesh))
         pads = self._padded(blocks, self.widths)
-        outs = [torch.zeros_like(p) for p in pads]
+        outs = _each(torch.zeros_like, pads)
         n, rms = 0, math.inf
         while n < iters:
             pads, outs, dsqs = self._reinit_once(pads, outs, spads, h,
                                                  self.k, True)
             n += self.k
-            rms = _global_rms(dsqs, self.gshape)
+            rms = _global_rms(dsqs, self.gshape, self.mesh)
             emit_iteration("reinit", self.metrics_every, n, rms,
                            cells=math.prod(self.gshape))
             if rms < tol or math.isnan(rms):
                 break
-        return [crop(p, self.widths).contiguous() for p in pads], n, rms
+        return self._cropped(pads, self.widths), n, rms
 
     def minmax_flow(self, blocks, h1, iters: int, tol: float, *,
                     band_radius=4.1, threshold=0.0):
@@ -515,7 +547,7 @@ class ShardedLevelSet:
             actives = minmax_tile_activity_local(blocks, self.dx,
                                                  band_radius)
         pads = self._padded(blocks, self.mwidths)
-        outs = [torch.zeros_like(p) for p in pads]
+        outs = _each(torch.zeros_like, pads)
         n, rms = 0, math.inf
         while n < iters:
             pads, outs, dsqs = minmax_step_persistent(
@@ -523,12 +555,12 @@ class ShardedLevelSet:
                 geoms=self._mgeoms, widths=self.mwidths, mesh=self.mesh,
                 actives=actives, with_rms=True)
             n += 1
-            rms = _global_rms(dsqs, self.gshape)
+            rms = _global_rms(dsqs, self.gshape, self.mesh)
             emit_iteration("minmax", self.metrics_every, n, rms,
                            band_tiles=actives, cells=math.prod(self.gshape))
             if rms < tol or math.isnan(rms):
                 break
-        return [crop(p, self.mwidths).contiguous() for p in pads], n, rms
+        return self._cropped(pads, self.mwidths), n, rms
 
 
 # ------------------ differentiable fixed-step solvers ------------------
@@ -707,6 +739,7 @@ def reinit_fixed_sharded(mesh: ShardMesh, blocks, dx, h, steps: int, *,
     are multiples of 8 it equals :func:`~..ops.weno_cuda.reinit_scan_banded`
     bitwise.  Needs blocks of >= 6 cells on the sharded axes, and multiples
     of 8 with ``band_radius``."""
+    _one_process(mesh, "reinit_fixed_sharded")
     gshape = _global_shape(mesh, blocks)
     _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["reinit"],
                        "reinit_fixed_sharded")
@@ -804,6 +837,7 @@ def minmax_fixed_sharded(mesh: ShardMesh, blocks, dx, h1, steps: int, *,
             f"kernel; the sharded min/max runs the default half-width 1 "
             f"(ROADMAP Queue 1 item 8: the non-default options of the fixed "
             f"solvers)")
+    _one_process(mesh, "minmax_fixed_sharded")
     gshape = _global_shape(mesh, blocks)
     _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["minmax"],
                        "minmax_fixed_sharded")
@@ -833,6 +867,7 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
     from ..ops.band import narrow_band
     from ..ops.derivs import first_derivative
     from ..solvers.advect import AdvectResult
+    _one_process(mesh, "advect_nodes_sharded")
     gshape = tuple(grid.shape)
     b = mesh.block_shape(gshape)
     w4 = (HALO,) * 3
@@ -904,3 +939,95 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
         move = (p > eps).to(x.dtype)
         x = x + (move * p)[:, None] * direction
     return AdvectResult(positions=x, phi_surf=sample(x)[:, 0])
+
+
+# ------------------------------ dry run ------------------------------
+
+def _dryrun_field(gshape, device) -> torch.Tensor:
+    """The JAX dry run's distorted sphere: ``2 (|x| - 0.5)`` on
+    ``linspace(-1, 1)`` points, float32."""
+    axes = [torch.linspace(-1.0, 1.0, g, dtype=torch.float32) for g in gshape]
+    gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
+    return (2.0 * (torch.sqrt(gx ** 2 + gy ** 2 + gz ** 2) - 0.5)).to(device)
+
+
+def _finite(what, *values) -> None:
+    for v in values:
+        ok = (math.isfinite(v) if isinstance(v, float)
+              else all(bool(torch.isfinite(t).all()) for t in v))
+        if not ok:
+            raise RuntimeError(f"dryrun: {what} is not finite")
+
+
+def dryrun(n_devices: int, device="cuda") -> None:
+    """Run every sharded path once on tiny shapes over an ``n_devices``-shard
+    mesh, in one process (``parallel/sharded.py:1370-1466`` of the JAX
+    package, check by check): the sharded reinit and min/max, two steps per
+    exchange, the overlapped step, the auto mesh, a gradient through a
+    one-step sharded reinit, the sharded reverse on the kernels, and the
+    banded sharded reverse.  Raises when a result is not finite.
+
+    The shards go round-robin over the visible devices of ``device``'s
+    type (:func:`~.mesh.default_devices`): with fewer cards than shards
+    several share a card, where the JAX package falls back to CPU devices;
+    there is no fall back to the CPU here.  JAX's check that the auto mesh
+    keeps z whole (``(a, b, 1)``, for its TPU kernel) is left out: the CUDA
+    kernels keep no axis whole, so the auto mesh is the balanced one."""
+    visible = default_devices(device)
+    devs = [visible[i % len(visible)] for i in range(int(n_devices))]
+    mesh_shape = factor3(len(devs))
+    mesh = make_mesh(mesh_shape, devs)
+    gshape = tuple(max(16, 2 * m) for m in mesh_shape)
+    dx = 0.1
+    h = 0.1 * dx
+    phi0 = _dryrun_field(gshape, devs[0])
+
+    # the sharded reinit (global RMS) and a min/max step
+    solver = ShardedLevelSet(mesh, gshape, dx)
+    phi, _, rms = solver.reinit(solver.device_put(phi0), h, 3, 0.0)
+    phi, _, rms2 = solver.minmax_flow(phi, 0.01 * dx, 2, 0.0)
+    _finite("the sharded reinit and min/max", rms, rms2, phi)
+
+    # halo-deep pipelining: two local steps per exchange of 6 cells
+    solver2 = ShardedLevelSet(mesh, gshape, dx, steps_per_exchange=2)
+    phi2, _, rms3 = solver2.reinit(solver2.device_put(phi0), h, 4, 0.0)
+    _finite("two steps per exchange", rms3, phi2)
+
+    # the exchange overlapped with the interior launch, on blocks of 24
+    # along the sharded axes (the least that holds interior bricks)
+    g_ov = tuple(24 * m if m > 1 else 16 for m in mesh_shape)
+    solver_ov = ShardedLevelSet(mesh, g_ov, dx, overlap=True)
+    if solver_ov.use_overlap != (max(mesh_shape) > 1):
+        raise RuntimeError("dryrun: the overlapped step did not engage")
+    phi_ov, _, rms_ov = solver_ov.reinit(
+        solver_ov.device_put(_dryrun_field(g_ov, devs[0])), h, 2, 0.0)
+    _finite("the overlapped step", rms_ov, phi_ov)
+
+    # the auto mesh (one shard per device, balanced)
+    mesh2 = ShardedLevelSet.auto_mesh(devs)
+    g2 = (16 * max(1, len(devs) // 2), 32, 16)
+    p2 = _dryrun_field(g2, devs[0])
+    solver3 = ShardedLevelSet(mesh2, g2, dx)
+    phi3, _, rms4 = solver3.reinit(solver3.device_put(p2), h, 2, 0.0)
+    _finite("the auto mesh", rms4, phi3)
+
+    def grad_of(step_fn, blocks):
+        blocks = [b.detach().requires_grad_() for b in blocks]
+        out = step_fn(blocks)
+        loss = sum((o * o).sum().double().to(devs[0]) for o in out)
+        return torch.autograd.grad(loss, blocks)
+
+    # a gradient through one sharded reinit step (K1 block forward, K5
+    # block backward)
+    g = grad_of(lambda b: reinit_fixed_sharded(mesh, b, dx, h, 1),
+                solver.device_put(phi0))
+    _finite("the gradient through a sharded reinit step", g)
+
+    # the sharded reverse on the auto mesh, and its banded form
+    gf = grad_of(lambda b: reinit_fixed_sharded(mesh2, b, dx, h, 1),
+                 solver3.device_put(p2))
+    _finite("the sharded reverse", gf)
+    gb = grad_of(lambda b: reinit_fixed_sharded(
+        mesh2, b, dx, h, 2, band_radius=4.1, refresh_every=2),
+        solver3.device_put(p2))
+    _finite("the banded sharded reverse", gb)

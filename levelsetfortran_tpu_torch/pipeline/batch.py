@@ -22,6 +22,16 @@ Strategies (``run_batch``):
     :func:`..solvers.minmax_flow.minmax_flow` per geometry.
   * ``sequential``: the solo dense solvers per geometry.
 There is no final reinit, as in the JAX package's batch pipeline.
+
+Data parallelism (``run_batch(data_parallel=...)``, the CLI's
+``--data-parallel``): the batch is cut into N contiguous shares, each on a
+card taken round-robin over the visible cards, and each share is
+initialised, stepped (its own pack-mode launch per step) and advected on
+its card.  Every share's step is launched before any share's RMS vector
+is read, so the cards step together.  Departure: the JAX package pads the
+batch to a multiple of the devices with copies of its last geometry and
+drops their results; each share here is its own launch and needs no
+copies.  The results are the same: each geometry equals its solo run.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..io.vti import write_vti
 from ..ops import minmax_cuda, weno_cuda
 from ..ops.init_sign import initialize_sign_field, signed_distance_init
 from ..ops.weno_cuda import np_dtype, packed_vector
+from ..parallel.mesh import default_devices
 from ..solvers.advect import advect_nodes
 from ..solvers.minmax_flow import minmax_flow
 from ..solvers.reinit import reinit, rms_denominator
@@ -61,38 +72,61 @@ class BatchSolve(NamedTuple):
     diverged: np.ndarray         # (B,) NaN flags
 
 
-def _batched_solve(phi0, iters: int, tol, step) -> BatchSolve:
-    """The JAX package's per-geometry stop rule around ``step(p, out,
-    live)``, which writes one step of the live geometries into ``out``
-    (frozen ones copied) and returns ``(out, dsq)`` with the (B,) sums of
-    squared changes.  One host read of that vector per step."""
-    b = phi0.shape[0]
-    denom = rms_denominator(phi0.shape[1:])
-    counts = np.zeros(b, np.int64)
-    rms = np.full(b, np.inf)
-    done = np.zeros(b, bool)
-    live = torch.ones(b, dtype=torch.int32, device=phi0.device)
-    bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
-    p, n = phi0, 0
-    while not done.all() and n < iters:
-        p, dsq = step(p, bufs[n % 2], live)
-        step_rms = np.sqrt(dsq.cpu().numpy() / denom)
-        rms = np.where(done, rms, step_rms)
-        counts += ~done
-        now = done | (step_rms < tol) | np.isnan(step_rms)
-        if (now != done).any():
-            live = torch.as_tensor(~now, dtype=torch.int32,
-                                   device=phi0.device)
-        done, n = now, n + 1
-    return BatchSolve(p, counts, rms, np.isnan(rms))
+class _Solve:
+    """One batch's state under the JAX package's per-geometry stop rule:
+    ``step(p, out, live)`` writes one step of the live geometries into
+    ``out`` (frozen ones copied) and returns ``(out, dsq)`` with the (B,)
+    sums of squared changes."""
+
+    def __init__(self, phi0, step):
+        b = phi0.shape[0]
+        self.step, self.p = step, phi0
+        self.denom = rms_denominator(phi0.shape[1:])
+        self.counts = np.zeros(b, np.int64)
+        self.rms = np.full(b, np.inf)
+        self.done = np.zeros(b, bool)
+        self.live = torch.ones(b, dtype=torch.int32, device=phi0.device)
+        self.bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
+
+    def launch(self, n: int):
+        self.p, dsq = self.step(self.p, self.bufs[n % 2], self.live)
+        return dsq
+
+    def settle(self, dsq, tol) -> None:
+        """The host read of this step's (B,) vector and the stop rule."""
+        step_rms = np.sqrt(dsq.cpu().numpy() / self.denom)
+        self.rms = np.where(self.done, self.rms, step_rms)
+        self.counts += ~self.done
+        now = self.done | (step_rms < tol) | np.isnan(step_rms)
+        if (now != self.done).any():
+            self.live = torch.as_tensor(~now, dtype=torch.int32,
+                                        device=self.p.device)
+        self.done = now
+
+    def result(self) -> "BatchSolve":
+        return BatchSolve(self.p, self.counts, self.rms, np.isnan(self.rms))
 
 
-def reinit_batched_packed(phi0, dx, h, iters: int, tol, *, eps_scale=1e-6,
-                          eps_floor=None,
-                          quirk_y_p5_zero=False) -> BatchSolve:
-    """Batched reinit, one packed K1 launch per step; ``h`` per geometry,
-    the sign source frozen at ``phi0``.  Geometry b's field and count equal
-    a solo :func:`..solvers.reinit.reinit` of ``phi0[b]`` bitwise."""
+def _batched_solves(problems, iters: int, tol) -> list:
+    """Solve several batches (``(phi0, step)`` pairs, each on its own
+    device) side by side: each step launches every running batch before it
+    reads any batch's RMS vector, so their devices work together.  Each
+    batch's result is the one it would have alone."""
+    solves = [_Solve(phi0, step) for phi0, step in problems]
+    n = 0
+    while n < iters:
+        running = [s for s in solves if not s.done.all()]
+        if not running:
+            break
+        dsqs = [s.launch(n) for s in running]
+        for s, dsq in zip(running, dsqs):
+            s.settle(dsq, tol)
+        n += 1
+    return [s.result() for s in solves]
+
+
+def _reinit_packed_step(phi0, dx, h, *, eps_scale=1e-6, eps_floor=None,
+                        quirk_y_p5_zero=False):
     hv = packed_vector(h, phi0.shape[0], phi0.dtype, phi0.device)
     sums = weno_cuda.solve_buffers(phi0, packed=True)
 
@@ -102,13 +136,10 @@ def reinit_batched_packed(phi0, dx, h, iters: int, tol, *, eps_scale=1e-6,
             eps_scale=eps_scale, eps_floor=eps_floor,
             quirk_y_p5_zero=quirk_y_p5_zero, bufs=sums)
 
-    return _batched_solve(phi0, iters, tol, step)
+    return step
 
 
-def minmax_batched_packed(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
-                          threshold=0.0) -> BatchSolve:
-    """Batched min/max flow, one packed K3 launch per step (the default
-    half-width; K4 has no pack mode); ``h1`` per geometry."""
+def _minmax_packed_step(phi0, dx, h1, *, band_radius=4.1, threshold=0.0):
     hv = packed_vector(h1, phi0.shape[0], phi0.dtype, phi0.device)
     sums = weno_cuda.solve_buffers(phi0, packed=True)
 
@@ -117,7 +148,28 @@ def minmax_batched_packed(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
             p, dx, hv, live, band_radius, threshold, out=out, with_rms=True,
             bufs=sums)
 
-    return _batched_solve(phi0, iters, tol, step)
+    return step
+
+
+def reinit_batched_packed(phi0, dx, h, iters: int, tol, *, eps_scale=1e-6,
+                          eps_floor=None,
+                          quirk_y_p5_zero=False) -> BatchSolve:
+    """Batched reinit, one packed K1 launch per step; ``h`` per geometry,
+    the sign source frozen at ``phi0``.  Geometry b's field and count equal
+    a solo :func:`..solvers.reinit.reinit` of ``phi0[b]`` bitwise."""
+    step = _reinit_packed_step(phi0, dx, h, eps_scale=eps_scale,
+                               eps_floor=eps_floor,
+                               quirk_y_p5_zero=quirk_y_p5_zero)
+    return _batched_solves([(phi0, step)], iters, tol)[0]
+
+
+def minmax_batched_packed(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
+                          threshold=0.0) -> BatchSolve:
+    """Batched min/max flow, one packed K3 launch per step (the default
+    half-width; K4 has no pack mode); ``h1`` per geometry."""
+    step = _minmax_packed_step(phi0, dx, h1, band_radius=band_radius,
+                               threshold=threshold)
+    return _batched_solves([(phi0, step)], iters, tol)[0]
 
 
 # ------------------------------ grid stacking ------------------------------
@@ -165,31 +217,44 @@ def _load(m: MeshLike) -> tuple:
     return (read_s3d(m) if m.lower().endswith(".s3d") else read_stl(m)), name
 
 
+def _shares(b: int, n: int) -> list:
+    """``n`` contiguous shares of ``b`` geometries (the first ``b % n`` one
+    larger), empty ones dropped."""
+    q, r = divmod(b, n)
+    shares, lo = [], 0
+    for i in range(n):
+        hi = lo + q + (i < r)
+        if hi > lo:
+            shares.append(range(lo, hi))
+        lo = hi
+    return shares
+
+
 def run_batch(inputs: Sequence[MeshLike],
               config: LevelSetConfig = LevelSetConfig(), *,
               out_dir: Optional[str] = None, write_outputs: bool = False,
-              data_parallel=None, strategy: str = "auto",
+              data_parallel: Union[bool, int, None] = None,
+              strategy: str = "auto",
               timer: Optional[StageTimer] = None) -> List[BatchItem]:
     """Serve a batch of geometries through init -> reinit -> min/max ->
     advection, each solver stage stepping the whole batch (see the module
     docstring for ``strategy``).  With ``write_outputs`` each geometry's
     ``signedDistanceFunction.vti``, ``smoothedDistanceFunction.vti`` and
-    ``<name>.s3d`` go to ``out_dir/<name>/``.  ``data_parallel`` (the batch
-    sharded over devices) is not ported yet."""
+    ``<name>.s3d`` go to ``out_dir/<name>/``.
+
+    ``data_parallel``: ``True`` (one share per visible device of the
+    config's device type) or an int N cuts the batch into N contiguous
+    shares, each on a device taken round-robin over the visible ones (so N
+    = 2 runs on one card too; more shares than geometries leave some
+    empty).  Each share runs the chosen strategy on its own device; the
+    results equal the undivided batch's."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: "
                          f"{', '.join(STRATEGIES)}")
-    if data_parallel:
-        raise NotImplementedError("data_parallel needs torch.distributed: "
-                                  "ROADMAP Queue 1 item 11c")
     timer = timer or StageTimer()
     cfg = config
     dtype = cfg.dtype
     device = cfg.torch_device()
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
 
     loaded = [_load(m) for m in inputs]
     meshes = [m for m, _ in loaded]
@@ -200,19 +265,37 @@ def run_batch(inputs: Sequence[MeshLike],
     log_event("batch_grid", shape=list(shape), b=len(meshes), dx=cfg.dx,
               device=str(device))
 
-    # per-geometry init, either mode (JAX batch.py:358-363)
+    if data_parallel:
+        visible = default_devices(device)
+        n_shares = (len(visible) if data_parallel is True
+                    else int(data_parallel))
+        shares = _shares(len(meshes), n_shares)
+        devices = [visible[i % len(visible)] for i in range(len(shares))]
+        log_event("batch_dp", shares=[len(s) for s in shares],
+                  devices=[str(d) for d in devices])
+    else:
+        shares, devices = [range(len(meshes))], [device]
+
+    def sync():
+        for d in set(devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # per-geometry init, either mode (JAX batch.py:358-363), on its share's
+    # device
     if cfg.init_mode == "distance":
         culling = None if cfg.init_culling == "off" else "auto"
 
-        def init(g, m):
+        def init(g, m, dev):
             return signed_distance_init(
-                g, m.vertices, m.elements, dtype=dtype, device=device,
+                g, m.vertices, m.elements, dtype=dtype, device=dev,
                 culling=culling, cull_block=cfg.init_cull_block)
     else:
-        def init(g, m):
+        def init(g, m, dev):
             return initialize_sign_field(g, m.vertices, m.elements,
-                                         dtype=dtype, device=device)
-    phi0 = torch.stack([init(g, m) for g, m in zip(grids, meshes)])
+                                         dtype=dtype, device=dev)
+    phi0 = [torch.stack([init(grids[j], meshes[j], dev) for j in share])
+            for share, dev in zip(shares, devices)]
     sync()
     timer.mark("search")
 
@@ -224,55 +307,72 @@ def run_batch(inputs: Sequence[MeshLike],
                quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero)
     mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
     if strategy == "sequential":
-        r = _stack([reinit(phi0[i], cfg.dx, float(h_r[i]), cfg.reinit_iters,
-                           cfg.reinit_tol, **rkw) for i in range(len(meshes))])
+        r = [_stack([reinit(p[k], cfg.dx, float(h_r[j]), cfg.reinit_iters,
+                            cfg.reinit_tol, **rkw)
+                     for k, j in enumerate(share)])
+             for p, share in zip(phi0, shares)]
     else:
-        r = reinit_batched_packed(phi0, cfg.dx, h_r, cfg.reinit_iters,
-                                  cfg.reinit_tol, **rkw)
+        r = _batched_solves(
+            [(p, _reinit_packed_step(p, cfg.dx, h_r[list(share)], **rkw))
+             for p, share in zip(phi0, shares)],
+            cfg.reinit_iters, cfg.reinit_tol)
     sync()
     timer.mark("initialization")
 
     if strategy == "sequential" or cfg.minmax_avg_halfwidth != 1:
-        m = _stack([minmax_flow(r.phi[i], cfg.dx, float(h_m[i]),
-                                cfg.minmax_iters, cfg.minmax_tol,
-                                avg_halfwidth=cfg.minmax_avg_halfwidth, **mkw)
-                    for i in range(len(meshes))])
+        m = [_stack([minmax_flow(rs.phi[k], cfg.dx, float(h_m[j]),
+                                 cfg.minmax_iters, cfg.minmax_tol,
+                                 avg_halfwidth=cfg.minmax_avg_halfwidth,
+                                 **mkw)
+                     for k, j in enumerate(share)])
+             for rs, share in zip(r, shares)]
     else:
-        m = minmax_batched_packed(r.phi, cfg.dx, h_m, cfg.minmax_iters,
-                                  cfg.minmax_tol, **mkw)
+        m = _batched_solves(
+            [(rs.phi, _minmax_packed_step(rs.phi, cfg.dx, h_m[list(share)],
+                                          **mkw))
+             for rs, share in zip(r, shares)],
+            cfg.minmax_iters, cfg.minmax_tol)
     sync()
     timer.mark("minmax")
 
+    # (share, index in it) of each geometry, in batch order
+    where = [(s, k) for s, share in enumerate(shares)
+             for k in range(len(share))]
     advected = [
-        advect_nodes(m.phi[i], grids[i],
+        advect_nodes(m[s].phi[k], grids[i],
                      torch.as_tensor(meshes[i].vertices, dtype=dtype,
-                                     device=device),
+                                     device=devices[s]),
                      cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
                      order=cfg.advect_grad_order,
                      stencil_radius=cfg.stencil_band_radius,
                      quirk_deriv8_y=cfg.quirks.deriv8_y_jp1).positions
-        for i in range(len(meshes))]
+        for i, (s, k) in enumerate(where)]
     sync()
     timer.mark("advect")
 
-    diff = m.phi - r.phi
-    sums = torch.sum(diff * diff, dim=(1, 2, 3)).cpu().tolist()
-    asym = [math.sqrt(s / rms_denominator(shape)) for s in sums]
+    sums = []
+    for rs, ms in zip(r, m):
+        diff = ms.phi - rs.phi
+        sums += torch.sum(diff * diff, dim=(1, 2, 3)).cpu().tolist()
+    asym = [math.sqrt(v / rms_denominator(shape)) for v in sums]
 
     def host(x):
         return x.detach().to("cpu", torch.float64).numpy()
 
-    log_event("batch_reinit", iterations=r.iterations.tolist(),
-              rms=r.final_rms.tolist())
-    log_event("batch_minmax", iterations=m.iterations.tolist(),
-              rms=m.final_rms.tolist())
+    r_iters = np.concatenate([rs.iterations for rs in r])
+    m_iters = np.concatenate([ms.iterations for ms in m])
+    log_event("batch_reinit", iterations=r_iters.tolist(),
+              rms=np.concatenate([rs.final_rms for rs in r]).tolist())
+    log_event("batch_minmax", iterations=m_iters.tolist(),
+              rms=np.concatenate([ms.final_rms for ms in m]).tolist())
     items = []
     for i, (mesh, g, name) in enumerate(zip(meshes, grids, names)):
+        s, k = where[i]
         item = BatchItem(
-            mesh=mesh, grid=g, phi_init=host(r.phi[i]),
-            phi_smoothed=host(m.phi[i]), advected=host(advected[i]),
-            asymptotic_error=asym[i], reinit_iters=int(r.iterations[i]),
-            minmax_iters=int(m.iterations[i]), name=name)
+            mesh=mesh, grid=g, phi_init=host(r[s].phi[k]),
+            phi_smoothed=host(m[s].phi[k]), advected=host(advected[i]),
+            asymptotic_error=asym[i], reinit_iters=int(r_iters[i]),
+            minmax_iters=int(m_iters[i]), name=name)
         items.append(item)
         if write_outputs:
             d = os.path.join(out_dir or ".", name)

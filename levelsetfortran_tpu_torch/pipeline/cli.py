@@ -1,10 +1,11 @@
 """Command line: ``python -m levelsetfortran_tpu_torch <mesh.stl> [...]``.
 
 Flags for every field of the port's config: the JAX package's CLI, less
-``--data-parallel`` (several processes are not ported) and
 ``--use-pallas`` (the device picks the kernel), plus ``--device``.  One
 input runs the pipeline (``run``); several run as one batch
-(``run_batch``), one output directory and one printed line per geometry.
+(``run_batch``), one output directory and one printed line per geometry;
+``--data-parallel N`` cuts such a batch into N shares over the visible
+cards (0: one per card).
 """
 
 from __future__ import annotations
@@ -119,6 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(composes with --mesh-shape: sharded fields "
                         "save/restore block by block)")
     p.add_argument("--checkpoint-chunk", type=int, default=d.checkpoint_chunk)
+    p.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                   help="batch mode only: cut the geometry batch into N "
+                        "shares, each on a card taken round-robin over the "
+                        "visible ones (0 = one share per card)")
     return p
 
 
@@ -166,8 +171,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     if len(args.mesh) > 1:
+        dp = True if args.data_parallel == 0 else args.data_parallel
         items = run_batch(args.mesh, cfg, out_dir=args.out_dir or ".",
-                          write_outputs=not args.no_outputs)
+                          write_outputs=not args.no_outputs,
+                          data_parallel=dp)
         for it in items:
             print(f"[{it.name}] grid={it.grid.shape} "
                   f"reinit_iters={it.reinit_iters} "

@@ -10,11 +10,16 @@ import logging
 import sys
 import time
 
+from .process import is_primary
+
 logger = logging.getLogger("levelsetfortran_tpu_torch")
 
 
 def log_event(stage: str, **fields) -> None:
-    """One structured JSON record per event."""
+    """One structured JSON record per event, from the primary process only
+    (rank 0 under a process group), as in the JAX package."""
+    if not is_primary():
+        return
     logger.info(json.dumps({"stage": stage, "t": time.time(), **fields},
                            default=float))
 

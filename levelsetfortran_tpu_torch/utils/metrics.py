@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from .process import is_primary
+
 
 class MetricsStream:
     """Host-side sink for in-loop iteration events."""
@@ -76,28 +78,24 @@ def set_stream(stream: MetricsStream) -> MetricsStream:
     return stream
 
 
-def _primary() -> bool:
-    """Only process 0 emits (SURVEY §5), as in the JAX package."""
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_rank() != 0)
-
-
 def emit_iteration(stage: str, every: int, n: int, rms: float,
                    band_tiles=None, cells: Optional[int] = None) -> None:
     """Record one {iteration, rms, band_tiles} event when ``every`` divides
     the iteration count ``n``.
 
     ``every == 0`` disables it.  ``rms`` is the host float the loop has
-    just read.  ``band_tiles``: a brick activity mask, or a list of them
-    (one per shard), counted only when the event fires.  ``cells``: the
+    just read.  Only the primary process emits (SURVEY §5), as in the JAX
+    package.  ``band_tiles``: a brick activity mask, or a list of them (one
+    per shard; across processes this rank's, None for the others'),
+    counted only when the event fires.  ``cells``: the
     grid's cell count, for the host-side cells/s.
     """
-    if not every or n % every or not _primary():
+    if not every or n % every or not is_primary():
         return
     bt = -1
     if band_tiles is not None:
         masks = band_tiles if isinstance(band_tiles, (list, tuple)) \
             else [band_tiles]
-        bt = sum(int(torch.count_nonzero(m)) for m in masks)
+        bt = sum(int(torch.count_nonzero(m)) for m in masks
+                 if m is not None)
     _stream.record(stage, int(n), float(rms), bt, int(cells or 0))

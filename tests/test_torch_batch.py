@@ -14,7 +14,10 @@ the JAX package's, equal counts, phi_init and phi_smoothed within 1e-6
 (measured 2.4e-7: the plain steps against the Pallas pack mode in interpret
 mode), advected nodes within 2e-6 (measured 3.0e-7), the asymptotic error
 rel 1e-5 (measured 2.1e-7); packed (and auto, which means it) against
-sequential bitwise.
+sequential bitwise.  Data parallel (the batch cut into shares, each its own
+pack launch) against the undivided packed batch bitwise, and against the
+JAX package's data-parallel run_batch (its vmap strategy, sharded over 2
+virtual devices) at the same tolerances as the packed comparison.
 """
 
 import dataclasses
@@ -177,9 +180,102 @@ def test_unknown_strategy_raises(strategy):
         run_batch(_meshes(analytic), _config(), strategy=strategy)
 
 
-def test_data_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_batch(_meshes(analytic), _config(), data_parallel=True)
+def _three_meshes(pkg):
+    return _meshes(pkg) + [pkg.icosphere_mesh(radius=0.4, subdivisions=1)]
+
+
+@pytest.fixture(scope="module")
+def packed3():
+    return run_batch(_three_meshes(analytic), _config(), strategy="packed")
+
+
+def _assert_same_items(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a.name, a.reinit_iters, a.minmax_iters) == (
+            b.name, b.reinit_iters, b.minmax_iters)
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert a.asymptotic_error == b.asymptotic_error
+
+
+@pytest.mark.parametrize("dp,n_meshes", [(True, 2), (2, 2), (3, 3), (4, 2)])
+def test_data_parallel_equals_packed(packed, packed3, dp, n_meshes):
+    """Cut into shares (True: one per visible device, here the CPU; 3
+    shares of 3 geometries; 4 shares of 2, two of them empty), each share
+    stepped by its own pack launch: fields, advected nodes and counts
+    bitwise the undivided packed batch's."""
+    meshes = _three_meshes(analytic)[:n_meshes]
+    want = packed3 if n_meshes == 3 else packed[0]
+    _assert_same_items(run_batch(meshes, _config(), data_parallel=dp), want)
+
+
+def test_data_parallel_sequential_equals_packed(packed3):
+    """The solo solvers on each geometry's share, bitwise."""
+    items = run_batch(_three_meshes(analytic), _config(), data_parallel=2,
+                      strategy="sequential")
+    _assert_same_items(items, packed3)
+
+
+def test_data_parallel_matches_jax_data_parallel(monkeypatch):
+    """Against the JAX package's data-parallel run_batch (its batch axis
+    sharded over 2 of the virtual CPU devices, its vmap strategy) from the
+    same inits: equal counts, fields within the packed comparison's
+    tolerances (test_packed_matches_jax_run_batch)."""
+    inits = []
+    real = batch.signed_distance_init
+
+    def keep(*a, **k):
+        inits.append(real(*a, **k))
+        return inits[-1]
+
+    monkeypatch.setattr(batch, "signed_distance_init", keep)
+    ours = run_batch(_three_meshes(analytic), _config(), data_parallel=2)
+    jcfg = JaxConfig(**BASE, dtype=jnp.float32)
+    given = iter(inits)
+    monkeypatch.setattr(jax_batch, "signed_distance_init",
+                        lambda *a, **k: jnp.asarray(next(given).numpy()))
+    ref = jax_batch.run_batch(_three_meshes(jax_analytic), jcfg,
+                              data_parallel=2)
+    assert len(ours) == len(ref) == 3
+    for a, b in zip(ours, ref):
+        assert (a.reinit_iters, a.minmax_iters) == (b.reinit_iters,
+                                                    b.minmax_iters)
+        np.testing.assert_allclose(a.phi_init, b.phi_init, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(a.phi_smoothed, b.phi_smoothed, rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(a.advected, b.advected, rtol=0, atol=2e-6)
+        assert a.asymptotic_error == pytest.approx(b.asymptotic_error,
+                                                   rel=1e-5)
+
+
+@pytest.mark.parametrize("n", [0, 2])
+def test_cli_data_parallel(tmp_path, capsys, packed3, n):
+    """``--data-parallel N`` (0: one share per visible device): the files
+    it writes hold the packed batch's fields bitwise."""
+    paths = []
+    for name, mesh in zip(("box", "ball", "small"),
+                          _three_meshes(analytic)):
+        paths.append(str(tmp_path / f"{name}.stl"))
+        write_stl(paths[-1], mesh)
+    out = tmp_path / "out"
+    args = [*paths, "--out-dir", str(out), "--device", "cpu",
+            "--data-parallel", str(n)]
+    for k, v in BASE.items():
+        args += ["--" + k.replace("_", "-"), str(v)]
+    assert cli.build_parser().parse_args(args).data_parallel == n
+    assert cli.main(args) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split("]")[0] for ln in lines] == ["[box", "[ball", "[small"]
+    for it, name, line in zip(packed3, ("box", "ball", "small"), lines):
+        phi, _ = jax_read_vti(str(out / name / "signedDistanceFunction.vti"))
+        np.testing.assert_array_equal(phi, it.phi_init)
+        smooth, _ = jax_read_vti(str(out / name /
+                                     "smoothedDistanceFunction.vti"))
+        np.testing.assert_array_equal(smooth, it.phi_smoothed)
+        mesh = jax_read_s3d(str(out / name / f"{name}.s3d"))
+        np.testing.assert_array_equal(mesh.vertices, it.advected)
+        assert f"reinit_iters={it.reinit_iters} " in line
 
 
 @pytest.mark.parametrize("case", ["shape", "dtype"])

@@ -12,6 +12,17 @@ one card all four blocks lie on it; with four cards each takes one block
 and the halo copies go card to card.  Run from the repository root:
 
     python3 tools/torch_run_f.py
+
+With ``--processes`` it runs instead the several-card paths: run F's
+solver stages on run F's init (``(2, 2, 1)``, 50 reinit steps dense, with
+k = 2 and overlapped, and 50 min/max steps, at run F's h and tol 0) with
+one process per visible card (NCCL; two processes sharing the card over
+gloo when there is one card), held bitwise against the same solves in this
+one process on the same cards, with the wall per step of each; then
+``chip_smoke.py``'s run J (two ranks), runs E and K (``--data-parallel
+2``) and ``dryrun(4)``:
+
+    python3 tools/torch_run_f.py --processes
 """
 
 import os
@@ -42,12 +53,70 @@ def fusedk_every_card(n=222):
              f"equal on every card")
 
 
+#: The solver stages of run F at fixed counts, one process per card.
+PROCESS_STEPS = 50
+
+
+def processes(card, device="cuda", dx=0.01, subdivisions=5, world=None):
+    """Run F's solver stages across processes (``world``: one per visible
+    card, at least 2) against one process."""
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig
+    from levelsetfortran_tpu_torch.grid import grid as gridmod
+    from levelsetfortran_tpu_torch.models import analytic
+    from levelsetfortran_tpu_torch.ops.init_sign import \
+        signed_distance_init_sharded
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh)
+    ball = analytic.icosphere_mesh(subdivisions=subdivisions)
+    cfg = LevelSetConfig(dx=dx, device=device)
+    mesh = make_mesh((2, 2, 1), None if device == "cuda" else [device])
+    grid = gridmod.from_surface(ball.vertices, dx, cfg.pad_cells, mesh.shape)
+    phi = gather_blocks(mesh, signed_distance_init_sharded(
+        grid, ball.vertices, ball.elements, mesh, dtype=cfg.dtype,
+        cull_block=cfg.init_cull_block), "cpu")
+    diag = gridmod.surface_diag(ball.vertices)
+    h, h1 = cfg.reinit_cfl * dx / diag, cfg.minmax_cfl * dx / diag
+    n = PROCESS_STEPS
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    world = world or max(2, cards)
+    backend = cs.rank_backend(world, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        field = os.path.join(tmp, "F_field.pt")
+        torch.save(phi, field)
+        spec = {"device": device, "field": field, "dx": dx,
+                "meshes": [[2, 2, 1]],
+                "cases": [["reinit dense", "reinit", {}, n, h],
+                          ["reinit k=2", "reinit",
+                           {"steps_per_exchange": 2}, n, h],
+                          ["reinit overlap", "reinit", {"overlap": True}, n,
+                           h],
+                          ["minmax dense", "minmax", {}, n, h1]]}
+        cs.phase("run F processes", f"{world} ranks over {backend} on "
+                 f"{grid.shape}, {cards} card(s) visible")
+        ranks = cs.run_ranks(spec, world, backend, tmp, "F")
+        launches = cs.ranks_against_one("run F processes", spec,
+                                        phi.to(device), ranks, card)
+    print(f"run F's solver stages on {world} processes passed, launches "
+          f"{launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("torch_run_f: no CUDA device", file=sys.stderr)
         return 2
     card = cs.start()
+    if sys.argv[1:] == ["--processes"]:
+        processes(card)
+        with tempfile.TemporaryDirectory() as tmp:
+            cs.run_j_phase(card, tmp)
+            _, items, walls = cs.run_e_phase(card, tmp)
+            cs.run_k_phase(card, tmp, (items, walls))
+        cs.dryrun_phase(card)
+        print(f"the several-card paths passed on "
+              f"{torch.cuda.device_count()} card(s)")
+        return 0
     from levelsetfortran_tpu_torch.models import analytic
     from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
     ball = analytic.icosphere_mesh(subdivisions=5)
