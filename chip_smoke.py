@@ -54,7 +54,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      B's fields, the block-mode counters read around it and the solo
      kernels' counters zero; then its solver stages once more at fixed
      counts, dense, with two steps per exchange and overlapped, bitwise
-     equal to each other and to the solo dense solvers;
+     equal to each other and to the solo dense solvers; then run L, run F
+     through ``run()`` on two ranks that this script starts (two shards
+     each, the backend chosen as for run J), every rank's iterations, RMS,
+     asymptotic error and advected nodes bitwise run F's, rank 0's
+     gathered fields and its .vti/.s3d bytes too, the other rank writing
+     nothing, the block kernels launched on both ranks and no solo kernel,
+     the stage walls beside run F's; run L again with checkpoints every
+     100 steps, bitwise; the advection's per-iteration all-reduce timed
+     alone; and phase 10's resumable sharded solvers across the same ranks
+     (run H ranks), bitwise the uninterrupted solo solves;
   7. the block and banded modes of the adjoint kernels K5 and K6 (phase
      2d): block mode on the bench sphere of ``bench.py:328-363`` (256^3)
      cut (2,2,1) and on (66, 46, 38) cut (2,2,2), every shard against its
@@ -69,7 +78,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      solo solvers, bitwise; and the differentiable narrow-band solves
      (phase 4c) on the bench sphere: ``reinit_scan_banded`` beside the
      dense solve, ``minmax_scan(banded=True)`` bitwise the dense one, the
-     banded sharded reinit bitwise the solo banded one;
+     banded sharded reinit bitwise the solo banded one; then run G-ranks,
+     run G's render on two ranks (two shards each): the image and loss
+     bitwise run G's, the vertex gradient bitwise the same on both ranks
+     and within 1e-6 of max|grad| of run G's, the block modes of
+     K1/K3/K5/K6 launched on both and no solo kernel, the peak per rank;
   9. run H, the operations path: run C's configuration with
      ``--checkpoint-dir``, ``--checkpoint-chunk 100`` and
      ``--metrics-every 100``, through the CLI and in process with the
@@ -108,12 +121,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      around it (the block modes of K1, K3 and K5 must launch).
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per CLI run and
-one per rank of run J, and waits for each.
+one per rank of runs J, L and G-ranks, and waits for each (a rank is
+killed after RANK_TIMEOUT seconds, which fails the script).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -729,8 +745,7 @@ def run_d_phase(ball, card, record, n=256):
     cull = build_init_culling(grid, ball.vertices, ball.elements, block=16)
     t_build = time.perf_counter() - t0
     v = torch.tensor(ball.vertices, dtype=torch.float32, device="cuda")
-    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0), reinit_steps=50,
-              minmax_steps=20, height=64, width=64, culling=cull)
+    kw = dict(RUN_D_KW, culling=cull)
     target = torch.zeros((64, 64), device="cuda")
     counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
                 wc.reinit_step_vjp, mc.minmax_step_vjp)
@@ -1268,7 +1283,10 @@ def block_phase(record):
 
 
 def run_f_phase(ball, ball_sdf, res_b, card, tmp):
-    """Phase 6: run B's mesh through the domain-decomposed pipeline."""
+    """Phase 6: run B's mesh through the domain-decomposed pipeline.
+    Returns the launches and what run L is held to: the in-process run's
+    result, its solvers' ``[iterations, rms]``, its output directory, the
+    STL and the CLI arguments."""
     import torch
     from levelsetfortran_tpu_torch import LevelSetConfig
     from levelsetfortran_tpu_torch.ops.init_sign import \
@@ -1280,7 +1298,7 @@ def run_f_phase(ball, ball_sdf, res_b, card, tmp):
     from levelsetfortran_tpu_torch.solvers.reinit import reinit
 
     dx = 0.01
-    with Logged() as log:
+    with Logged() as log, solver_rms() as rms:
         launches, res = run_phase("F", ball, ball_sdf, dx,
                                   ["--mesh-shape", "2,2,1"], tmp)
     check(res.grid.shape == res_b.grid.shape, "run F: grid differs from B's")
@@ -1366,7 +1384,10 @@ def run_f_phase(ball, ball_sdf, res_b, card, tmp):
           f"reinit / min/max walls " + ", ".join(
               f"{k} {a:.4f} / {b:.4f} s" for k, (a, b) in walls.items())
           + f", solo {t_sr:.4f} / {t_sm:.4f} s; card {card}")
-    return launches
+    return launches, {"res": res, "rms": rms,
+                      "dir": os.path.join(tmp, "F_py"),
+                      "stl": os.path.join(tmp, "F.stl"),
+                      "args": ["--dx", str(dx), "--mesh-shape", "2,2,1"]}
 
 
 def owned_near(geom, reach):
@@ -1652,46 +1673,29 @@ def banded_adjoint_checks(record, phi, sgn, mphi, g, dx, h, h1):
 def run_g_phase(ball, card, run_d):
     """Phase 4b, run G: run D's configuration with a (2,2,1) shard mesh on
     one card, against run D in the same call; then the two sharded solvers
-    alone on run D's own init, against the solo solvers, bitwise."""
+    alone on run D's own init, against the solo solvers, bitwise.  Returns
+    the launches and what run G-ranks is held to."""
     import torch
-    from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
-    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
-    from levelsetfortran_tpu_torch.ops import reverse
-    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
 
     grid = run_d["grid"]
     mesh = make_mesh((2, 2, 1), ["cuda"])
-    kw = dict(run_d["kw"], culling="auto", mesh=mesh)
-    v = torch.tensor(ball.vertices, dtype=torch.float32, device="cuda")
-    target = torch.zeros((64, 64), device="cuda")
-    solo = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
-            wc.reinit_step_vjp, mc.minmax_step_vjp, wc.reinit_step_vjp_banded,
-            mc.minmax_step_vjp_banded)
-    blocky = (wc.reinit_step_block, mc.minmax_step_block,
-              wc.reinit_step_block_vjp, mc.minmax_step_block_vjp)
-    reverse.last_branch.clear()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for c in solo + blocky:
-        c.launches = 0
-    (loss, grad), wall = sync_time(lambda: image_loss_and_vertex_grad(
-        v, ball.elements, grid, target, **kw))
-    launches = {c.__name__: c.launches for c in solo + blocky}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    branches = dict(reverse.last_branch)
+    kw = {k: v for k, v in run_d["kw"].items() if k != "culling"}
+    run_g = render_run(ball, grid, kw, mesh)
+    loss, grad, launches = run_g["loss"], run_g["grad"], run_g["launches"]
+    peak, branches, wall = run_g["peak"], run_g["branches"], run_g["wall"]
     gmax = float(grad.abs().max())
-    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
+    check(math.isfinite(loss) and bool(torch.isfinite(grad).all()),
           "run G: non-finite loss or gradient")
     check(gmax > 0.0, "run G: zero vertex gradient")
-    check(all(launches[c.__name__] > 0 for c in blocky),
+    check(all(launches[k] > 0 for k in BLOCK_KERNELS),
           f"run G: a block-mode kernel never launched {launches}")
-    check(all(launches[c.__name__] == 0 for c in solo),
+    check(all(v == 0 for k, v in launches.items() if k not in BLOCK_KERNELS),
           f"run G: solo kernels launched under a mesh {launches}")
     check(branches == {"reinit_fixed_sharded": "flat",
                        "minmax_fixed_sharded": "flat"},
           f"run G: reverse branches {branches}")
-    lrel = abs(float(loss) - float(run_d["loss"])) / abs(float(run_d["loss"]))
+    lrel = abs(loss - float(run_d["loss"])) / abs(float(run_d["loss"]))
     gd = run_d["grad"]
     gerr = float((grad - gd).abs().max())
     dmax = float(gd.abs().max())
@@ -1700,8 +1704,9 @@ def run_g_phase(ball, card, run_d):
           f"run G vs run D: loss rel {lrel:.3g}, grad max err {gerr:.3g}")
     blk = mesh.block_shape(grid.shape)
     mib = 4 * blk[0] * blk[1] * blk[2] / 2 ** 20
+    launches = {k: v for k, v in launches.items() if v}
     phase("run G", f"run D with mesh (2, 2, 1) on 1 card, blocks {blk}: loss "
-          f"{float(loss):.6g} (run D {float(run_d['loss']):.6g}, rel "
+          f"{loss:.6g} (run D {float(run_d['loss']):.6g}, rel "
           f"{lrel:.3g}, tol 1e-4), max|grad| {gmax:.6g}, grad max err vs "
           f"run D {gerr:.3g} (atol 1e-4 of {dmax:.4g}, rtol 1e-3); launches "
           f"{launches}; reverse branches per shard ({mib:.1f} MiB blocks) "
@@ -1713,7 +1718,7 @@ def run_g_phase(ball, card, run_d):
     sharded_solvers_holds(mesh, run_d["phi0"], grid.dx,
                           (kw["reinit_steps"], kw["minmax_steps"]),
                           "run D's init", card)
-    return launches
+    return launches, dict(run_g, kw=kw)
 
 
 def sharded_solvers_holds(mesh, phi0, dx, steps, what, card):
@@ -2087,11 +2092,12 @@ RANK_TIMEOUT = 600
 
 
 def digest(t) -> str:
-    """sha256 of a tensor's bytes: the ranks and the parent compare blocks
-    bitwise through it without moving the fields."""
+    """sha256 of a tensor's (or an array's) bytes: the ranks and the parent
+    compare blocks bitwise through it without moving the fields."""
     import hashlib
-    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
-                          ).hexdigest()
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().contiguous().numpy()
+    return hashlib.sha256(np.ascontiguousarray(t).tobytes()).hexdigest()
 
 
 def rank_cases(spec, phi, devices=None):
@@ -2155,21 +2161,26 @@ def rank_main(argv) -> int:
     check(distributed.init_distributed(
         f"127.0.0.1:{a.port}", a.world, a.rank, backend=a.backend,
         device=spec["device"]), "no process group")
-    phi = torch.load(spec["field"])
     devices = None if spec["device"] == "cuda" else [spec["device"]]
     if devices:
         torch.set_num_threads(1)      # ranks that share the host's cores
-    counters = (wc.reinit_step_block, mc.minmax_step_block)
-    for c in counters:
-        c.launches = 0
-    results = rank_cases(spec, phi, devices)
-    launches = {c.__name__: c.launches for c in counters}
+    kind = spec.get("kind", "cases")
+    if kind == "cases":
+        phi = torch.load(spec["field"])
+        counters = (wc.reinit_step_block, mc.minmax_step_block)
+        for c in counters:
+            c.launches = 0
+        out = {"results": rank_cases(spec, phi, devices),
+               "launches": {c.__name__: c.launches for c in counters}}
+    else:
+        out = {"pipeline": rank_pipeline, "render": rank_render}[kind](
+            spec, devices)
     dev = (f"cuda:{torch.cuda.current_device()}"
            if spec["device"] == "cuda" else "cpu")
     torch.distributed.destroy_process_group()
     with open(a.out, "w") as f:
         json.dump({"rank": a.rank, "device": dev, "backend": a.backend,
-                   "results": results, "launches": launches}, f)
+                   **out}, f)
     return 0
 
 
@@ -2304,15 +2315,9 @@ def dryrun_phase(card, n=4, device="cuda"):
     on the card(s), every kernel's counter read around it.  Returns the
     launches; on the card the block modes of K1 and K3 and K5's block mode
     must be among them."""
-    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
-    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     from levelsetfortran_tpu_torch.parallel import dryrun
-    counters = [getattr(wc, k, None) or getattr(mc, k)
-                for k in kernel_names()]
-    for c in counters:
-        c.launches = 0
-    _, t = sync_time(lambda: dryrun(n, device=device))
-    launches = {c.__name__: c.launches for c in counters}
+    (_, launches), t = sync_time(lambda: counted(
+        lambda: dryrun(n, device=device)))
     need = ("reinit_step_block", "minmax_step_block",
             "reinit_step_block_vjp")
     check(device != "cuda" or all(launches[k] > 0 for k in need),
@@ -2320,6 +2325,416 @@ def dryrun_phase(card, n=4, device="cuda"):
     phase("dryrun", f"dryrun({n}) passed in {t:.2f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }; card {card}")
     return launches
+
+# ---------------------- several processes: the rest ----------------------
+
+#: Run D's render and solver steps (``bench.py:bench_e2e_pixgrad(256)``),
+#: also runs G and G-ranks'.
+RUN_D_KW = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0),
+                reinit_steps=50, minmax_steps=20, height=64, width=64)
+#: Run L with checkpoints: run H's chunk.
+RUN_L_CHUNK = 100
+#: Kernels of the sharded paths: what runs L and G-ranks must launch.
+BLOCK_KERNELS = ("reinit_step_block", "minmax_step_block",
+                 "reinit_step_block_vjp", "minmax_step_block_vjp")
+#: Exchanges timed for the advection's per-iteration all-reduce.
+EXCHANGE_REPS = 200
+
+
+@contextlib.contextmanager
+def solver_rms():
+    """``[iterations, rms]`` of every ShardedLevelSet solve while the block
+    runs."""
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    seen = []
+    real = {n: getattr(sh.ShardedLevelSet, n) for n in ("reinit",
+                                                         "minmax_flow")}
+
+    def wrap(fn):
+        def solve(self, *a, **k):
+            res = fn(self, *a, **k)
+            seen.append([res[1], res[2]])
+            return res
+        return solve
+
+    for n, fn in real.items():
+        setattr(sh.ShardedLevelSet, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in real.items():
+            setattr(sh.ShardedLevelSet, n, fn)
+
+
+@contextlib.contextmanager
+def keep_images():
+    """The image of every render of the differentiable pipeline while the
+    block runs."""
+    from levelsetfortran_tpu_torch.pipeline import differentiable as diff
+    real, images = diff.render, []
+
+    def render(*a, **k):
+        out = real(*a, **k)
+        images.append(out.image.detach().clone())
+        return out
+
+    diff.render = render
+    try:
+        yield images
+    finally:
+        diff.render = real
+
+
+def timed_checkpointer(times):
+    """A FieldCheckpointer whose saves and restores append their walls to
+    ``times["save"]`` / ``times["restore"]``."""
+    from levelsetfortran_tpu_torch.utils.checkpoint import FieldCheckpointer
+
+    class Timed(FieldCheckpointer):
+        def save(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().save(*a, **k)
+            times["save"].append(time.perf_counter() - t0)
+            return out
+
+        def restore(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().restore(*a, **k)
+            if out is not None:
+                times["restore"].append(time.perf_counter() - t0)
+            return out
+
+    return Timed
+
+
+def counted(fn):
+    """``(fn(), launches)``: every kernel's counter set to 0 before and
+    read after."""
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    counters = [getattr(wc, k, None) or getattr(mc, k)
+                for k in kernel_names()]
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def rank_timed(fn):
+    """``(fn(), seconds)`` on a rank: its own card synchronised around."""
+    import torch
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def file_digests(directory):
+    """sha256 of every file of ``directory`` ({} when there is none)."""
+    import hashlib
+    if not os.path.isdir(directory):
+        return {}
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def pipeline_record(res, rms, out_dir):
+    """What runs F and L are held to: counts, flags, the asymptotic error,
+    the solvers' RMS, digests of the nodes, the gathered fields and the
+    written files (JSON round-tripped, so exact floats compare equal)."""
+    return json.loads(json.dumps({
+        "iters": [res.reinit_iters, res.minmax_iters],
+        "diverged": [res.reinit_diverged, res.minmax_diverged],
+        "asym": res.asymptotic_error, "rms": rms,
+        "advected": digest(res.advected),
+        "fields": {f: digest(getattr(res, f)) for f in (
+            "phi_init", "phi_smoothed", "phi_final")
+            if getattr(res, f) is not None},
+        "files": file_digests(out_dir)}))
+
+
+def stage_walls(timers):
+    t = timers
+    return {"init": t["search"], "reinit": t["initialization"] - t["search"],
+            "minmax": t["minmax"] - t["initialization"],
+            "advect": t["advect"] - t["minmax"],
+            "final reinit": t["total"] - t["advect"]}
+
+
+def rank_pipeline(spec, devices):
+    """One rank of runs L (run F's configuration through ``run()``, this
+    rank's blocks, the outputs written) and L with checkpoints, then the
+    advection's exchange alone, then phase 10's resumable solvers on the
+    same mesh across the ranks."""
+    import torch
+    import torch.distributed as dist
+    from levelsetfortran_tpu_torch.parallel.distributed import comm_device
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
+    from levelsetfortran_tpu_torch.parallel.sharded import ShardedLevelSet
+    from levelsetfortran_tpu_torch.pipeline.cli import (build_parser,
+                                                        config_from_args)
+    from levelsetfortran_tpu_torch.pipeline.run import run
+    from levelsetfortran_tpu_torch.solvers import checkpointed as ck
+    rank = dist.get_rank()
+    runs = {}
+    for label, extra in (
+            ("L", []),
+            ("L checkpointed", ["--checkpoint-dir",
+                                os.path.join(spec["tmp"], "L_ckpt"),
+                                "--checkpoint-chunk", str(RUN_L_CHUNK)])):
+        out_dir = os.path.join(spec["tmp"],
+                               f"{label.replace(' ', '_')}_rank{rank}")
+        cfg = config_from_args(build_parser().parse_args(
+            [spec["stl"], *spec["args"], *extra]))
+        with solver_rms() as rms:
+            (res, launches), wall = rank_timed(lambda: counted(
+                lambda: run(spec["stl"], cfg, out_dir=out_dir)))
+        runs[label] = dict(pipeline_record(res, rms, out_dir),
+                           launches=launches, wall=wall,
+                           stages=stage_walls(res.timers))
+        n_nodes = res.advected.shape[0]
+    # the advection's exchange alone: one all-reduce of (n_nodes, 4)
+    # samples, staged through the host under gloo
+    buf = torch.zeros((n_nodes, 4),
+                      device="cuda" if devices is None else devices[0])
+
+    def exchange():
+        b = buf.to(comm_device(buf))
+        dist.all_reduce(b)
+        return b.to(buf.device)
+
+    exchange()
+    _, t_ex = rank_timed(lambda: [exchange() for _ in range(EXCHANGE_REPS)])
+
+    n, dx = spec["resumable"]
+    phi0 = sphere((n, n, n), dx, 1.0,
+                  "cuda" if devices is None else devices[0])
+    solver = ShardedLevelSet(make_mesh((2, 2, 1), devices), phi0.shape, dx)
+    blocks = solver.device_put(phi0)
+    del phi0
+    chunk, total = RUN_H_FULL_CHUNK, RUN_H_FULL_ITERS
+    resumable = {}
+    for name, fn, h in (
+            ("reinit", ck.reinit_resumable_sharded, 0.1 * dx / 3.0),
+            ("minmax", ck.minmax_resumable_sharded, 0.01 * dx / 3.0)):
+        times = {"save": [], "restore": []}
+        Timed = timed_checkpointer(times)
+        d = os.path.join(spec["tmp"], f"H_ranks_{name}")
+        (part, first), t_part = rank_timed(lambda: counted(lambda: fn(
+            solver, blocks, h, 2 * chunk, 0.0, ckpt=Timed(d), chunk=chunk)))
+        (res, launches), t_res = rank_timed(lambda: counted(lambda: fn(
+            solver, blocks, h, total, 0.0, ckpt=Timed(d), chunk=chunk)))
+        launches = {k: v + first[k] for k, v in launches.items()}
+        resumable[name] = {
+            "iters": [part.iterations, res.iterations, res.resumed_from,
+                      res.diverged],
+            "blocks": {str(i): digest(b) for i, b in enumerate(res.phi)
+                       if b is not None},
+            "launches": launches, "wall": t_part + t_res, **times}
+    return {"runs": runs, "exchange_ms": 1e3 * t_ex / EXCHANGE_REPS,
+            "nodes": n_nodes, "resumable": resumable}
+
+
+def run_l_phase(card, tmp, run_f, world=2, device="cuda",
+                resumable=(MAIN_SHAPE[0], 0.01)):
+    """Phase 6b: runs L and L with checkpoints, run F across ``world``
+    ranks started here (``rank_pipeline``), and phase 10 across the same
+    ranks.  Every rank's counts, RMS, asymptotic error and nodes are
+    bitwise run F's, rank 0's gathered fields and files too, and rank 1
+    wrote none; the block kernels launched on every rank and no solo
+    kernel; the resumed solves bitwise the uninterrupted solo solves here.
+    Returns the ranks' launches."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel.mesh import (make_mesh,
+                                                         split_blocks)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+    backend = rank_backend(world, device)
+    spec = {"kind": "pipeline", "device": device, "stl": run_f["stl"],
+            "args": run_f["args"], "tmp": tmp,
+            "resumable": list(resumable)}
+    ranks = run_ranks(spec, world, backend, tmp, "L")
+    want = pipeline_record(run_f["res"], run_f["rms"], run_f["dir"])
+    total = {}
+    for label in ("L", "L checkpointed"):
+        for r in ranks:
+            got = r["runs"][label]
+            mine = want if r["rank"] == 0 else dict(want, fields={},
+                                                    files={})
+            # a checkpointed stage calls the solver once per chunk: its
+            # RMS list is per chunk, its stop decisions in the iterations
+            diff = [k for k in mine if got[k] != mine[k]
+                    and not (k == "rms" and label != "L")]
+            check(not diff, f"run {label}: rank {r['rank']} differs from "
+                  f"run F in {diff}: {[(got[k], mine[k]) for k in diff]}")
+            ln = got["launches"]
+            check(device != "cuda" or all(ln[k] > 0 for k in BLOCK_KERNELS[:2])
+                  and all(v == 0 for k, v in ln.items()
+                          if k not in BLOCK_KERNELS[:2]),
+                  f"run {label}: rank {r['rank']} launches {ln}")
+            for k, v in ln.items():
+                total[k] = total.get(k, 0) + v
+        phase(f"run {label}", f"run F on {world} ranks "
+              f"{[r['device'] for r in ranks]} over {backend}: every rank's "
+              f"iterations {want['iters']}, "
+              + ("RMS, " if label == "L" else "") + f"asymptotic error "
+              f"{want['asym']!r} and advected nodes bitwise run F's, rank "
+              f"0's gathered fields and files {sorted(want['files'])} "
+              f"byte-equal, the other ranks wrote none; launches per rank "
+              f"{[{k: v for k, v in r['runs'][label]['launches'].items() if v} for r in ranks]}; "
+              f"stage walls per rank (a stage's first exchange waits for "
+              f"the slowest rank's previous stage) " + "; ".join(
+                  f"rank {r['rank']} " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in r["runs"][label][
+                          "stages"].items())
+                  + f", wall {r['runs'][label]['wall']:.3f} s"
+                  for r in ranks) + "; run F " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in stage_walls(
+                      run_f["res"].timers).items())
+              + f", total {run_f['res'].timers['total']:.3f} s; card {card}")
+    phase("run L", f"the advection's exchange alone: one all-reduce of "
+          f"({ranks[0]['nodes']}, 4) float32 per iteration, "
+          + ", ".join(f"rank {r['rank']} {r['exchange_ms']:.4f} ms"
+                      for r in ranks) + f" over {backend}; card {card}")
+
+    # phase 10 across the ranks, against the uninterrupted solo solves
+    n, dx = resumable
+    phi0 = sphere((n, n, n), dx, 1.0, device)
+    one = make_mesh((2, 2, 1), [device])
+    lines = []
+    for name, plain, h in (("reinit", reinit, 0.1 * dx / 3.0),
+                           ("minmax", minmax_flow, 0.01 * dx / 3.0)):
+        ref = plain(phi0, dx, h, RUN_H_FULL_ITERS, 0.0).phi
+        ref = {str(i): digest(b) for i, b in enumerate(split_blocks(one,
+                                                                    ref))}
+        got, saves, restores = {}, [], []
+        for r in ranks:
+            g = r["resumable"][name]
+            check(g["iters"] == [2 * RUN_H_FULL_CHUNK, RUN_H_FULL_ITERS,
+                                 2 * RUN_H_FULL_CHUNK, False],
+                  f"run H ranks {name}: rank {r['rank']} {g['iters']}")
+            check(device != "cuda" or g["launches"][
+                "reinit_step_block" if name == "reinit"
+                else "minmax_step_block"] > 0,
+                f"run H ranks {name}: no block launch {g['launches']}")
+            got.update(g["blocks"])
+            saves += g["save"]
+            restores += g["restore"]
+            for k, v in g["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(got == ref, f"run H ranks {name}: the resumed blocks differ "
+              f"from the uninterrupted solo solve")
+        lines.append(
+            f"{name} {max(r['resumable'][name]['wall'] for r in ranks):.3f}"
+            f" s, save {1e3 * np.median(saves):.1f} ms (max "
+            f"{1e3 * max(saves):.1f}, {len(saves)} calls over the ranks), "
+            f"restore {1e3 * np.median(restores):.1f} ms")
+    del phi0
+    phase("run H ranks", f"resumable sharded solvers at {(n,) * 3} on "
+          f"(2, 2, 1) across {world} ranks, {RUN_H_FULL_ITERS} steps in "
+          f"chunks of {RUN_H_FULL_CHUNK}, stopped after two chunks and "
+          f"resumed: bitwise the uninterrupted solo solves; "
+          + "; ".join(lines) + f"; card {card}")
+    return total
+
+
+def render_run(ball, grid, kw, mesh, device="cuda"):
+    """``image_loss_and_vertex_grad`` of ``ball`` on ``grid`` (zero target)
+    with every kernel counted: loss, gradient, the image's digest,
+    launches, wall, peak GiB and the reverse sweeps' branches."""
+    import torch
+    from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
+    from levelsetfortran_tpu_torch.ops import reverse
+    v = torch.tensor(ball.vertices, dtype=torch.float32, device=device)
+    target = torch.zeros((kw["height"], kw["width"]), device=device)
+    reverse.last_branch.clear()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with keep_images() as images:
+        ((loss, grad), launches), wall = rank_timed(lambda: counted(
+            lambda: image_loss_and_vertex_grad(
+                v, ball.elements, grid, target, culling="auto", mesh=mesh,
+                **kw)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    return {"loss": float(loss), "grad": grad, "image": digest(images[-1]),
+            "launches": launches, "wall": wall, "peak": peak,
+            "branches": dict(reverse.last_branch)}
+
+
+def rank_render(spec, devices):
+    """One rank of run G-ranks: run G's render on this rank's blocks of
+    the (2, 2, 1) mesh across the ranks; the gradient saved to a file."""
+    import torch
+    from levelsetfortran_tpu_torch.models import analytic
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
+    ball = analytic.icosphere_mesh(subdivisions=spec["subdivisions"])
+    out = render_run(ball, cube_grid(ball.vertices, spec["n"]), spec["kw"],
+                     make_mesh((2, 2, 1), devices),
+                     "cuda" if devices is None else devices[0])
+    path = os.path.join(spec["tmp"],
+                        f"G_grad_rank{torch.distributed.get_rank()}.pt")
+    torch.save(out.pop("grad").cpu(), path)
+    return dict(out, grad=path)
+
+
+def run_g_ranks_phase(card, tmp, run_g, world=2, device="cuda", n=256,
+                      subdivisions=5):
+    """Phase 8b: run G-ranks, run G's render across ``world`` ranks started
+    here (``rank_render``): the image and loss bitwise run G's, the vertex
+    gradient bitwise the same on every rank and within 1e-6 of max|grad|
+    of run G's (bitwise where the card's accumulation order allows), the
+    block modes of K1/K3/K5/K6 launched on every rank and no solo kernel.
+    Returns the ranks' launches."""
+    import torch
+    backend = rank_backend(world, device)
+    spec = {"kind": "render", "device": device, "tmp": tmp, "n": n,
+            "subdivisions": subdivisions, "kw": run_g["kw"]}
+    ranks = run_ranks(spec, world, backend, tmp, "G")
+    grads = [torch.load(r["grad"]) for r in ranks]
+    ref = run_g["grad"].cpu()
+    gmax = float(ref.abs().max())
+    gerr = float((grads[0] - ref).abs().max())
+    total = {}
+    for r, g in zip(ranks, grads):
+        check(r["loss"] == run_g["loss"] and r["image"] == run_g["image"],
+              f"run G-ranks: rank {r['rank']} loss {r['loss']!r} / image "
+              f"differ from run G's {run_g['loss']!r}")
+        check(torch.equal(g, grads[0]), f"run G-ranks: rank {r['rank']}'s "
+              f"gradient differs from rank 0's")
+        ln = r["launches"]
+        check(device != "cuda" or all(ln[k] > 0 for k in BLOCK_KERNELS)
+              and all(v == 0 for k, v in ln.items()
+                      if k not in BLOCK_KERNELS),
+              f"run G-ranks: rank {r['rank']} launches {ln}")
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+    check(gerr <= 1e-6 * gmax, f"run G-ranks: gradient max err {gerr:.3g} "
+          f"against run G's (max|grad| {gmax:.4g})")
+    phase("run G-ranks", f"run G on {world} ranks "
+          f"{[r['device'] for r in ranks]} over {backend}: loss "
+          f"{run_g['loss']!r} and the image bitwise run G's, the gradient "
+          f"bitwise equal on every rank, against run G's "
+          + ("bitwise" if gerr == 0 else f"max err {gerr:.3g}")
+          + f" (gate 1e-6 of {gmax:.4g}); launches per rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+          f"; branches {ranks[0]['branches']}; peak per rank "
+          f"{[round(r['peak'], 2) for r in ranks]} GiB (run G "
+          f"{run_g['peak']:.2f} GiB in one process); wall per rank "
+          f"{[round(r['wall'], 3) for r in ranks]} s (run G "
+          f"{run_g['wall']:.3f} s); card {card}")
+    return total
+
 
 # ----------------------------- operations -----------------------------
 
@@ -2491,23 +2906,9 @@ def run_h_full_phase(card, tmp, device="cuda", n=MAIN_SHAPE[0], dx=0.01):
     from levelsetfortran_tpu_torch.solvers import checkpointed as ck
     from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
     from levelsetfortran_tpu_torch.solvers.reinit import reinit
-    from levelsetfortran_tpu_torch.utils.checkpoint import FieldCheckpointer
 
     times = {"save": [], "restore": []}
-
-    class Timed(FieldCheckpointer):
-        def save(self, *a, **k):
-            t0 = time.perf_counter()
-            out = super().save(*a, **k)
-            times["save"].append(time.perf_counter() - t0)
-            return out
-
-        def restore(self, *a, **k):
-            t0 = time.perf_counter()
-            out = super().restore(*a, **k)
-            if out is not None:
-                times["restore"].append(time.perf_counter() - t0)
-            return out
+    Timed = timed_checkpointer(times)
 
     phi0 = sphere((n, n, n), dx, 1.0, device)
     mesh = make_mesh((2, 2, 1), [device])
@@ -2771,7 +3172,14 @@ def main() -> int:
                                                  extra, tmp)
             count(launches)
         run_a_fused(results["A"], cubes)
-        count(run_f_phase(ball, ball_sdf, results["B"], card, tmp))
+        launches, run_f = run_f_phase(ball, ball_sdf, results["B"], card,
+                                      tmp)
+        count(launches)
+        several = {}
+        launches, several["run L"] = sync_time(
+            lambda: run_l_phase(card, tmp, run_f))
+        count(launches)
+        del run_f
         launches, items_e, walls_e = run_e_phase(card, tmp)
         count(launches)
         launches, wall_k = sync_time(
@@ -2793,17 +3201,24 @@ def main() -> int:
             + f", together {sum(walls.values()):.1f} s; card {card}")
     launches, run_d = run_d_phase(ball, card, record)
     count(launches)
-    count(run_g_phase(ball, card, run_d))
+    launches, run_g = run_g_phase(ball, card, run_d)
+    count(launches)
     del run_d
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, several["run G-ranks"] = sync_time(
+            lambda: run_g_ranks_phase(card, tmp, run_g))
+        count(launches)
+    del run_g
     count(banded_solves_phase(card))
     with tempfile.TemporaryDirectory() as tmp:
         launches, wall_j = sync_time(lambda: run_j_phase(card, tmp))
         count(launches)
     launches, wall_dry = sync_time(lambda: dryrun_phase(card))
     count(launches)
-    phase("several", f"walls run K {wall_k:.1f} s, run J {wall_j:.1f} s, "
-          f"dryrun {wall_dry:.1f} s, together "
-          f"{wall_k + wall_j + wall_dry:.1f} s; card {card}")
+    several.update({"run K": wall_k, "run J": wall_j, "dryrun": wall_dry})
+    phase("several", "walls " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in several.items())
+        + f", together {sum(several.values()):.1f} s; card {card}")
     small_holds()
 
     kernels = []

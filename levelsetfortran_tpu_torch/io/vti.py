@@ -66,26 +66,60 @@ def write_vti_streaming(path: str, blocks, grid: Grid3D, mesh, *,
     tensors) in z-slabs: each slab is assembled on the host from the
     blocks' slices, so the host holds ``nx * ny * chunk_z`` samples at a
     time and the whole field is never gathered.  The bytes equal
-    :func:`write_vti` of the gathered field."""
+    :func:`write_vti` of the gathered field.
+
+    Under a process group (a mesh across processes) every rank calls this:
+    the primary writes the file, and for each slab the other ranks send it
+    their blocks' slices of that slab, in shard order (the JAX package's
+    per-slab cross-host gathers)."""
+    import torch.distributed as dist
+    from ..parallel.distributed import comm_device
     b = mesh.block_shape(grid.shape)
-    if any(tuple(x.shape) != b for x in blocks):
+    if any(x is not None and tuple(x.shape) != b for x in blocks):
         raise ValueError(f"blocks are not {b} blocks of grid {grid.shape}")
+    owners = mesh.owners or (0,) * mesh.n_shards
+    primary = mesh.rank == 0
+    mine = next(x for x in blocks if x is not None)
+
+    def slab(k0, k1):
+        """z-slab [k0, k1) on the primary, from every block's slice (the
+        other ranks' received from their owners, in shard order); None on
+        the other ranks, which send their blocks' slices."""
+        out = np.empty(grid.shape[:2] + (k1 - k0,), np.float64) \
+            if primary else None
+        for tag, (c, x, owner) in enumerate(zip(mesh.coords(), blocks,
+                                                owners)):
+            oz = c[2] * b[2]
+            lo, hi = max(k0, oz), min(k1, oz + b[2])
+            if lo >= hi or (x is None and not primary):
+                continue
+            if x is None:
+                part = torch.empty(b[:2] + (hi - lo,), dtype=mine.dtype,
+                                   device=comm_device(mine))
+                dist.recv(part, owner, tag=tag)
+            else:
+                part = x[:, :, lo - oz:hi - oz].detach()
+                if not primary:
+                    dist.send(part.to(comm_device(part)).contiguous(), 0,
+                              tag=tag)
+                    continue
+            ox, oy = c[0] * b[0], c[1] * b[1]
+            out[ox:ox + b[0], oy:oy + b[1], lo - k0:hi - k0] = (
+                part.to("cpu", torch.float64).numpy())
+        return out
 
     def slabs():
         for k0 in range(0, grid.shape[2], chunk_z):
-            k1 = min(k0 + chunk_z, grid.shape[2])
-            slab = np.empty(grid.shape[:2] + (k1 - k0,), np.float64)
-            for c, x in zip(mesh.coords(), blocks):
-                ox, oy, oz = (i * n for i, n in zip(c, b))
-                lo, hi = max(k0, oz), min(k1, oz + b[2])
-                if lo < hi:
-                    slab[ox:ox + b[0], oy:oy + b[1], lo - k0:hi - k0] = (
-                        x[:, :, lo - oz:hi - oz].detach()
-                        .to("cpu", torch.float64).numpy())
-            # payload is x-fastest: (x, y, zc) -> (zc, y, x), C order
-            yield np.ascontiguousarray(slab.transpose(2, 1, 0)).tobytes()
+            s = slab(k0, min(k0 + chunk_z, grid.shape[2]))
+            if s is not None:
+                # payload is x-fastest: (x, y, zc) -> (zc, y, x), C order
+                yield np.ascontiguousarray(s.transpose(2, 1, 0)).tobytes()
 
-    _write_framed(path, grid, name, slabs())
+    if primary:
+        _write_framed(path, grid, name, slabs())
+    else:
+        for _ in slabs():
+            pass
 
 
 def read_vti(path: str) -> tuple[np.ndarray, Grid3D]:

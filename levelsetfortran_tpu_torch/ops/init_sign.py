@@ -527,10 +527,11 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     shard runs the same init on its own block of grid points, on its own
     device, with the triangles replicated and the candidate culling built
     per block; the full grid is never on one device.  Returns the list of
-    blocks.  ``culling``: ``"auto"`` or None; an :class:`InitCulling`
-    raises.  Every block takes ``vertices.to(device)``, so a vertex tensor
-    that requires grad gets the cotangents of every shard, added by
-    autograd.
+    blocks; under a process group this rank's blocks only (None for the
+    others').  ``culling``: ``"auto"`` or None; an :class:`InitCulling`
+    raises.  A vertex tensor reaches the blocks through
+    :func:`~..parallel.mesh.replicate`, so one that requires grad gets the
+    cotangents of every shard added in shard order, across processes too.
 
     A block's points are bitwise the whole grid's (the global origin plus
     dx times the global index); its culling blocks are anchored on the
@@ -540,22 +541,22 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     on the surface, ROADMAP H8).  The JAX package's rebalancing of uneven
     candidate counts (``_overflow_split``) is not ported."""
     from ..parallel.halo import local_offsets
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            "signed_distance_init_sharded runs in one process: across "
-            "processes it is not ported yet (ROADMAP Queue 1 item 11c)")
+    from ..parallel.mesh import replicate
     if not (culling is None or (isinstance(culling, str)
                                 and culling == "auto")):
         raise ValueError(f"signed_distance_init_sharded: culling must be "
                          f"'auto' or None (each block builds its own "
                          f"candidate lists), got {culling!r}")
     b = mesh.block_shape(grid.shape)
+    verts = (replicate(mesh, vertices) if isinstance(vertices, torch.Tensor)
+             else [vertices] * mesh.n_shards)
     blocks = []
-    for off, dev in zip(local_offsets(mesh, b), mesh.devices):
+    for off, dev, v in zip(local_offsets(mesh, b), mesh.devices, verts):
+        if dev is None:
+            blocks.append(None)
+            continue
         sub = Grid3D(shape=b, origin=tuple(
             o + i * grid.dx for o, i in zip(grid.origin, off)), dx=grid.dx)
-        v = vertices.to(dev) if isinstance(vertices, torch.Tensor) \
-            else vertices
         blocks.append(signed_distance_init(
             sub, v, elements, dtype=dtype, device=dev, tile=tile,
             culling=culling, cull_block=cull_block, block_of=(grid, off)))

@@ -32,9 +32,9 @@ def flat_fits(steps: int, item_bytes: int) -> bool:
 
 def shard_bytes(p) -> int:
     """Bytes of one iterate on one shard: a tensor's, or the largest block's
-    of a list."""
+    of a list (None, another rank's block, skipped)."""
     if isinstance(p, (list, tuple)):
-        return max(shard_bytes(b) for b in p)
+        return max(shard_bytes(b) for b in p if b is not None)
     return p.numel() * p.element_size()
 
 

@@ -50,38 +50,19 @@ def halo_exchange(blocks, width, mesh: ShardMesh, periodic: bool = False):
     """Pad every block with ``width`` neighbour cells on both sides of its
     first three axes; returns the new list.
 
-    ``width``: an int or a per-axis tuple (0 skips an axis).  Global-face
-    halos are zeros: every block is zero-padded and :func:`refresh_halos`
-    fills the halos, in one process and across processes alike (None, the
-    block of another rank, stays None).  With ``periodic=True`` the
-    global-face halos wrap from the other end of the GLOBAL grid (a ring),
-    which makes a sharded stencil equal the single-device ops' circular
-    ``torch.roll`` at the global faces too (the sharded advection gradient,
-    whose single-device form masks nothing); that exchange concatenates
-    the slabs, in one process only."""
+    ``width``: an int or a per-axis tuple (0 skips an axis).  Every block is
+    zero-padded and :func:`refresh_halos` fills the halos, in one process
+    and across processes alike (None, the block of another rank, stays
+    None).  Global-face halos are zeros, or with ``periodic=True`` wrap
+    from the other end of the GLOBAL grid (a ring), which makes a sharded
+    stencil equal the single-device ops' circular ``torch.roll`` at the
+    global faces too (the sharded advection gradient, whose single-device
+    form masks nothing)."""
     widths = _widths(width)
-    if not periodic:
-        pads = [None if b is None else F.pad(b, _pad_spec(b, widths))
-                for b in blocks]
-        refresh_halos(pads, widths, mesh)
-        return pads
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            "a periodic halo exchange across processes serves only the "
-            "sharded advection, which runs in one process (ROADMAP "
-            "Queue 1 item 11c)")
-    for axis, w in enumerate(widths):
-        if not w:
-            continue
-        new = []
-        for coord, x in zip(mesh.coords(), blocks):
-            parts = []
-            for step, lo in ((-1, x.shape[axis] - w), (1, 0)):
-                nb = _neighbour(mesh, coord, axis, step, True)
-                parts.append(blocks[nb].narrow(axis, lo, w).to(x.device))
-            new.append(torch.cat([parts[0], x, parts[1]], dim=axis))
-        blocks = new
-    return blocks
+    pads = [None if b is None else F.pad(b, _pad_spec(b, widths))
+            for b in blocks]
+    refresh_halos(pads, widths, mesh, periodic=periodic)
+    return pads
 
 
 def _pad_spec(x: torch.Tensor, widths):
@@ -97,22 +78,34 @@ def halo_exchange_axis_transpose(cots, width: int, axis: int,
     ``halo.py:135`` of the JAX package): every padded cotangent block loses
     its halo along ``axis``, its centre passes through, and its low halo's
     cotangent is added onto the last ``width`` cells of the shard before it,
-    its high halo's onto the first ``width`` cells of the shard after it.
-    A global face's zero-filled halo has no sender, and its cotangent is
-    dropped."""
+    its high halo's onto the first ``width`` cells of the shard after it
+    (in that order).  A global face's zero-filled halo has no sender, and
+    its cotangent is dropped.  Under a process group the halo cotangents of
+    another rank's shard arrive through :func:`_remote_slabs` and are added
+    in the same order; None (another rank's block) stays None."""
+    remote = {}
+    if mesh.spans_processes:
+        remote = _remote_slabs(cots, width, axis, mesh, False,
+                               lambda size, step: 0 if step == 1
+                               else size - width)
     out = []
-    for coord, y in zip(mesh.coords(), cots):
+    for i, (coord, y) in enumerate(zip(mesh.coords(), cots)):
+        if y is None:
+            out.append(None)
+            continue
         o = y.narrow(axis, width, y.shape[axis] - 2 * width).clone()
         n = o.shape[axis]
-        nb = _neighbour(mesh, coord, axis, 1, False)
-        if nb is not None:       # the next shard's low halo: my last cells
-            o.narrow(axis, n - width, width).add_(
-                cots[nb].narrow(axis, 0, width).to(o.device))
-        nb = _neighbour(mesh, coord, axis, -1, False)
-        if nb is not None:       # the previous shard's high halo: my first
-            size = cots[nb].shape[axis]
-            o.narrow(axis, 0, width).add_(
-                cots[nb].narrow(axis, size - width, width).to(o.device))
+        # the next shard's low halo onto my last cells, then the previous
+        # shard's high halo onto my first cells
+        for step, dst_lo, src_lo in ((1, n - width, 0),
+                                     (-1, 0, y.shape[axis] - width)):
+            nb = _neighbour(mesh, coord, axis, step, False)
+            if nb is None:
+                continue
+            slab = remote.get((i, step))
+            if slab is None:
+                slab = cots[nb].narrow(axis, src_lo, width)
+            o.narrow(axis, dst_lo, width).add_(slab.to(o.device))
         out.append(o)
     return out
 
@@ -129,7 +122,8 @@ def halo_exchange_transpose(cots, width, mesh: ShardMesh):
     return cots
 
 
-def refresh_halos(pads, width, mesh: ShardMesh) -> None:
+def refresh_halos(pads, width, mesh: ShardMesh, periodic: bool = False
+                  ) -> None:
     """Refresh, in place, the halo frame of persistently padded blocks
     (``width`` halo cells + owned cells + ``width`` halo cells per sharded
     axis), so that a solver's state stays in the kernels' padded layout for
@@ -141,69 +135,77 @@ def refresh_halos(pads, width, mesh: ShardMesh) -> None:
     cells.  The slabs sent are always OWNED cells (``[w, 2w)`` and
     ``[size-2w, size-w)``), so the refresh is sound even when the halo of
     the sending block holds stale or unwritten data.  Global-face halos
-    become zeros.  Under a process group the slabs that cross to another
-    rank go through :func:`_exchange_remote`; None (another rank's block)
-    is skipped."""
+    become zeros, or with ``periodic`` the other end of the grid's cells
+    (along an axis of one shard, the block's own opposite face: a copy).
+    Under a process group the slabs that cross to another rank go through
+    :func:`_remote_slabs`; None (another rank's block) is skipped."""
     for axis, w in enumerate(_widths(width)):
         if not w:
             continue
-        for coord, pad in zip(mesh.coords(), pads):
+        remote = {}
+        if mesh.spans_processes:
+            remote = _remote_slabs(pads, w, axis, mesh, periodic,
+                                   lambda size, step: size - 2 * w
+                                   if step == -1 else w)
+        for i, (coord, pad) in enumerate(zip(mesh.coords(), pads)):
             if pad is None:
                 continue
             size = pad.shape[axis]
             for step, src_lo, dst_lo in ((-1, size - 2 * w, 0),
                                          (1, w, size - w)):
-                nb = _neighbour(mesh, coord, axis, step, False)
+                nb = _neighbour(mesh, coord, axis, step, periodic)
                 dst = pad.narrow(axis, dst_lo, w)
                 if nb is None:
                     dst.zero_()
-                elif mesh.is_local(nb):
+                elif (i, step) in remote:
+                    dst.copy_(remote[(i, step)])
+                else:
                     dst.copy_(pads[nb].narrow(axis, src_lo, w))
-        if mesh.spans_processes:
-            _exchange_remote(pads, w, axis, mesh)
 
 
-def _exchange_remote(pads, w: int, axis: int, mesh: ShardMesh):
-    """The cross-process slabs of one axis of :func:`refresh_halos`.
+def _remote_slabs(blocks, w: int, axis: int, mesh: ShardMesh,
+                  periodic: bool, src_lo) -> dict:
+    """The slabs of one axis that cross between processes:
+    ``{(dst_i, step): slab}`` for every shard ``dst_i`` of this rank whose
+    neighbour ``step`` (-1 or 1) along ``axis`` lives on another rank, the
+    slab being ``w`` cells of that neighbour's block from
+    ``src_lo(size, step)``.
 
     Every rank walks the same global list of transfers (each shard's low
-    and high halo, in shard order) and posts a send for each transfer whose
-    source shard it owns and a receive for each whose destination it owns,
-    so the two ends of every pair of ranks post their operations in the
-    same order (NCCL matches them by order, gloo by the tag, the
-    transfer's index).  Sends are contiguous copies of the narrowed owned
-    slabs; receives land in contiguous buffers, copied into the halo once
-    they have arrived."""
-    ops, landing = [], []
+    and high neighbour, in shard order) and posts a send for each transfer
+    whose source shard it owns and a receive for each whose destination it
+    owns, so the two ends of every pair of ranks post their operations in
+    the same order (NCCL matches them by order, gloo by the tag, the
+    transfer's index: on a ring of two shards both neighbours are one
+    rank, and the tags tell the two slabs apart).  Sends are contiguous
+    copies of the narrowed slabs, staged through the host under gloo;
+    receives land in contiguous buffers of the destination block's slab
+    shape (every block has the same shape).  Returns once all arrived."""
+    ops, landing = [], {}
     for tag, (coord, step) in enumerate(
             (c, s) for c in mesh.coords() for s in (-1, 1)):
         dst_i = mesh.index(coord)
-        src_i = _neighbour(mesh, coord, axis, step, False)
+        src_i = _neighbour(mesh, coord, axis, step, periodic)
         if src_i is None or mesh.owners[src_i] == mesh.owners[dst_i]:
             continue
-        if pads[src_i] is not None:           # I own the source: send
-            src = pads[src_i]
-            size = src.shape[axis]
-            lo = size - 2 * w if step == -1 else w
-            slab = src.narrow(axis, lo, w)
+        if blocks[src_i] is not None:          # I own the source: send
+            src = blocks[src_i]
+            slab = src.narrow(axis, src_lo(src.shape[axis], step), w)
             buf = slab.to(comm_device(slab), copy=True,
                           memory_format=torch.contiguous_format)
             ops.append(dist.P2POp(dist.isend, buf, mesh.owners[dst_i],
                                   tag=tag))
-        if pads[dst_i] is not None:           # I own the destination
-            size = pads[dst_i].shape[axis]
-            dst = pads[dst_i].narrow(axis, 0 if step == -1 else size - w, w)
-            buf = torch.empty(dst.shape, dtype=dst.dtype,
-                              device=comm_device(dst))
+        if blocks[dst_i] is not None:          # I own the destination
+            shape = blocks[dst_i].narrow(axis, 0, w).shape
+            buf = torch.empty(shape, dtype=blocks[dst_i].dtype,
+                              device=comm_device(blocks[dst_i]))
             ops.append(dist.P2POp(dist.irecv, buf, mesh.owners[src_i],
                                   tag=tag))
-            landing.append((dst, buf))
-    if not ops:
-        return
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    for dst, buf in landing:
-        dst.copy_(buf)
+            landing[(dst_i, step)] = buf
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return landing
 
 
 def crop(x: torch.Tensor, width) -> torch.Tensor:

@@ -195,3 +195,75 @@ def gather_blocks(mesh: ShardMesh, blocks, device=None
     if not full:
         return None
     return _assemble(mesh, full, device)
+
+
+def all_blocks(mesh: ShardMesh, blocks) -> list:
+    """Every shard's block on this rank: in one process the list itself;
+    under a process group each block broadcast from its owner, in shard
+    order (every block has the first local block's shape and dtype; under
+    gloo a card's blocks pass through the host, and the others' arrive
+    there)."""
+    if not mesh.spans_processes:
+        return list(blocks)
+    mine = next(b for b in blocks if b is not None)
+    cdev = distributed.comm_device(mine)
+    out = []
+    for b, owner in zip(blocks, mesh.owners):
+        buf = (b.to(cdev).contiguous() if b is not None else
+               torch.empty(mine.shape, dtype=mine.dtype, device=cdev))
+        dist.broadcast(buf, src=owner)
+        out.append(b if b is not None else buf)
+    return out
+
+
+class _GatherEverywhere(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, device, *blocks):
+        ctx.mesh = mesh
+        return _assemble(mesh, all_blocks(mesh, blocks), device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *split_blocks(ctx.mesh, g))
+
+
+def gather_everywhere(mesh: ShardMesh, blocks, device=None) -> torch.Tensor:
+    """The global field of a list of blocks on every rank, on ``device``
+    (default: this rank's first block's), differentiable.  In one process
+    the blocks assembled; under a process group every block broadcast from
+    its owner (:func:`all_blocks`), and the backward keeps each rank's own
+    blocks' slices of the cotangent.  The field and what is computed from
+    it are replicated, so every rank holds the whole cotangent and nothing
+    is added across ranks (the replicated output of the JAX package's
+    ``shard_map``)."""
+    mine = next(b for b in blocks if b is not None)
+    device = mine.device if device is None else device
+    if not mesh.spans_processes:
+        return _assemble(mesh, blocks, device)
+    return _GatherEverywhere.apply(mesh, device, *blocks)
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh, ctx.home = mesh, x.device
+        return tuple(None if d is None else x.to(d, copy=True)
+                     for d in mesh.devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        parts = all_blocks(ctx.mesh, gs)
+        total = parts[0].to(ctx.home)
+        for p in parts[1:]:
+            total = total + p.to(ctx.home)
+        return None, total
+
+
+def replicate(mesh: ShardMesh, x: torch.Tensor) -> list:
+    """One copy of ``x`` per shard of this rank, on the shard's device (None
+    for the others'), differentiable: the backward adds every shard's
+    cotangent in shard order, across processes too (:func:`all_blocks`),
+    so ``x`` gets the same sum in one process and on every rank (the psum
+    of a replicated input in the transpose of the JAX package's
+    ``shard_map``)."""
+    return list(_Replicate.apply(mesh, x))

@@ -44,13 +44,12 @@ event per check for the whole mesh (the JAX package emits from shard
 active bricks of every shard.
 
 Across processes (a :class:`~.mesh.ShardMesh` made under a process group,
-:mod:`.distributed`), :class:`ShardedLevelSet` steps this rank's shards
-only, its exchange crosses the processes (:mod:`.halo`), and the global RMS
-is the all-gathered per-shard sums added in shard order, so every rank
-takes the one-process solve's stop decision.  The differentiable sharded
-solvers and the sharded advection stay in one process (ROADMAP Queue 1
-item 11c) and raise on such a mesh.  :func:`dryrun` checks every sharded
-path on tiny shapes.
+:mod:`.distributed`), every function here steps this rank's shards only
+(None in the list for the others'), its exchanges cross the processes
+(:mod:`.halo`), and every global sum (the RMS, the scalar cotangents) is
+the per-shard sums all-gathered and added in shard order, so every rank
+takes the one-process solve's stop decision and returns its scalars.
+:func:`dryrun` checks every sharded path on tiny shapes.
 """
 
 from __future__ import annotations
@@ -60,13 +59,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import minmax_cuda, reverse, weno_cuda
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
 from ..utils.metrics import emit_iteration
-from .distributed import shard_order_sum
+from .distributed import comm_device, shard_order_sum
 from .halo import crop, halo_exchange, local_offsets, refresh_halos
 from .mesh import (ShardMesh, default_devices, factor3, gather_blocks,
                    make_mesh, split_blocks)
@@ -78,13 +78,6 @@ def _each(fn, *lists) -> list:
     """``fn`` over the shards of this process: ``lists`` side by side in
     shard order, None where the first holds another rank's (None) block."""
     return [None if args[0] is None else fn(*args) for args in zip(*lists)]
-
-
-def _one_process(mesh: ShardMesh, what: str) -> None:
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            f"{what} runs in one process: across processes it is not ported "
-            f"yet (ROADMAP Queue 1 item 11c)")
 
 
 # ----------------------- global-coordinate masks -----------------------
@@ -566,7 +559,8 @@ class ShardedLevelSet:
 # ------------------ differentiable fixed-step solvers ------------------
 
 def _global_shape(mesh: ShardMesh, blocks) -> tuple:
-    return tuple(int(b) * m for b, m in zip(blocks[0].shape, mesh.shape))
+    mine = next(b for b in blocks if b is not None)
+    return tuple(int(b) * m for b, m in zip(mine.shape, mesh.shape))
 
 
 def _check_block_sizes(mesh: ShardMesh, gshape, width, what):
@@ -578,14 +572,12 @@ def _check_block_sizes(mesh: ShardMesh, gshape, width, what):
                              f"shard only")
 
 
-def _shard_order_sum(parts):
-    """Per-shard float64 sums added in shard order, on the first shard's
-    device."""
-    dev = parts[0].device
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(dev)
-    return total
+def _shard_order_sum(parts, mesh: ShardMesh) -> torch.Tensor:
+    """Per-shard float64 sums (None for another rank's shard) added in
+    shard order (:func:`~.distributed.shard_order_sum`), a 0-d float64
+    tensor: the same number in one process and on every rank."""
+    return torch.tensor(shard_order_sum(parts, mesh.owners),
+                        dtype=torch.float64)
 
 
 def _scratch_for(cache, pad):
@@ -612,13 +604,12 @@ def _adjoint_masks(actives, mesh: ShardMesh):
     multiples of 8 on the sharded axes: then the brick grids of neighbours
     coincide, and the forward (halo 4) and backward (halo 6) brick grids of
     a shard start at the same global cell, 8 before the owned origin."""
-    owned = []
-    for a in actives:
+    def own(a):
         for ax, m in enumerate(mesh.shape):
             if m > 1:
                 a = a.narrow(ax, 1, a.shape[ax] - 2)
-        owned.append(a)
-    return halo_exchange(owned, sharded_widths(mesh, 1), mesh)
+        return a
+    return halo_exchange(_each(own, actives), sharded_widths(mesh, 1), mesh)
 
 
 class _ReinitFixedSharded(torch.autograd.Function):
@@ -643,16 +634,15 @@ class _ReinitFixedSharded(torch.autograd.Function):
         spads = halo_exchange(blocks, wf, mesh)
 
         def fstep(p, actives=(None,) * len(geoms)):
-            return [crop(weno_cuda.reinit_step_block(
-                pad, sp, dxf, hf, g, active=a, **kw), wf).contiguous()
-                for pad, sp, g, a in zip(halo_exchange(p, wf, mesh), spads,
-                                         geoms, actives)]
+            return _each(lambda pad, sp, g, a: crop(
+                weno_cuda.reinit_step_block(pad, sp, dxf, hf, g, active=a,
+                                            **kw), wf).contiguous(),
+                halo_exchange(p, wf, mesh), spads, geoms, actives)
 
         def masks(p, n):
-            return [weno_cuda.tile_activity(pad, dxf, band_radius,
-                                            n * hf / dxf, window="band4",
-                                            geom=g)
-                    for pad, g in zip(halo_exchange(p, wf, mesh), geoms)]
+            return _each(lambda pad, g: weno_cuda.tile_activity(
+                pad, dxf, band_radius, n * hf / dxf, window="band4", geom=g),
+                halo_exchange(p, wf, mesh), geoms)
 
         p = list(blocks)
         if band_radius is None:
@@ -669,7 +659,7 @@ class _ReinitFixedSharded(torch.autograd.Function):
         ctx.save_for_backward(*blocks)
         ctx.args = (spec, dxf, hf)
         ctx.meta = (reverse.scalar_meta(dx), reverse.scalar_meta(h))
-        return tuple(p) if steps else tuple(b.clone() for b in blocks)
+        return tuple(p) if steps else tuple(_each(torch.clone, blocks))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -687,6 +677,10 @@ class _ReinitFixedSharded(torch.autograd.Function):
             for i, (pad, sp, gpad, g, a) in enumerate(zip(
                     halo_exchange(p_in, wb, mesh), spads,
                     halo_exchange(gp, wb, mesh), geoms, actives)):
+                if pad is None:
+                    for acc in out:
+                        acc.append(None)
+                    continue
                 cp, csi, cdxi, chi = weno_cuda.reinit_step_block_vjp(
                     pad, sp, gpad, dxf, hf, g, active=a,
                     scratch=_scratch_for(scratch, pad), **kw)
@@ -695,10 +689,10 @@ class _ReinitFixedSharded(torch.autograd.Function):
                     acc.append(v)
             return tuple(out)
 
-        zeros = [torch.zeros((), dtype=torch.float64, device=b.device)
-                 for b in blocks]
-        carry = ([g.contiguous() for g in gs],
-                 [torch.zeros_like(b) for b in blocks], zeros, zeros)
+        zeros = _each(lambda b: torch.zeros((), dtype=torch.float64,
+                                            device=b.device), blocks)
+        carry = (_each(torch.Tensor.contiguous, gs),
+                 _each(torch.zeros_like, blocks), zeros, zeros)
         if band_radius is None:
             carry = reverse.run_reverse("reinit_fixed_sharded", fstep, bstep,
                                         list(blocks), carry, steps, ctx.traj)
@@ -715,9 +709,11 @@ class _ReinitFixedSharded(torch.autograd.Function):
             ctx.starts = None
         gp, cs, cdx, ch = carry
         # the sign source IS the input: both cotangent paths land on it
-        return (reverse.scalar_cotangent(ctx.meta[0], _shard_order_sum(cdx)),
-                reverse.scalar_cotangent(ctx.meta[1], _shard_order_sum(ch)),
-                None, *(a + b for a, b in zip(gp, cs)))
+        return (reverse.scalar_cotangent(ctx.meta[0],
+                                         _shard_order_sum(cdx, mesh)),
+                reverse.scalar_cotangent(ctx.meta[1],
+                                         _shard_order_sum(ch, mesh)),
+                None, *_each(torch.add, gp, cs))
 
 
 def reinit_fixed_sharded(mesh: ShardMesh, blocks, dx, h, steps: int, *,
@@ -739,7 +735,6 @@ def reinit_fixed_sharded(mesh: ShardMesh, blocks, dx, h, steps: int, *,
     are multiples of 8 it equals :func:`~..ops.weno_cuda.reinit_scan_banded`
     bitwise.  Needs blocks of >= 6 cells on the sharded axes, and multiples
     of 8 with ``band_radius``."""
-    _one_process(mesh, "reinit_fixed_sharded")
     gshape = _global_shape(mesh, blocks)
     _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["reinit"],
                        "reinit_fixed_sharded")
@@ -772,9 +767,9 @@ class _MinmaxFixedSharded(torch.autograd.Function):
         geoms = minmax_geoms(mesh, gshape, wf)
 
         def fstep(p):
-            return [crop(minmax_cuda.minmax_step_block(
-                pad, args[0], args[1], g, *args[2:]), wf).contiguous()
-                for pad, g in zip(halo_exchange(p, wf, mesh), geoms)]
+            return _each(lambda pad, g: crop(minmax_cuda.minmax_step_block(
+                pad, args[0], args[1], g, *args[2:]), wf).contiguous(),
+                halo_exchange(p, wf, mesh), geoms)
 
         p, ctx.traj = reverse.run_forward(fstep, list(blocks), steps)
         ctx.fstep = fstep
@@ -782,7 +777,7 @@ class _MinmaxFixedSharded(torch.autograd.Function):
         ctx.args = (spec, args)
         ctx.meta = tuple(reverse.scalar_meta(x)
                          for x in (dx, h1, band_radius, threshold))
-        return tuple(p) if steps else tuple(b.clone() for b in blocks)
+        return tuple(p) if steps else tuple(_each(torch.clone, blocks))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -796,26 +791,29 @@ class _MinmaxFixedSharded(torch.autograd.Function):
         def bstep(gp, p_in):
             pads = halo_exchange(p_in, wb, mesh)
             if not bufs:
-                bufs.extend(minmax_cuda.VjpBuffers(
-                    pad, *args, geom=g, name="minmax_step_block_vjp")
-                    for pad, g in zip(pads, geoms))
-            return [minmax_cuda.minmax_step_block_vjp(
-                pad, gpad, args[0], args[1], g, *args[2:], bufs=b)[0]
-                for pad, gpad, g, b in zip(
-                    pads, halo_exchange(gp, wb, mesh), geoms, bufs)]
+                bufs.extend(_each(lambda pad, g: minmax_cuda.VjpBuffers(
+                    pad, *args, geom=g, name="minmax_step_block_vjp"),
+                    pads, geoms))
+            return _each(lambda pad, gpad, g, b:
+                         minmax_cuda.minmax_step_block_vjp(
+                             pad, gpad, args[0], args[1], g, *args[2:],
+                             bufs=b)[0],
+                         pads, halo_exchange(gp, wb, mesh), geoms, bufs)
 
-        zeros = [torch.zeros((), dtype=torch.float64, device=b.device)
-                 for b in blocks]
+        zeros = _each(lambda b: torch.zeros((), dtype=torch.float64,
+                                            device=b.device), blocks)
         gp = reverse.run_reverse(
             "minmax_fixed_sharded", ctx.fstep, bstep, list(blocks),
-            [g.contiguous() for g in gs], steps, ctx.traj)
-        cdx = [b.sums[0] for b in bufs] or zeros
-        ch = [b.sums[1] for b in bufs] or zeros
+            _each(torch.Tensor.contiguous, gs), steps, ctx.traj)
+        cdx = _each(lambda b: b.sums[0], bufs) or zeros
+        ch = _each(lambda b: b.sums[1], bufs) or zeros
         ctx.traj = None
-        zero = zeros[0]
+        zero = torch.zeros((), dtype=torch.float64)
         # band_radius and threshold enter through comparisons only
-        return (reverse.scalar_cotangent(ctx.meta[0], _shard_order_sum(cdx)),
-                reverse.scalar_cotangent(ctx.meta[1], _shard_order_sum(ch)),
+        return (reverse.scalar_cotangent(ctx.meta[0],
+                                         _shard_order_sum(cdx, mesh)),
+                reverse.scalar_cotangent(ctx.meta[1],
+                                         _shard_order_sum(ch, mesh)),
                 reverse.scalar_cotangent(ctx.meta[2], zero),
                 reverse.scalar_cotangent(ctx.meta[3], zero), None, *gp)
 
@@ -837,7 +835,6 @@ def minmax_fixed_sharded(mesh: ShardMesh, blocks, dx, h1, steps: int, *,
             f"kernel; the sharded min/max runs the default half-width 1 "
             f"(ROADMAP Queue 1 item 8: the non-default options of the fixed "
             f"solvers)")
-    _one_process(mesh, "minmax_fixed_sharded")
     gshape = _global_shape(mesh, blocks)
     _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["minmax"],
                        "minmax_fixed_sharded")
@@ -861,32 +858,43 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
     ``(n_nodes, 4)`` samples (phi, grad) are added in shard order, the
     others contributing zeros.
 
+    Across processes each rank adds its own shards' samples, then one sum
+    all-reduce per iteration adds the ranks' (``positions`` on every rank,
+    on the rank's own device).  That is the one-process total bit for bit
+    in any order: a node's owner adds its sample and every other shard
+    +0.0, so each sum is exact (an all-gather of the per-shard samples
+    would move ``world`` times the bytes for the same numbers).
+
     The banded order-8 gradient (radius 4) is computed once per shard from
     a periodic exchange of ``HALO`` cells, exactly as the single-device
     :func:`~..solvers.advect.banded_gradient` with its circular shifts."""
     from ..ops.band import narrow_band
     from ..ops.derivs import first_derivative
     from ..solvers.advect import AdvectResult
-    _one_process(mesh, "advect_nodes_sharded")
     gshape = tuple(grid.shape)
     b = mesh.block_shape(gshape)
     w4 = (HALO,) * 3
-    pads = halo_exchange(blocks, w4, mesh, periodic=True)
-    grads = []
-    for phi_l, pad in zip(blocks, pads):
+
+    def masked_gradient(phi_l, pad):
         g, _ = first_derivative(pad, dx, order=order,
                                 quirk_deriv8_y=quirk_deriv8_y)
         _, sb = narrow_band(phi_l, dx, stencil_radius, stencil_radius)
         g = crop(g, w4)
-        grads.append(torch.where(sb[..., None], g, torch.zeros_like(g)))
-    del pads
+        return torch.where(sb[..., None], g, torch.zeros_like(g))
+
+    grads = _each(masked_gradient, blocks,
+                  halo_exchange(blocks, w4, mesh, periodic=True))
     w1 = sharded_widths(mesh, 1)
-    fields = [torch.cat([p[..., None], g], dim=-1) for p, g in zip(
-        halo_exchange(blocks, w1, mesh), halo_exchange(grads, w1, mesh))]
+    fields = _each(lambda p, g: torch.cat([p[..., None], g], dim=-1),
+                   halo_exchange(blocks, w1, mesh),
+                   halo_exchange(grads, w1, mesh))
     del grads
     dtype, home = positions.dtype, positions.device
     consts = []
     for off, field in zip(local_offsets(mesh, b), fields):
+        if field is None:
+            consts.append(None)
+            continue
         dev = field.device
 
         def t(v, dt=dtype):
@@ -903,6 +911,8 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
     def sample(x):
         total = None
         for field, c in zip(fields, consts):
+            if field is None:
+                continue
             f = (x.to(field.device) - c["origin"]) / grid.dx
             f = torch.minimum(torch.clamp_min(f, 0.0), c["hi"])
             i0 = torch.minimum(torch.clamp_min(torch.floor(f).long(), 0),
@@ -925,6 +935,10 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
             s = c0 * (1 - tz) + c1 * tz
             s = torch.where(own[:, None], s, torch.zeros_like(s)).to(home)
             total = s if total is None else total + s
+        if mesh.spans_processes:
+            buf = total.to(comm_device(total))
+            dist.all_reduce(buf)
+            total = buf.to(home)
         return total
 
     mag_eps = 1e-7

@@ -21,7 +21,7 @@ import torch
 from ..grid.grid import Grid3D
 from ..ops.init_sign import (signed_distance_init,
                               signed_distance_init_sharded)
-from ..parallel.mesh import gather_blocks
+from ..parallel.mesh import gather_everywhere
 from ..parallel.sharded import minmax_fixed_sharded, reinit_fixed_sharded
 from ..render.sphere_trace import camera_rays, render
 from ..solvers.minmax_flow import minmax_flow_fixed
@@ -53,7 +53,11 @@ def render_from_vertices(vertices, elements, grid: Grid3D, *, eye, target,
     block on each shard's device (``culling`` ``"auto"`` or None), then
     :func:`..parallel.sharded.reinit_fixed_sharded` and
     :func:`..parallel.sharded.minmax_fixed_sharded`; the blocks are
-    gathered onto the vertices' device for the renderer."""
+    gathered onto the vertices' device for the renderer.  Under a process
+    group (a mesh across processes) every rank passes the same vertices,
+    steps its own blocks, and renders the same image from the field
+    gathered on every rank; the vertex cotangents of every shard are added
+    in shard order, so every rank gets the same gradient."""
     dx = grid.dx
     if mesh is not None:
         blocks = signed_distance_init_sharded(grid, vertices, elements, mesh,
@@ -64,7 +68,7 @@ def render_from_vertices(vertices, elements, grid: Grid3D, *, eye, target,
         if minmax_steps:
             blocks = minmax_fixed_sharded(mesh, blocks, dx,
                                           minmax_cfl * dx * dx, minmax_steps)
-        phi = gather_blocks(mesh, blocks, vertices.device)
+        phi = gather_everywhere(mesh, blocks, vertices.device)
     else:
         phi = signed_distance_init(grid, vertices, elements,
                                    dtype=vertices.dtype,

@@ -7,7 +7,13 @@ With ``config.mesh_shape`` the grid is cut into the blocks of a shard mesh
 and stays in blocks from the init to the outputs: sharded init,
 :class:`~..parallel.sharded.ShardedLevelSet` for the three solver stages,
 sharded advection, ``.vti`` files streamed in z-slabs.  It is the way to
-run a grid that one device does not hold.
+run a grid that one device does not hold.  Under a process group
+(:func:`..parallel.distributed.init_distributed`) the mesh spans the
+processes: every rank calls :func:`run` with the same arguments, steps
+its own blocks, and gets the same iterations, RMS, asymptotic error and
+advected nodes; the primary (rank 0) alone writes the ``.vti`` and
+``.s3d`` files and, with ``gather_results``, holds the gathered fields
+(None on the other ranks).
 
 With ``config.checkpoint_dir`` the initial reinit and the min/max flow run
 as chunked, resumable solves (:mod:`..solvers.checkpointed`) that save
@@ -37,7 +43,7 @@ from ..io.vti import write_vti, write_vti_streaming
 from ..ops.init_sign import (initialize_sign_field, signed_distance_init,
                               signed_distance_init_sharded)
 from ..parallel import distributed
-from ..parallel.mesh import default_devices, factor3, make_mesh
+from ..parallel.mesh import default_devices, make_mesh
 from ..parallel.sharded import ShardedLevelSet, advect_nodes_sharded
 from ..solvers.advect import advect_nodes
 from ..solvers.checkpointed import (minmax_resumable,
@@ -53,7 +59,9 @@ from ..utils.logging import StageTimer, log_event
 class PipelineResult:
     """Pipeline outputs.  The three phi fields are host float64 numpy;
     under a mesh with ``config.gather_results=False`` they stay lists of
-    block tensors in shard order, each on its shard's device."""
+    block tensors in shard order, each on its shard's device (None for
+    another rank's block under a process group); with ``gather_results``
+    under a process group they are None on every rank but the primary."""
     mesh: SurfaceMesh
     grid: gridmod.Grid3D
     phi_init: np.ndarray          # after initial reinit (vti #1 field)
@@ -250,11 +258,9 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     JAX package): every O(grid) field is a list of blocks throughout, but
     for a reference init, computed on the whole grid and then cut.  One
     solver runs the three stages, banded as the initial reinit is
-    (``_banded(initial=True)``, as in the JAX package)."""
-    if distributed.active():
-        raise NotImplementedError(
-            "run() with mesh_shape runs in one process: under a process "
-            "group it is not ported yet (ROADMAP Queue 1 item 11c)")
+    (``_banded(initial=True)``, as in the JAX package).  Under a process
+    group each rank holds its own blocks; the sums are added in shard
+    order, the outputs written by the primary."""
     dtype = cfg.dtype
     banded = _banded(cfg, initial=True)
     if cfg.overlap and (cfg.narrow_band != "off"
@@ -267,13 +273,13 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
             "minmax_avg_halfwidth != 1 under mesh_shape: the sharded "
             "min/max step takes the reference's 3x3x3 average only")
     devices = default_devices(device)
-    mesh_shape = cfg.mesh_shape
-    if mesh_shape == "auto":
-        mesh_shape = factor3(len(devices))
-    smesh = make_mesh(mesh_shape, devices)
+    # "auto": one shard per device, under a process group one per rank
+    smesh = make_mesh(None if cfg.mesh_shape == "auto" else cfg.mesh_shape,
+                      devices)
+    mine = [d for d in smesh.devices if d is not None]
 
     def sync():
-        for d in set(smesh.devices):
+        for d in set(mine):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
@@ -290,8 +296,7 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
         band_radius=cfg.stencil_band_radius, overlap=cfg.overlap,
         metrics_every=cfg.metrics_every)
     log_event("grid", shape=list(grid.shape), dx=cfg.dx, device=str(device),
-              mesh=list(smesh.shape),
-              devices=sorted({str(d) for d in smesh.devices}),
+              mesh=list(smesh.shape), devices=sorted({str(d) for d in mine}),
               steps_per_exchange=solver.k, narrow_band=banded,
               overlap=solver.use_overlap)
 
@@ -305,7 +310,7 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     else:
         phi0 = solver.device_put(initialize_sign_field(
             grid, mesh.vertices, mesh.elements, dtype=dtype,
-            device=smesh.devices[0]))
+            device=mine[0]))
     sync()
     timer.mark("search")
 
@@ -347,19 +352,19 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     # --- node advection: phi stays in blocks, the nodes are replicated ---
     adv = advect_nodes_sharded(
         smesh, phi_smoothed, grid,
-        torch.as_tensor(mesh.vertices, dtype=dtype, device=smesh.devices[0]),
+        torch.as_tensor(mesh.vertices, dtype=dtype, device=mine[0]),
         cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
         order=cfg.advect_grad_order, stencil_radius=cfg.stencil_band_radius,
         quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
     sync()
     timer.mark("advect")
 
-    # --- asymptotic error from the blocks (set3d.f90:508-521) ---
-    total = 0.0
-    for a, b in zip(phi_smoothed, phi_init):
-        d = a - b
-        total += float(torch.sum(d * d))
-    asym = math.sqrt(total / rms_denominator(grid.shape))
+    # --- asymptotic error from the blocks (set3d.f90:508-521): the
+    # per-block sums added in shard order, across processes too ---
+    sums = [None if a is None else torch.sum((a - b) * (a - b))
+            for a, b in zip(phi_smoothed, phi_init)]
+    asym = math.sqrt(distributed.shard_order_sum(sums, smesh.owners)
+                     / rms_denominator(grid.shape))
 
     # --- final reinit (set3d.f90:576-582) ---
     phi_final, _, f_rms = solver.reinit(
@@ -374,19 +379,25 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     log_event("asymptotic_error", rms=asym)
 
     if write_outputs:
-        os.makedirs(out_dir, exist_ok=True)
+        # collective: the primary writes, the other ranks send it slabs
+        primary = distributed.is_primary()
+        if primary:
+            os.makedirs(out_dir, exist_ok=True)
         write_vti_streaming(
             os.path.join(out_dir, "signedDistanceFunction.vti"), phi_init,
             grid, smesh)
         write_vti_streaming(
             os.path.join(out_dir, "smoothedDistanceFunction.vti"),
             phi_smoothed, grid, smesh)
-        write_s3d(os.path.join(out_dir, base + ".s3d"), mesh, advected_h)
+        if primary:
+            write_s3d(os.path.join(out_dir, base + ".s3d"), mesh,
+                      advected_h)
         log_event("outputs", dir=out_dir)
 
     fields = (phi_init, phi_smoothed, phi_final)
     if cfg.gather_results:
-        fields = tuple(_host(solver.gather(f, "cpu")) for f in fields)
+        fields = tuple(None if g is None else _host(g) for g in (
+            solver.gather(f, "cpu") for f in fields))
     return PipelineResult(
         mesh=mesh, grid=grid, phi_init=fields[0], phi_smoothed=fields[1],
         phi_final=fields[2], advected=advected_h, asymptotic_error=asym,

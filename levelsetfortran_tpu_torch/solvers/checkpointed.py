@@ -121,13 +121,6 @@ def minmax_resumable(phi0, dx, h1, iters: int, tol: float, *,
     return _run_chunked(run_chunk, phi0, iters, tol, ckpt, chunk, "minmax")
 
 
-def _one_process(solver) -> None:
-    if solver.mesh.spans_processes:
-        raise NotImplementedError(
-            "the sharded checkpointed solves run in one process: across "
-            "processes they are not ported yet (ROADMAP Queue 1 item 11c)")
-
-
 def reinit_resumable_sharded(solver, phi0, h, iters: int, tol: float, *,
                              ckpt: Optional[FieldCheckpointer] = None,
                              chunk: int = 200) -> ResumableResult:
@@ -138,10 +131,11 @@ def reinit_resumable_sharded(solver, phi0, h, iters: int, tol: float, *,
     restores block by block onto each block's device, so the field is
     never gathered.  The sign source stays frozen at the original
     ``phi0``.  A chunk steps in exchanges of k, so it may run up to k - 1
-    steps past its count; the iteration total adds what was run.  One
-    process only: across processes it raises (ROADMAP Queue 1 item 11c).
+    steps past its count; the iteration total adds what was run.  On a
+    mesh across processes every rank runs this loop on its own blocks: the
+    solver's RMS is global, so every rank takes the same stop decisions,
+    and the checkpointer is collective (each rank writes its own blocks).
     """
-    _one_process(solver)
     def run_chunk(phi, n_iters):
         return solver.reinit(phi, h, n_iters, tol, sign_src=phi0)
 
@@ -154,7 +148,6 @@ def minmax_resumable_sharded(solver, phi0, h1, iters: int, tol: float, *,
                              threshold: float = 0.0) -> ResumableResult:
     """Sharded min/max flow with periodic checkpoint/resume (see
     :func:`reinit_resumable_sharded`)."""
-    _one_process(solver)
     def run_chunk(phi, n_iters):
         return solver.minmax_flow(phi, h1, n_iters, tol,
                                   band_radius=band_radius,

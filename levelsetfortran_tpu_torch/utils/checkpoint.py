@@ -15,6 +15,17 @@ and a ``meta.json``:
 * ``restore(like=...)`` loads each block onto the device of ``like``'s
   block, in its dtype; without ``like`` tensors come back on the CPU.
 
+Under a process group (:mod:`..parallel.distributed`; the directory one
+that every rank sees) the checkpointer is collective, as orbax is: every
+rank calls ``save``, ``latest_step`` and ``restore`` in the same order.
+A sharded field's list holds this rank's blocks (None for the others'):
+every rank writes its own ``phi.<i>.pt`` into one temporary directory,
+and after a barrier the primary (rank 0, "the process that writes
+checkpoint metadata" of the JAX package) writes ``meta.json``, renames the
+directory into place and prunes; the step list every decision reads is the
+primary's, broadcast.  ``restore`` loads only this rank's blocks.  A
+single tensor is written by the primary.
+
 The save policy is orbax's: a step is saved when it is newer than the
 latest one and is either the first or a multiple of
 ``save_interval_steps``; after a save, only the ``max_to_keep`` newest
@@ -30,6 +41,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .process import active, is_primary
 
 _META = "meta.json"
 
@@ -59,9 +73,17 @@ class FieldCheckpointer:
         self.max_to_keep = int(max_to_keep)
         self.save_interval_steps = int(save_interval_steps)
 
-    def all_steps(self) -> list:
+    def _listed(self) -> list:
         return sorted(int(n) for n in os.listdir(self.directory)
                       if _is_step(n))
+
+    def all_steps(self) -> list:
+        """The complete steps, oldest first (under a process group the
+        primary's listing, the same on every rank)."""
+        steps = [self._listed() if is_primary() else None]
+        if active():
+            dist.broadcast_object_list(steps, src=0)
+        return steps[0]
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -80,26 +102,42 @@ class FieldCheckpointer:
                 and step % self.save_interval_steps:
             return False
         blocks = list(phi) if isinstance(phi, (list, tuple)) else None
-        tmp = os.path.join(self.directory, f".tmp.{step}.{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        group = active()
+        # one directory that every rank writes into (made before the
+        # barrier), else one per process
+        tmp = os.path.join(self.directory, f".tmp.{step}."
+                           + ("group" if group else str(os.getpid())))
+        if is_primary():
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        if group:
+            dist.barrier()
         try:
             if blocks is None:
-                torch.save(phi.detach().cpu(), os.path.join(tmp, "phi.pt"))
+                if is_primary():
+                    torch.save(phi.detach().cpu(),
+                               os.path.join(tmp, "phi.pt"))
             else:
                 for i, b in enumerate(blocks):
-                    torch.save(b.detach().cpu(),
-                               os.path.join(tmp, f"phi.{i}.pt"))
-            with open(os.path.join(tmp, _META), "w") as f:
-                json.dump({"extra": dict(extra or {}),
-                           "blocks": None if blocks is None
-                           else len(blocks)}, f)
-            os.replace(tmp, os.path.join(self.directory, str(step)))
+                    if b is not None:
+                        torch.save(b.detach().cpu(),
+                                   os.path.join(tmp, f"phi.{i}.pt"))
+            if group:
+                dist.barrier()
+            if is_primary():
+                with open(os.path.join(tmp, _META), "w") as f:
+                    json.dump({"extra": dict(extra or {}),
+                               "blocks": None if blocks is None
+                               else len(blocks)}, f)
+                os.replace(tmp, os.path.join(self.directory, str(step)))
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
-        for old in self.all_steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        if is_primary():
+            for old in self._listed()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        if group:
+            dist.barrier()
         return True
 
     def restore(self, step: Optional[int] = None, *, like=None
@@ -132,6 +170,9 @@ class FieldCheckpointer:
                     f"like has {len(targets)}")
         out = []
         for name, t in zip(names, targets):
+            if like is not None and t is None:      # another rank's block
+                out.append(None)
+                continue
             x = torch.load(os.path.join(d, name), weights_only=True,
                            map_location="cpu" if t is None else t.device)
             if t is not None:

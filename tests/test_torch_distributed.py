@@ -36,8 +36,7 @@ if __name__ == "__main__":
 
 from levelsetfortran_tpu_torch.parallel import distributed  # noqa: E402
 from levelsetfortran_tpu_torch.parallel import sharded as sh  # noqa: E402
-from levelsetfortran_tpu_torch.parallel.mesh import (  # noqa: E402
-    ShardMesh, make_mesh)
+from levelsetfortran_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 WORLD = 2
 MESHES = ((4, 1, 1), (2, 2, 1))
@@ -184,62 +183,6 @@ def test_only_rank_0_logs(ranks):
     assert iters == list(range(1, STEPS + 1)) * len(MESHES)
     assert [r for r in second if "stage" in r] == []
     assert {"done": 1} in second
-
-
-def _two_rank_mesh():
-    """Rank 0's view of a (2, 1, 1) mesh whose second shard is rank 1's."""
-    return ShardMesh((2, 1, 1), (torch.device("cpu"), None), (0, 1), 0)
-
-
-def _one_process_only(name):
-    """Call ``name`` on a mesh across processes (no group needed: every
-    one of these raises before it communicates)."""
-    from levelsetfortran_tpu_torch.grid.grid import Grid3D
-    from levelsetfortran_tpu_torch.models import analytic
-    from levelsetfortran_tpu_torch.ops.init_sign import \
-        signed_distance_init_sharded
-    from levelsetfortran_tpu_torch.parallel.halo import halo_exchange
-    from levelsetfortran_tpu_torch.solvers import checkpointed
-    mesh = _two_rank_mesh()
-    blocks = [torch.zeros(8, 8, 8), None]
-    grid = Grid3D(shape=(16, 8, 8), origin=(-1.0, -0.5, -0.5), dx=0.125)
-    ball = analytic.icosphere_mesh(radius=0.4, subdivisions=1)
-    calls = {
-        "reinit_fixed_sharded": lambda: sh.reinit_fixed_sharded(
-            mesh, blocks, 0.1, 0.01, 1),
-        "minmax_fixed_sharded": lambda: sh.minmax_fixed_sharded(
-            mesh, blocks, 0.1, 1e-4, 1),
-        "advect_nodes_sharded": lambda: sh.advect_nodes_sharded(
-            mesh, blocks, grid, torch.zeros(3, 3), 0.125, 1),
-        "periodic halo_exchange": lambda: halo_exchange(
-            blocks, 4, mesh, periodic=True),
-        "signed_distance_init_sharded": lambda: signed_distance_init_sharded(
-            grid, ball.vertices, ball.elements, mesh),
-        "reinit_resumable_sharded": lambda:
-            checkpointed.reinit_resumable_sharded(
-                sh.ShardedLevelSet(mesh, (16, 8, 8), 0.125), blocks, 0.01,
-                4, 0.0),
-    }
-    return calls[name]
-
-
-@pytest.mark.parametrize("name", [
-    "reinit_fixed_sharded", "minmax_fixed_sharded", "advect_nodes_sharded",
-    "periodic halo_exchange", "signed_distance_init_sharded",
-    "reinit_resumable_sharded"])
-def test_one_process_paths_raise_across_processes(name):
-    """What stays in one process says so on a mesh across processes."""
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        _one_process_only(name)()
-
-
-def test_run_with_a_mesh_raises_under_a_group(monkeypatch):
-    from levelsetfortran_tpu_torch import LevelSetConfig, run_mesh
-    from levelsetfortran_tpu_torch.models import analytic
-    monkeypatch.setattr(distributed, "active", lambda: True)
-    cfg = LevelSetConfig(device="cpu", mesh_shape=(2, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        run_mesh(analytic.icosphere_mesh(radius=0.4, subdivisions=1), cfg)
 
 
 def _jax_reference(case, mesh_shape):

@@ -13,14 +13,18 @@ and the halo copies go card to card.  Run from the repository root:
 
     python3 tools/torch_run_f.py
 
-With ``--processes`` it runs instead the several-card paths: run F's
-solver stages on run F's init (``(2, 2, 1)``, 50 reinit steps dense, with
-k = 2 and overlapped, and 50 min/max steps, at run F's h and tol 0) with
-one process per visible card (NCCL; two processes sharing the card over
-gloo when there is one card), held bitwise against the same solves in this
-one process on the same cards, with the wall per step of each; then
-``chip_smoke.py``'s run J (two ranks), runs E and K (``--data-parallel
-2``) and ``dryrun(4)``:
+With ``--processes`` it runs instead the several-card paths, with one
+process per visible card (NCCL; two processes sharing the card over gloo
+when there is one card): ``chip_smoke.py``'s runs B and F, then run L
+(run F through ``run()`` across the processes, one block per rank on four
+cards, also with checkpoints, and the resumable solvers) bitwise run F,
+then run G's render in this process (one block per card) and run G-ranks
+(the same across the processes) against it; then run F's solver stages on
+run F's init (``(2, 2, 1)``, 50 reinit steps dense, with k = 2 and
+overlapped, and 50 min/max steps, at run F's h and tol 0) held bitwise
+against the same solves in this one process on the same cards, with the
+wall per step of each; then run J (two ranks), runs E and K
+(``--data-parallel 2``) and ``dryrun(4)``:
 
     python3 tools/torch_run_f.py --processes
 """
@@ -55,6 +59,34 @@ def fusedk_every_card(n=222):
 
 #: The solver stages of run F at fixed counts, one process per card.
 PROCESS_STEPS = 50
+
+
+def ball_sdf(p):
+    from levelsetfortran_tpu_torch.models import analytic
+    return analytic.sdf_sphere(p, (0.0, 0.0, 0.0), 1.0)
+
+
+def pipeline_processes(card):
+    """Runs B, F and L, then run G (one process) and G-ranks, with one
+    rank per visible card (at least two)."""
+    import torch
+    from levelsetfortran_tpu_torch.models import analytic
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
+    world = max(2, torch.cuda.device_count())
+    ball = analytic.icosphere_mesh(subdivisions=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, res_b = cs.run_phase("B", ball, ball_sdf, 0.01, [], tmp)
+        _, run_f = cs.run_f_phase(ball, ball_sdf, res_b, card, tmp)
+        cs.run_l_phase(card, tmp, run_f, world=world)
+    run_g = cs.render_run(ball, cs.cube_grid(ball.vertices, 256),
+                          cs.RUN_D_KW, make_mesh((2, 2, 1)))
+    cs.phase("run G", f"one process, (2, 2, 1) over "
+             f"{torch.cuda.device_count()} card(s): loss {run_g['loss']!r},"
+             f" wall {run_g['wall']:.3f} s, peak {run_g['peak']:.2f} GiB "
+             f"(the current card); card {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cs.run_g_ranks_phase(card, tmp, dict(run_g, kw=cs.RUN_D_KW),
+                             world=world)
 
 
 def processes(card, device="cuda", dx=0.01, subdivisions=5, world=None):
@@ -108,6 +140,7 @@ def main() -> int:
         return 2
     card = cs.start()
     if sys.argv[1:] == ["--processes"]:
+        pipeline_processes(card)
         processes(card)
         with tempfile.TemporaryDirectory() as tmp:
             cs.run_j_phase(card, tmp)
@@ -120,10 +153,6 @@ def main() -> int:
     from levelsetfortran_tpu_torch.models import analytic
     from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
     ball = analytic.icosphere_mesh(subdivisions=5)
-
-    def ball_sdf(p):
-        return analytic.sdf_sphere(p, (0.0, 0.0, 0.0), 1.0)
-
     with tempfile.TemporaryDirectory() as tmp:
         _, res_b = cs.run_phase("B", ball, ball_sdf, 0.01, [], tmp)
         cs.run_f_phase(ball, ball_sdf, res_b, card, tmp)
