@@ -118,10 +118,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      launches added to the record, the wall per step beside the one
      process's; the ranks are killed after RANK_TIMEOUT seconds;
  14. ``parallel.dryrun(4)`` on the card(s), the kernels' counters read
-     around it (the block modes of K1, K3 and K5 must launch).
+     around it (the block modes of K1, K3 and K5 must launch);
+ 15. options: K4's block mode on the (2,2,1) split of the 222^3 sphere
+     with a halo of 4 (every padded block bitwise its plain version and a
+     second launch, the owned cells bitwise the global K4, one block timed
+     beside its bound), then driven: 5 exchanges of 4 fused steps, its
+     counter read around them, bitwise 5 global K4 launches; the
+     solvers' non-default options (``use_true_curvature``,
+     ``avg_halfwidth=2``, ``grad_fn``) at 222^3 for 50 steps, timed, no
+     kernel launched, and at 64^3 on the card against the CPU;
+     ``minmax_flow_fixed(use_true_curvature=True)`` and
+     ``reinit_fixed(grad_fn=...)`` at run D's 256^3 and step counts (wall,
+     peak, a finite gradient; at 24^3 the card against the CPU, run D's
+     gate); ``minmax_fixed_sharded(avg_halfwidth=2)`` at 256^3 on (2,2,1)
+     against the solo solve (values bitwise) and on two ranks, every rank
+     bitwise the one-process run.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per CLI run and
-one per rank of runs J, L and G-ranks, and waits for each (a rank is
+one per rank of runs J, L and G-ranks and of the options phase's ranks,
+and waits for each (a rank is
 killed after RANK_TIMEOUT seconds, which fails the script).
 """
 
@@ -231,10 +246,12 @@ def run_counters():
             wc.reinit_step_block, mc.minmax_step_block)
 
 
-def sphere(shape, dx, radius, device="cuda"):
-    """Sphere SDF centered in the box, on the device, float32."""
+def sphere(shape, dx, radius, device="cuda", center=(0.0, 0.0, 0.0)):
+    """Sphere SDF, centered in the box unless ``center`` moves it, on the
+    device, float32."""
     import torch
-    axes = [(np.arange(n) - (n - 1) / 2.0) * dx for n in shape]
+    axes = [(np.arange(n) - (n - 1) / 2.0) * dx - c
+            for n, c in zip(shape, center)]
     gx, gy, gz = np.meshgrid(*axes, indexing="ij")
     phi = np.sqrt(gx ** 2 + gy ** 2 + gz ** 2) - radius
     return torch.tensor(phi, dtype=torch.float32, device=device)
@@ -2173,8 +2190,8 @@ def rank_main(argv) -> int:
         out = {"results": rank_cases(spec, phi, devices),
                "launches": {c.__name__: c.launches for c in counters}}
     else:
-        out = {"pipeline": rank_pipeline, "render": rank_render}[kind](
-            spec, devices)
+        out = {"pipeline": rank_pipeline, "render": rank_render,
+               "halfwidth": rank_halfwidth}[kind](spec, devices)
     dev = (f"cuda:{torch.cuda.current_device()}"
            if spec["device"] == "cuda" else "cpu")
     torch.distributed.destroy_process_group()
@@ -3070,6 +3087,347 @@ def throughput_line(card, device="cuda", n=BENCH_N):
     return out
 
 
+# ---------------------------- solver options ----------------------------
+
+#: The options phase: K4's block mode driven for K4_BLOCK_ROUNDS exchanges
+#: of 4 fused steps; the full-width solves take OPTIONS_STEPS steps at the
+#: kernel phases' 222^3 sphere and are held against the CPU at
+#: OPTIONS_CPU_N^3; the differentiable options at run D's 256^3 take run
+#: D's step counts and are held against the CPU at 24^3 (run D's gate).
+K4_BLOCK_ROUNDS = 5
+OPTIONS_STEPS = 50
+OPTIONS_CPU_N = 64
+#: Card against CPU for the same plain float32 tensor ops: their rounding
+#: agrees but for the math library's (the true curvature's cube and
+#: square roots), so the fields are held to 1e-5 after 50 steps.
+OPTIONS_CPU_TOL = 1e-5
+
+
+def fusedk_block_phase(record, card, device="cuda", shape=MAIN_SHAPE,
+                       dx=0.01, radius=1.0, rounds=K4_BLOCK_ROUNDS):
+    """K4's block mode (``minmax_fusedk_block``) on the (2, 2, 1) split of
+    the kernel phases' sphere with a halo of 4: every padded block against
+    its plain version (dense and banded, with the sum) and a second launch,
+    bitwise; the gathered owned cells against the global K4, bitwise; one
+    block timed beside its bound and its plain version.  Then its drive:
+    ``rounds`` halo exchanges, each followed by one launch per block, the
+    counters set to 0 around it, the gathered field bitwise ``rounds``
+    global K4 launches.  Returns the drive's launches."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.halo import crop, halo_exchange
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh,
+                                                         split_blocks)
+    K = 4
+    mesh = make_mesh((2, 2, 1), [device])
+    phi = sphere(shape, dx, radius, device)
+    h1 = 0.01 * dx / 3.0
+    w = sh.sharded_widths(mesh, K)
+    geoms = sh.minmax_geoms(mesh, shape, w)
+    blocks = split_blocks(mesh, phi)
+    pads = halo_exchange(blocks, w, mesh)
+    acts = [wc.tile_activity(b, dx, 4.1, window="owned") for b in blocks]
+    rel, frozen = 0.0, [0, 0]
+    for p, g, a in zip(pads, geoms, acts):
+        frozen[0] += int(a.numel() - a.sum())
+        frozen[1] += a.numel()
+        for act in (None, a):
+            k, kd = mc.minmax_fusedk_block(p, dx, h1, g, ksteps=K,
+                                           active=act, with_rms=True)
+            q, qd = mc.minmax_fusedk_block_plain(p, dx, h1, g, ksteps=K,
+                                                 active=act, with_rms=True)
+            check(bitwise(k, q), f"K4 block {tuple(p.shape)}: differs from "
+                  f"its plain version ({err(k, q):.3g})")
+            rel = max(rel, abs(float(kd) - float(qd)) / float(qd))
+        check(twice_equal(lambda: mc.minmax_fusedk_block(
+            p, dx, h1, g, ksteps=K, active=a, with_rms=True)),
+            "K4 block: two launches differ")
+    check(rel <= 1e-12, f"K4 block: sums rel {rel:.3g} against the plain")
+    check(0 < frozen[0] < frozen[1], "K4 block: the masks skip nothing")
+    for act_g, acts_b in ((None, [None] * len(pads)),
+                          (wc.tile_activity(phi, dx, 4.1, window="owned"),
+                           acts)):
+        glob = mc.minmax_fusedk(phi, dx, h1, ksteps=K, active=act_g)
+        owned = [crop(mc.minmax_fusedk_block(p, dx, h1, g, ksteps=K,
+                                             active=a), w)
+                 for p, g, a in zip(pads, geoms, acts_b)]
+        check(torch.equal(gather_blocks(mesh, owned), glob),
+              f"K4 block: the owned cells differ from the global K4 "
+              f"(banded {act_g is not None})")
+    p, g = pads[0], geoms[0]
+    rec = record["minmax_fusedk_block"]
+
+    def launch():
+        return mc.minmax_fusedk_block(p, dx, h1, g, ksteps=K, with_rms=True)
+
+    rec["ms"] = median_ms(launch, 20)
+    rec["device_ms"] = device_ms(launch)
+    rec["plain_ms"] = median_ms(lambda: mc.minmax_fusedk_block_plain(
+        p, dx, h1, g, ksteps=K, with_rms=True), 5)
+    rec.update(bound(8 * p.numel(), K * OPS["minmax_band"] * band_cells(
+        p, dx) + OPS["rms"] * p.numel()))
+    ref = phi
+    for _ in range(rounds):
+        ref = mc.minmax_fusedk(ref, dx, h1, ksteps=K)
+
+    def drive():
+        bl = blocks
+        for _ in range(rounds):
+            bl = [crop(mc.minmax_fusedk_block(pd, dx, h1, gm, ksteps=K),
+                       w).contiguous()
+                  for pd, gm in zip(halo_exchange(bl, w, mesh), geoms)]
+        return bl
+
+    (out, launches), wall = sync_time(lambda: counted(drive))
+    check(torch.equal(gather_blocks(mesh, out), ref),
+          f"K4 block drive: {rounds} rounds differ from the global K4 "
+          f"({err(gather_blocks(mesh, out), ref):.3g})")
+    n = len(pads) * rounds
+    check(device != "cuda" or launches == {
+        k: (n if k == "minmax_fusedk_block" else 0) for k in launches},
+          f"K4 block drive: launches {launches}")
+    phase("options", f"K4 block {tuple(p.shape)} of {shape} on (2, 2, 1), "
+          f"halo {K}: every block bitwise its plain version (dense and "
+          f"banded, {frozen[0]}/{frozen[1]} bricks frozen; sums rel "
+          f"{rel:.3g}) and a second launch, the owned cells bitwise the "
+          f"global K4 (dense and banded); kernel {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); drive: "
+          f"{rounds} exchanges of {K} fused steps, {n} launches, bitwise "
+          f"{rounds} global K4 launches, {wall:.3f} s; card {card}")
+    return launches
+
+
+def option_solves(device, n, dx, radius=1.0, steps=OPTIONS_STEPS):
+    """The three full-width solves with non-default options at ``n``^3,
+    stop test off: ``{name: (result, wall, launches)}``."""
+    from levelsetfortran_tpu_torch.pipeline.run import gradient_magnitude
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+    phi = sphere((n,) * 3, dx, radius, device)
+    h, h1 = 0.1 * dx, 0.05 * dx * dx
+    solves = {
+        "minmax_flow(use_true_curvature=True)": lambda: minmax_flow(
+            phi, dx, h1, steps, 0.0, use_true_curvature=True),
+        "minmax_flow(avg_halfwidth=2)": lambda: minmax_flow(
+            phi, dx, h1, steps, 0.0, avg_halfwidth=2),
+        "reinit(grad_fn=gradient_magnitude)": lambda: reinit(
+            1.5 * phi, dx, h, steps, 0.0,
+            grad_fn=lambda q: gradient_magnitude(q, dx))}
+    out = {}
+    for name, solve in solves.items():
+        solve()                                     # warm-up
+        (res, launches), wall = sync_time(lambda: counted(solve))
+        out[name] = (res, wall, launches)
+    return out
+
+
+def option_solves_phase(card, device="cuda", n=MAIN_SHAPE[0], dx=0.01,
+                        n_cpu=OPTIONS_CPU_N):
+    """The solvers' non-default options at full width: each solve's
+    ``OPTIONS_STEPS`` steps at ``n``^3 timed, no kernel launched (the
+    route follows the options, as in the JAX package), and the same solve
+    at ``n_cpu``^3 on the card against the CPU."""
+    small_dx = 2.52 / (n_cpu - 1)
+    big = option_solves(device, n, dx)
+    card_small = option_solves(device, n_cpu, small_dx)
+    cpu_small = option_solves("cpu", n_cpu, small_dx)
+    lines = []
+    for name, (res, wall, launches) in big.items():
+        check(not any(launches.values()),
+              f"options: {name} launched kernels {launches}")
+        check(res.iterations == OPTIONS_STEPS and math.isfinite(
+            res.final_rms), f"options: {name} {res.iterations} steps, rms "
+            f"{res.final_rms}")
+        e = err(card_small[name][0].phi.cpu(), cpu_small[name][0].phi)
+        check(e <= OPTIONS_CPU_TOL, f"options: {name} at {n_cpu}^3 differs "
+              f"from the CPU by {e:.3g}")
+        lines.append(f"{name} {wall:.3f} s (rms {res.final_rms:.4g}; at "
+                     f"{n_cpu}^3 card vs CPU max err {e:.3g})")
+    phase("options", f"{OPTIONS_STEPS} steps at {(n,) * 3}, no kernel "
+          f"launched (tol {OPTIONS_CPU_TOL:g} against the CPU): "
+          + "; ".join(lines) + f"; card {card}")
+
+
+def fixed_options_run(device, n, dx, radius, which):
+    """One differentiable solve with a non-default option on the ``n``^3
+    sphere: loss mean(out^2) and its gradients in phi0, dx and h (h1).
+    The sphere sits off the grid's symmetry planes: on a symmetric field
+    the grid corners take |grad phi| = 0 exactly after the ghost BC, and
+    the square root in ``gradient_magnitude`` then gives NaN gradients
+    there, in the JAX package as here (ROADMAP H21)."""
+    import torch
+    from levelsetfortran_tpu_torch.pipeline.run import gradient_magnitude
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
+        minmax_flow_fixed
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit_fixed
+    p = sphere((n,) * 3, dx, radius, device,
+               center=(0.013, -0.021, 0.007)).requires_grad_(True)
+    sc = [torch.tensor(v, device=device, requires_grad=True)
+          for v in ((dx, 0.05 * dx * dx) if which == "minmax"
+                    else (dx, 0.1 * dx))]
+    if which == "minmax":
+        out = minmax_flow_fixed(p, *sc, RUN_D_KW["minmax_steps"],
+                                use_true_curvature=True)
+    else:
+        out = reinit_fixed(p, *sc, RUN_D_KW["reinit_steps"],
+                           grad_fn=lambda q: gradient_magnitude(q, dx))
+    loss = torch.mean(out * out)
+    loss.backward()
+    return float(loss.detach()), [p.grad] + [t.grad for t in sc]
+
+
+def fixed_options_phase(card, device="cuda", n=BENCH_N):
+    """The differentiable options at run D's size (run D's step counts):
+    wall, peak and a finite gradient; the same at 24^3 on the card against
+    the CPU (loss rtol 1e-4, gradients atol 1e-4 / rtol 1e-3)."""
+    import torch
+    names = {"minmax": "minmax_flow_fixed(use_true_curvature=True) x "
+                       f"{RUN_D_KW['minmax_steps']}",
+             "reinit": "reinit_fixed(grad_fn=gradient_magnitude) x "
+                       f"{RUN_D_KW['reinit_steps']}"}
+    lines = []
+    for which, name in names.items():
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ((loss, grads), launches), wall = sync_time(lambda: counted(
+            lambda: fixed_options_run(device, n, 2.0 / (n - 1), 0.6,
+                                      which)))
+        check(not any(launches.values()),
+              f"options: {name} launched kernels {launches}")
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if device == "cuda" else float("nan"))
+        check(math.isfinite(loss) and all(bool(torch.isfinite(g).all())
+                                          for g in grads)
+              and float(grads[0].abs().max()) > 0,
+              f"options: {name} at {n}^3: loss {loss}, gradient not finite")
+        a = fixed_options_run(device, 24, 2.4 / 23, 0.6, which)
+        b = fixed_options_run("cpu", 24, 2.4 / 23, 0.6, which)
+        check(abs(a[0] - b[0]) <= 1e-4 * abs(b[0]) and all(
+            torch.allclose(x.cpu(), y, atol=1e-4, rtol=1e-3)
+            for x, y in zip(a[1], b[1])),
+            f"options: {name} at 24^3: the card differs from the CPU "
+            f"(loss {a[0]!r} / {b[0]!r})")
+        lines.append(f"{name}: loss {loss:.6g}, max|grad| "
+                     f"{float(grads[0].abs().max()):.4g}, d/d dx "
+                     f"{float(grads[1]):.4g}, wall {wall:.3f} s, peak "
+                     f"{peak:.2f} GiB; at 24^3 loss rel "
+                     f"{abs(a[0] - b[0]) / abs(b[0]):.3g} vs the CPU")
+    phase("options", f"differentiable options at {(n,) * 3}: "
+          + "; ".join(lines) + f"; card {card}")
+
+
+def halfwidth_case(mesh, phi, dx, device, steps=RUN_D_KW["minmax_steps"]):
+    """``minmax_fixed_sharded(avg_halfwidth=2)`` on ``mesh`` with loss
+    mean(out^2): this process's blocks and block gradients (tensors, None
+    for another rank's), the scalar gradients and the wall."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import split_blocks
+    blocks = [None if b is None else b.requires_grad_(True)
+              for b in split_blocks(mesh, phi)]
+    sc = [torch.tensor(v, device=device, requires_grad=True)
+          for v in (dx, 0.05 * dx * dx)]
+
+    def solve():
+        outs = sh.minmax_fixed_sharded(mesh, blocks, *sc, steps,
+                                       avg_halfwidth=2)
+        loss = sum(torch.sum(o * o) for o in outs if o is not None)
+        loss.backward()
+        return outs
+
+    outs, wall = rank_timed(solve)
+    return {"out": [None if o is None else o.detach() for o in outs],
+            "grad": [None if b is None else b.grad for b in blocks],
+            "scalars": [float(t.grad) for t in sc], "wall": wall}
+
+
+def rank_halfwidth(spec, devices):
+    """One rank of the sharded half-width-2 run: this rank's blocks and
+    gradients as digests, the scalar gradients."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((2, 2, 1), devices)
+    dev = "cuda" if devices is None else devices[0]
+    res = halfwidth_case(mesh, torch.load(spec["field"]).to(dev),
+                         spec["dx"], dev)
+    return {"blocks": {f"{k}.{i}": digest(t) for k in ("out", "grad")
+                       for i, t in enumerate(res[k]) if t is not None},
+            "scalars": res["scalars"], "wall": res["wall"]}
+
+
+def halfwidth_phase(card, tmp, device="cuda", n=BENCH_N, world=2):
+    """``minmax_fixed_sharded(avg_halfwidth=2)`` at ``n``^3 on (2, 2, 1) in
+    one process against the solo ``minmax_flow_fixed(avg_halfwidth=2)``
+    (the values bitwise: the same per-cell float32 ops; the gradients
+    within 1e-5 of max|grad| and the scalars 1e-4 relative: the exchange's
+    transpose and the shards' sums add in another order), then on
+    ``world`` ranks over gloo or NCCL, every rank bitwise the one-process
+    run."""
+    import torch
+    from levelsetfortran_tpu_torch.parallel.mesh import (gather_blocks,
+                                                         make_mesh)
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import \
+        minmax_flow_fixed
+    dx = 2.0 / (n - 1)
+    phi = sphere((n,) * 3, dx, 0.6, device)
+    mesh = make_mesh((2, 2, 1), [device])
+    (one, launches) = counted(lambda: halfwidth_case(mesh, phi, dx, device))
+    check(not any(launches.values()), f"options: the sharded half-width 2 "
+          f"launched kernels {launches}")
+    p = phi.clone().requires_grad_(True)
+    sc = [torch.tensor(v, device=device, requires_grad=True)
+          for v in (dx, 0.05 * dx * dx)]
+    solo, wall = sync_time(lambda: minmax_flow_fixed(
+        p, *sc, RUN_D_KW["minmax_steps"], avg_halfwidth=2))
+    torch.sum(solo * solo).backward()
+    check(bitwise(gather_blocks(mesh, one["out"]), solo.detach()),
+          "options: the sharded half-width 2 differs from the solo solve")
+    gmax = float(p.grad.abs().max())
+    gerr = err(gather_blocks(mesh, one["grad"]), p.grad)
+    check(gmax > 0 and gerr <= 1e-5 * gmax, f"options: sharded gradient err "
+          f"{gerr:.3g} (max {gmax:.4g})")
+    srel = [abs(a - float(t.grad)) / abs(float(t.grad))
+            for a, t in zip(one["scalars"], sc)]
+    check(max(srel) <= 1e-4, f"options: sharded scalar gradients {srel}")
+    field = os.path.join(tmp, "halfwidth_field.pt")
+    torch.save(phi.cpu(), field)
+    backend = rank_backend(world, device)
+    ranks = run_ranks({"kind": "halfwidth", "device": device,
+                       "field": field, "dx": dx}, world, backend, tmp, "HW")
+    want = {f"{k}.{i}": digest(t) for k in ("out", "grad")
+            for i, t in enumerate(one[k])}
+    got = {}
+    for r in ranks:
+        check(r["scalars"] == one["scalars"], f"options: rank {r['rank']} "
+              f"scalar gradients {r['scalars']} vs {one['scalars']}")
+        got.update(r["blocks"])
+    check(got == want, "options: the ranks' blocks or gradients differ from "
+          "the one-process run")
+    phase("options", f"minmax_fixed_sharded(avg_halfwidth=2) x "
+          f"{RUN_D_KW['minmax_steps']} at {(n,) * 3} on (2, 2, 1): values "
+          f"bitwise the solo minmax_flow_fixed(avg_halfwidth=2), gradient "
+          f"max err {gerr:.3g} of {gmax:.4g}, scalars rel "
+          f"{max(srel):.3g}; forward + backward {one['wall']:.3f} s (solo "
+          f"forward {wall:.3f} s); {world} ranks on "
+          f"{[r['device'] for r in ranks]} over {backend}: blocks, "
+          f"gradients and scalars bitwise the one-process run, wall per "
+          f"rank {[round(r['wall'], 3) for r in ranks]} s; card {card}")
+
+
+def options_phase(card, record, tmp, device="cuda"):
+    """Phase 15: K4's block mode, then the solvers' non-default options.
+    Returns the launches of K4's block drive."""
+    launches = fusedk_block_phase(record, card, device)
+    option_solves_phase(card, device)
+    fixed_options_phase(card, device)
+    halfwidth_phase(card, tmp, device)
+    return launches
+
+
 def start():
     """Phases 0 and 1: the card's line, TF32 on, the kernels built.
     Returns the card's name and power limit."""
@@ -3123,6 +3481,8 @@ def kernel_names():
                                    weno + "1850 (active)"),
         "minmax_step_vjp_banded": (csrc + "minmax_bwd.cu",
                                    mm + "975 (active)"),
+        "minmax_fusedk_block": (csrc + "minmax_step.cu",
+                                mm + "647 (offsets)"),
     }
     return names
 
@@ -3220,6 +3580,11 @@ def main() -> int:
         f"{k} {v:.1f} s" for k, v in several.items())
         + f", together {sum(several.values()):.1f} s; card {card}")
     small_holds()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, wall_opt = sync_time(
+            lambda: options_phase(card, record, tmp))
+        count(launches)
+    phase("options", f"wall {wall_opt:.1f} s; card {card}")
 
     kernels = []
     for n, (src, repl) in names.items():

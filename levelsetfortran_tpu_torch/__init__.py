@@ -9,6 +9,8 @@ for Hopper (``csrc/``); ``run_batch`` serves several geometries through the
 solver stages together (the kernels' pack modes, optionally in shares over
 the cards); ``parallel`` cuts a grid into blocks over a shard mesh, in one
 process or across several.  Imports neither JAX nor the JAX package.
+The solvers and the sharded solver are lazy top-level names, as in the JAX
+package.
 """
 
 from .config import LevelSetConfig, QuirkConfig, REFERENCE_PARITY
@@ -22,3 +24,19 @@ from .pipeline.differentiable import (image_loss_and_vertex_grad,
 from .pipeline.run import run, run_mesh
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name == "reinit":
+        from .solvers.reinit import reinit
+        return reinit
+    if name == "minmax_flow":
+        from .solvers.minmax_flow import minmax_flow
+        return minmax_flow
+    if name == "advect_nodes":
+        from .solvers.advect import advect_nodes
+        return advect_nodes
+    if name == "ShardedLevelSet":
+        from .parallel.sharded import ShardedLevelSet
+        return ShardedLevelSet
+    raise AttributeError(name)

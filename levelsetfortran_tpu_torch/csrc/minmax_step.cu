@@ -59,7 +59,10 @@
 // index, all three axes); a cell updates only where its +-1 reads stay
 // inside the array, which every owned cell's do; a frozen brick copies its
 // cells.  Same minmax_update() in every mode, so a block's cells equal the
-// solo kernel's on the whole grid bit for bit.
+// solo kernel's on the whole grid bit for bit.  K4's block mode
+// (minmax_fusedk_padded's `offsets`) is the same record on K4's wavefront:
+// with a halo of K cells on the sharded axes the owned cells take the
+// global grid's K steps bitwise.
 #include <algorithm>
 
 #include "async_copy.cuh"
@@ -261,11 +264,24 @@ minmax_march_kernel(const float* __restrict__ phi, float* __restrict__ out,
 // and the one being written are 4 consecutive ones).  Each plane is the
 // column widened by K cells in y and z; level s is computed on the column
 // widened by K - s, so level K is the owned column, and in x a run reads K
-// planes beyond each end (none past a face: a face plane never changes).
-// The x-tree of lsf::block_sum (x-planes i with i+4, i+2, i+1) runs in each
-// thread's registers over the 8 planes of a brick, the y- and z-trees in
-// shared memory and shuffles once the brick's last plane is done, so the
-// partial is the K3 launch's bitwise.
+// planes beyond each end (none past the array: an array face plane never
+// changes).  The x-tree of lsf::block_sum (x-planes i with i+4, i+2, i+1)
+// runs in each thread's registers over the 8 planes of a brick, the y- and
+// z-trees in shared memory and shuffles once the brick's last plane is
+// done, so the partial is the K3 launch's bitwise.
+//
+// Everything is in the BlockGeom frame (common.cuh), as K3's march: the
+// dense and banded modes are the whole-grid record (solo_geom); the block
+// mode (BLOCK, the TPU kernel's `offsets`) is one shard's padded block, its
+// brick grid (the launch's columns and slabs) over the owned cells, a cell
+// stepping only where it is interior in the array AND in the global grid,
+// the fused sum counting the record's global box.  With a halo of K cells
+// on the sharded axes, the K levels of an owned cell read only cells of the
+// array, so they equal the global grid's K steps bit for bit.  The solo
+// instantiation (BLOCK false) folds the record's global terms away (read
+// at run time they cost the dense walk 16-18% of its device time on an
+// H100 80GB HBM3 at 700 W); what is left of the frame still costs it 4-8%
+// (spills at the walk's 64 registers: 32 bytes at K = 4 against 16).
 constexpr int FK_TY = 16, FK_TZ = 32, FK_NT = FK_TY * FK_TZ;
 
 template <int K>
@@ -290,12 +306,12 @@ __device__ __forceinline__ bool slab_live(const int* __restrict__ active,
   return live;
 }
 
-template <int K>
+template <int K, bool BLOCK>
 __global__ void __launch_bounds__(FK_NT, 2)
 minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
-                     MinmaxParams p, const int* __restrict__ active,
-                     int copy_inactive, double* __restrict__ partials,
-                     int chunk) {
+                     MinmaxParams p, lsf::BlockGeom q,
+                     const int* __restrict__ active, int copy_inactive,
+                     double* __restrict__ partials, int chunk) {
   constexpr int EY = FK_TY + 2 * K, EZ = FK_TZ + 2 * K, P = EY * EZ;
   constexpr int NB = (FK_TY / BRICK) * (FK_TZ / BRICK);   // bricks per slab
   constexpr int NL = (P + FK_NT - 1) / FK_NT;     // level-0 cells a thread
@@ -306,14 +322,41 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
   float* ring = reinterpret_cast<float*>(fk_shared + FK_NT);  // [K][4][P]
   const int tid = threadIdx.x;
   const int ty = tid / FK_TZ, tz = tid % FK_TZ;
-  const int y0 = blockIdx.y * FK_TY, z0 = blockIdx.x * FK_TZ;
-  const int nbx = (p.nx + BRICK - 1) / BRICK, nby = (p.ny + BRICK - 1) / BRICK;
-  const int nbz = (p.nz + BRICK - 1) / BRICK;
-  const int by0 = y0 / BRICK, bz0 = z0 / BRICK;
+  const int nbx = q.nb[0], nby = q.nb[1], nbz = q.nb[2];
+  const int cx = BLOCK ? q.c[0] : 0;           // brick (0, 0, 0) in the array
+  const int by0 = blockIdx.y * (FK_TY / BRICK);
+  const int bz0 = blockIdx.x * (FK_TZ / BRICK);
+  const int y0 = (BLOCK ? q.c[1] : 0) + by0 * BRICK;
+  const int z0 = (BLOCK ? q.c[2] : 0) + bz0 * BRICK;
   const int bx0 = blockIdx.z * chunk, bx1 = min(bx0 + chunk, nbx);
   const long long sy = p.nz, sx = (long long)p.ny * p.nz;
+  // a cell steps where it is interior in the array and, in the block mode,
+  // in the global grid
+  const int nx = p.nx, ny = p.ny, nz = p.nz;
+  const int ox = q.o[0], oy = q.o[1], oz = q.o[2];
+  const int gx = q.g[0], gy = q.g[1], gz = q.g[2];
+  auto x_ok = [=](int i) {
+    return i >= 1 && i <= nx - 2
+           && (!BLOCK || (ox + i >= 1 && ox + i <= gx - 2));
+  };
+  auto y_ok = [=](int j) {
+    return j >= 1 && j <= ny - 2
+           && (!BLOCK || (oy + j >= 1 && oy + j <= gy - 2));
+  };
+  auto z_ok = [=](int k) {
+    return k >= 1 && k <= nz - 2
+           && (!BLOCK || (oz + k >= 1 && oz + k <= gz - 2));
+  };
   const int j = y0 + ty, k = z0 + tz;                     // owned column
-  const bool col_in = j < p.ny && k < p.nz;
+  const bool col_in = j < p.ny && k < p.nz
+                      && (!BLOCK || (j >= 0 && k >= 0
+                                     && by0 + ty / BRICK < nby
+                                     && bz0 + tz / BRICK < nbz));
+  const bool col_box = col_in
+                       && (!BLOCK || (q.o[1] + j >= q.rms[2]
+                                      && q.o[1] + j < q.rms[3]
+                                      && q.o[2] + k >= q.rms[4]
+                                      && q.o[2] + k < q.rms[5]));
 
   // this thread's cells of each level, fixed for the whole walk: level 0
   // (the loads), levels 1 .. K-1 (the widened columns), level K (owned)
@@ -321,9 +364,9 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
   bool gin[NL];
 #pragma unroll
   for (int r = 0; r < NL; ++r) {
-    const int q = tid + r * FK_NT;
-    const int gj = y0 - K + q / EZ, gk = z0 - K + q % EZ;
-    gin[r] = q < P && gj >= 0 && gj < p.ny && gk >= 0 && gk < p.nz;
+    const int c = tid + r * FK_NT;
+    const int gj = y0 - K + c / EZ, gk = z0 - K + c % EZ;
+    gin[r] = c < P && gj >= 0 && gj < p.ny && gk >= 0 && gk < p.nz;
     goff[r] = gj * sy + gk;
   }
   int lw[NS][NC];
@@ -333,17 +376,17 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
     const int rz = EZ - 2 * s, n = (EY - 2 * s) * rz;
 #pragma unroll
     for (int r = 0; r < NC; ++r) {
-      const int q = tid + r * FK_NT;
-      const int wy = s + q / rz, wz = s + q % rz;
-      const int gj = y0 - K + wy, gk = z0 - K + wz;
+      const int c = tid + r * FK_NT;
+      const int wy = s + c / rz, wz = s + c % rz;
       lw[s - 1][r] = wy * EZ + wz;
-      lin[s - 1][r] = q < n;
-      lok[s - 1][r] = gj >= 1 && gj <= p.ny - 2 && gk >= 1 && gk <= p.nz - 2;
+      lin[s - 1][r] = c < n;
+      lok[s - 1][r] = y_ok(y0 - K + wy) && z_ok(z0 - K + wz);
     }
   }
   const int ow = (K + ty) * EZ + K + tz;
-  const bool own_ok = j >= 1 && j <= p.ny - 2 && k >= 1 && k <= p.nz - 2;
+  const bool own_ok = y_ok(j) && z_ok(k);
   const long long own_off = j * sy + k;
+  auto slab_x0 = [=](int bx) { return cx + bx * BRICK; };
 
   // the chunk in runs of live slabs (a single dead slab between two live
   // ones joins the run: sweeping it costs 8 steps, a restart 3K); a dead
@@ -355,7 +398,8 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
   for (int first = bx0; first < bx1;) {
     if (!live(first)) {
       if (copy_inactive && col_in)
-        for (int i = first * BRICK; i < min(first * BRICK + BRICK, p.nx); ++i)
+        for (int i = max(slab_x0(first), 0);
+             i < min(slab_x0(first) + BRICK, p.nx); ++i)
           out[i * sx + own_off] = phi[i * sx + own_off];
       if (partials != nullptr && tid < NB) {
         const int by = by0 + tid / (FK_TZ / BRICK);
@@ -370,7 +414,8 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
     while (last + 1 < bx1
            && (live(last + 1) || (last + 2 < bx1 && live(last + 2))))
       ++last;
-    const int xs = first * BRICK, xe = min((last + 1) * BRICK, p.nx);
+    const int xs = max(slab_x0(first), 0);
+    const int xe = min(slab_x0(last + 1), p.nx);
     const int xr = max(xs - K, 0);             // first plane loaded
     const int xl = min(xe + K, p.nx);          // end of the planes loaded
     float dq[BRICK];                           // last-step changes, this brick
@@ -391,7 +436,7 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
         const int lo = xr == 0 ? 0 : xr + s;
         const int hi = xl == p.nx ? p.nx - 1 : xl - 1 - s;
         if (pl < lo || pl > hi) continue;      // uniform over the block
-        const bool iok = pl >= 1 && pl <= p.nx - 2;
+        const bool iok = x_ok(pl);
         const float* src = ring + (s - 1) * 4 * P;
         const float* bm = src + ((pl + 3) & 3) * P;
         const float* b0 = src + (pl & 3) * P;
@@ -416,25 +461,27 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
         const float* b0 = src + (pl & 3) * P;
         const float c = b0[ow];
         float r = c;
-        if (pl >= 1 && pl <= p.nx - 2 && own_ok && fabsf(c) < p.band_dx)
+        if (x_ok(pl) && own_ok && fabsf(c) < p.band_dx)
           r = minmax_update(c, src[((pl + 3) & 3) * P + ow],
                             src[((pl + 1) & 3) * P + ow], b0[ow - EZ],
                             b0[ow + EZ], b0[ow + 1], b0[ow - 1], p);
-        const int bx = pl / BRICK;
+        const int lp = pl - cx;                // plane in the brick grid
+        const int bx = lp / BRICK, m_pl = lp & (BRICK - 1);
         const bool act = active == nullptr
-            || (col_in && active[((long long)bx * nby + j / BRICK) * nbz
-                                 + k / BRICK] != 0);
+            || (col_in && active[((long long)bx * nby + by0 + ty / BRICK)
+                                     * nbz + bz0 + tz / BRICK] != 0);
         if (col_in) {
           const long long idx = pl * sx + own_off;
           if (act) out[idx] = r;
           else if (copy_inactive) out[idx] = phi[idx];
         }
-        const float d = col_in ? r - c : 0.0f;
+        const bool x_box = !BLOCK || (q.o[0] + pl >= q.rms[0]
+                                      && q.o[0] + pl < q.rms[1]);
+        const float d = col_box && x_box ? r - c : 0.0f;
 #pragma unroll
         for (int m = 0; m < BRICK; ++m)
-          if ((pl & (BRICK - 1)) == m) dq[m] = d;
-        if (partials != nullptr
-            && ((pl & (BRICK - 1)) == BRICK - 1 || pl == xe - 1)) {
+          if (m_pl == m) dq[m] = d;
+        if (partials != nullptr && (m_pl == BRICK - 1 || pl == xe - 1)) {
           // the brick's last plane: its 512 changes in block_sum's tree
           double dd[BRICK];
 #pragma unroll
@@ -465,7 +512,7 @@ minmax_fusedk_kernel(const float* __restrict__ phi, float* __restrict__ out,
             }
           }
         }
-        if ((pl & (BRICK - 1)) == BRICK - 1) {
+        if (m_pl == BRICK - 1) {
 #pragma unroll
           for (int m = 0; m < BRICK; ++m) dq[m] = 0.0f;
         }
@@ -541,14 +588,14 @@ extern "C" int lsf_minmax_step_packed_f32(const void* phi, void* out,
 
 namespace {
 
-template <int K>
+template <int K, bool BLOCK>
 int launch_fusedk(const float* in, float* o, const MinmaxParams& p,
-                  const int* act, int copy_inactive, double* part,
-                  cudaStream_t st) {
+                  const lsf::BlockGeom& q, const int* act, int copy_inactive,
+                  double* part, cudaStream_t st) {
   constexpr size_t smem = fk_smem<K>();
   static std::atomic<unsigned long long> smem_set{0};
   const cudaError_t attr = lsf::allow_dynamic_smem(
-      (const void*)minmax_fusedk_kernel<K>, smem, smem_set);
+      (const void*)minmax_fusedk_kernel<K, BLOCK>, smem, smem_set);
   if (attr != cudaSuccess) return (int)attr;
   // x-slabs per block: the count that minimises waves x steps a block
   // walks (8 per slab and 3K more for a run's ends), the waves counted over
@@ -557,11 +604,12 @@ int launch_fusedk(const float* in, float* o, const MinmaxParams& p,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, minmax_fusedk_kernel<K>, FK_NT, smem);
+      &per_sm, minmax_fusedk_kernel<K, BLOCK>, FK_NT, smem);
   const long long slots = std::max(1LL, (long long)sms * per_sm);
-  const int nbx = (p.nx + BRICK - 1) / BRICK;
-  const long long cols = (long long)((p.nz + FK_TZ - 1) / FK_TZ)
-                         * ((p.ny + FK_TY - 1) / FK_TY);
+  const int nbx = q.nb[0];
+  const int gy = (q.nb[1] + FK_TY / BRICK - 1) / (FK_TY / BRICK);
+  const int gz = (q.nb[2] + FK_TZ / BRICK - 1) / (FK_TZ / BRICK);
+  const long long cols = (long long)gy * gz;
   int chunk = nbx;
   long long best = -1;
   for (int c = 1; c <= nbx; ++c) {
@@ -572,12 +620,43 @@ int launch_fusedk(const float* in, float* o, const MinmaxParams& p,
       chunk = c;
     }
   }
-  const dim3 grid((p.nz + FK_TZ - 1) / FK_TZ, (p.ny + FK_TY - 1) / FK_TY,
-                  (nbx + chunk - 1) / chunk);
-  minmax_fusedk_kernel<K><<<grid, FK_NT, smem, st>>>(in, o, p, act,
-                                                     copy_inactive, part,
-                                                     chunk);
+  const dim3 grid(gz, gy, (nbx + chunk - 1) / chunk);
+  minmax_fusedk_kernel<K, BLOCK><<<grid, FK_NT, smem, st>>>(
+      in, o, p, q, act, copy_inactive, part, chunk);
   return (int)cudaGetLastError();
+}
+
+// One K4 launch laid out by the host record geom (its whole brick grid),
+// then the fused sum's second pass.
+template <bool BLOCK>
+int launch_fusedk_geom(const void* phi, void* out, const MinmaxParams& p,
+                       const int* geom, int ksteps, const void* active,
+                       int copy_inactive, void* partials, void* dsq,
+                       void* stream) {
+  const lsf::BlockGeom q = lsf::block_geom(geom);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* in = static_cast<const float*>(phi);
+  float* o = static_cast<float*>(out);
+  const int* act = static_cast<const int*>(active);
+  double* part = static_cast<double*>(partials);
+  int e;
+  switch (ksteps) {
+    case 1:
+      e = launch_fusedk<1, BLOCK>(in, o, p, q, act, copy_inactive, part, st);
+      break;
+    case 2:
+      e = launch_fusedk<2, BLOCK>(in, o, p, q, act, copy_inactive, part, st);
+      break;
+    case 3:
+      e = launch_fusedk<3, BLOCK>(in, o, p, q, act, copy_inactive, part, st);
+      break;
+    case 4:
+      e = launch_fusedk<4, BLOCK>(in, o, p, q, act, copy_inactive, part, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (e != 0) return e;
+  return lsf::finish(dim3(q.nb[2], q.nb[1], q.nb[0]), partials, dsq, st);
 }
 
 }  // namespace
@@ -588,22 +667,26 @@ extern "C" int lsf_minmax_fusedk_f32(const void* phi, void* out, int nx,
                                      int ksteps, const void* active,
                                      int copy_inactive, void* partials,
                                      void* dsq, void* stream) {
-  const MinmaxParams p{nx, ny, nz, h1, inv_dx2, band_dx, threshold};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* in = static_cast<const float*>(phi);
-  float* o = static_cast<float*>(out);
-  const int* act = static_cast<const int*>(active);
-  double* part = static_cast<double*>(partials);
-  int e;
-  switch (ksteps) {
-    case 1: e = launch_fusedk<1>(in, o, p, act, copy_inactive, part, st); break;
-    case 2: e = launch_fusedk<2>(in, o, p, act, copy_inactive, part, st); break;
-    case 3: e = launch_fusedk<3>(in, o, p, act, copy_inactive, part, st); break;
-    case 4: e = launch_fusedk<4>(in, o, p, act, copy_inactive, part, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (e != 0) return e;
-  return lsf::finish(lsf::brick_grid(nx, ny, nz), partials, dsq, st);
+  int geom[lsf::BLOCK_GEOM_INTS];
+  lsf::solo_geom(nx, ny, nz, geom);
+  return launch_fusedk_geom<false>(
+      phi, out, MinmaxParams{nx, ny, nz, h1, inv_dx2, band_dx, threshold},
+      geom, ksteps, active, copy_inactive, partials, dsq, stream);
+}
+
+// K4's block mode: geom as for lsf_minmax_step_block_f32, its launch box
+// the whole brick grid; frozen bricks copy their cells.
+extern "C" int lsf_minmax_fusedk_block_f32(const void* phi, void* out,
+                                           int nx, int ny, int nz,
+                                           const int* geom, float h1,
+                                           float inv_dx2, float band_dx,
+                                           float threshold, int ksteps,
+                                           const void* active,
+                                           void* partials, void* dsq,
+                                           void* stream) {
+  return launch_fusedk_geom<true>(
+      phi, out, MinmaxParams{nx, ny, nz, h1, inv_dx2, band_dx, threshold},
+      geom, ksteps, active, 1, partials, dsq, stream);
 }
 
 // geom: BLOCK_GEOM_INTS host ints (common.cuh); nx, ny, nz: the padded

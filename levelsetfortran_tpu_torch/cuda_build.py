@@ -69,6 +69,10 @@ SIGNATURES = {
     # active, copy_inactive, partials, dsq, stream
     "lsf_minmax_fusedk_f32": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
                               _P, _I, _P, _P, _P],
+    # phi, out, padded nx, ny, nz, block geometry (host ints), h1, inv_dx2,
+    # band_dx, threshold, ksteps, active, partials, dsq, stream
+    "lsf_minmax_fusedk_block_f32": [_P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
+                                    _I, _P, _P, _P, _P],
     # phi, sign, g, cot_phi, cot_sign, cot_gs scratch, nx, ny, nz, dx, h, dx2,
     # inv_dx2, eps_scale, eps_floor, ef_dx, p5_zero_y, active, partials,
     # sums, stream

@@ -23,6 +23,23 @@ class Grid3D:
     origin: Tuple[float, float, float]
     dx: float
 
+    @property
+    def upper(self) -> Tuple[float, float, float]:
+        """The last grid point's coordinates."""
+        return tuple(o + (n - 1) * self.dx
+                     for o, n in zip(self.origin, self.shape))
+
+    @property
+    def n_points(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def diag(self) -> float:
+        """Length of the grid's own diagonal (the reference normalizes dt
+        by the SURFACE's, :func:`surface_diag`)."""
+        ext = [(n - 1) * self.dx for n in self.shape]
+        return math.sqrt(sum(e * e for e in ext))
+
     def axis_coords(self, axis: int, dtype=torch.float32,
                     device=None) -> torch.Tensor:
         n = self.shape[axis]

@@ -33,6 +33,13 @@ class SurfaceMesh:
     def n_elems(self) -> int:
         return self.elements.shape[0]
 
+    def centroids(self) -> np.ndarray:
+        """Per-triangle centroids (reference set3d.f90:199-215)."""
+        return self.vertices[self.elements].mean(axis=1)
+
+    def bbox(self):
+        return self.vertices.min(axis=0), self.vertices.max(axis=0)
+
 
 def _dedup_vertices(tri_verts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """First-occurrence-order exact-bit dedup of (n, 3) float32 rows."""

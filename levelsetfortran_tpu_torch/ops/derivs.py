@@ -85,3 +85,9 @@ def second_derivative(phi, dx, order: int = 2):
     pure = torch.stack([d2(0), d2(1), d2(2)], dim=-1)
     mixed = torch.stack([dmix(0, 1), dmix(0, 2), dmix(1, 2)], dim=-1)
     return pure, mixed
+
+
+def laplacian(phi, dx):
+    """Sum of pure second derivatives (the curvature proxy of subs.f90:461)."""
+    pure, _ = second_derivative(phi, dx)
+    return pure.sum(dim=-1)

@@ -245,6 +245,78 @@ def _select_scan(points, tri, feat, tile, rel_tie=1e-3):
     return best_i, acc
 
 
+def nearest_triangle(points, tri, tile: int = 128):
+    """(distance^2, index) of the closest triangle for each point
+    (``init_sign.py:148`` of the JAX package): ``points`` (P, 3), ``tri``
+    (E, 3, 3), scanned in tiles of ``tile`` triangles with a running (min,
+    argmin), so memory is O(P * tile); the first index wins a tie."""
+    P = points.shape[0]
+    best_d = torch.full((P,), math.inf, dtype=points.dtype,
+                        device=points.device)
+    best_i = torch.zeros((P,), dtype=torch.long, device=points.device)
+    p = points[:, None, :]
+    for base in range(0, tri.shape[0], tile):
+        tb = tri[base:base + tile]
+        cp = point_triangle_closest(p, tb[None, :, 0], tb[None, :, 1],
+                                    tb[None, :, 2])            # (P, T, 3)
+        tile_d, tile_best = torch.min(_dot(cp - p, cp - p), dim=1)
+        better = tile_d < best_d
+        best_d = torch.where(better, tile_d, best_d)
+        best_i = torch.where(better, base + tile_best, best_i)
+    return best_d, best_i
+
+
+def nearest_sign_scan(points, tri, feat=None, tile: int = 128,
+                      rel_tie: float = 1e-3):
+    """Fused (distance^2, pseudonormal accumulator) in one tiled triangle
+    scan (``init_sign.py:207`` of the JAX package): the selection scan of
+    the init (:func:`_select_scan`, untracked by autograd), then the exact
+    squared distance to each point's argmin triangle, through which alone
+    gradients flow.  ``feat``: :func:`_triangle_features` of ``tri``."""
+    if feat is None:
+        feat = _triangle_features(tri.detach())
+    with torch.no_grad():
+        best_i, acc = _select_scan(points.detach()[None], tri.detach()[None],
+                                   (feat[0][None], feat[1][None]), tile,
+                                   rel_tie)
+    d2 = _exact_d2(points[None], tri[best_i[0]][None])[0]
+    return d2, acc[0]
+
+
+def pseudonormal_sign(points, tri, best_d2, tile: int = 128,
+                      rel_tie: float = 1e-3):
+    """Inside/outside by the angle-weighted pseudonormal (Baerentzen &
+    Aanaes 2005; ``init_sign.py:383`` of the JAX package): for each point,
+    the sum over every triangle within ``rel_tie`` of ``best_d2`` of
+    ``w (p - cp) . n``, ``w`` the incident angle at the closest feature (a
+    vertex's angle, else pi).  Its sign is the point's side."""
+    thresh = best_d2 * (1.0 + rel_tie) + 1e-12
+    p = points[:, None, :]
+    acc = torch.zeros_like(points[:, 0])
+
+    def angle_at(u, v):
+        cr = torch.linalg.cross(u, v)
+        return torch.atan2(torch.sqrt(torch.clamp_min(_dot(cr, cr), 1e-30)),
+                           _dot(u, v))
+
+    for base in range(0, tri.shape[0], tile):
+        tb = tri[base:base + tile]
+        a, b, c = tb[None, :, 0], tb[None, :, 1], tb[None, :, 2]
+        cp = point_triangle_closest(p, a, b, c)                 # (P, T, 3)
+        u = p - cp
+        tie = _dot(u, u) <= thresh[:, None]
+        n = torch.linalg.cross(b - a, c - a)
+        n = n / torch.sqrt(torch.clamp_min(_dot(n, n), 1e-30))[..., None]
+        w = torch.full(tie.shape, math.pi, dtype=points.dtype,
+                       device=points.device)
+        for v, e1, e2 in ((a, b, c), (b, a, c), (c, a, b)):
+            at = _dot(cp - v, cp - v) < 1e-12
+            w = torch.where(at, angle_at(e1 - v, e2 - v), w)
+        acc = acc + torch.where(tie, w * _dot(u, n),
+                                torch.zeros_like(w)).sum(dim=1)
+    return acc
+
+
 # ------------------------- block-culled init -------------------------
 
 @dataclasses.dataclass(frozen=True)

@@ -17,7 +17,9 @@ each with its own h1 and sum, as ``minmax_step_padded(pack=B)`` does.
 
 K3's block mode (:func:`minmax_step_block`) is the kernel's ``offsets``
 argument: one shard's block with a halo of one neighbour cell, the face rule
-and the fused sum's box in global coordinates.
+and the fused sum's box in global coordinates; K4's
+(:func:`minmax_fusedk_block`) is the same on K4's walk, with a halo of K
+cells.
 
 K6 (``csrc/minmax_bwd.cu``) replaces ``minmax_pallas.py:minmax_bwd_padded``:
 the gather-form adjoint on K3's march, each cell's Laplacian cotangent
@@ -146,6 +148,29 @@ def minmax_step(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
 minmax_step.launches = 0
 
 
+def _block_steps_plain(pad, dx, h1, geom, band_radius, threshold, ksteps,
+                       active, out, with_rms):
+    """``ksteps`` plain steps of a padded block with the face rule in
+    global coordinates (a cell steps where it is interior in the array and
+    in the global grid), written on the cells the brick grid covers; the
+    sum is the last step's."""
+    sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
+    shape, dev = pad.shape, pad.device
+    interior = (global_interior_mask(shape, geom.origin, geom.gshape, 1, dev)
+                & interior_mask(shape, 1, dev))
+    prev, new = pad, pad
+    for _ in range(ksteps):
+        prev, new = new, _dense_step(new, sc, interior)
+    ones = torch.ones(geom.bricks(shape), dtype=torch.int32, device=dev)
+    written = brick_cells(ones, shape, geom.brick_origin)
+    if active is not None:
+        cells = brick_cells(active, shape, geom.brick_origin)
+        new = torch.where(cells, new, pad)
+        prev = torch.where(cells, prev, pad)
+    return finish_block_plain(new, written, pad, out, with_rms, geom,
+                              base=prev)
+
+
 def minmax_step_block_plain(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
                             threshold=0.0, *, active=None, out=None,
                             with_rms=False):
@@ -153,17 +178,8 @@ def minmax_step_block_plain(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
     device): the solo plain step with the face rule in global coordinates
     (``parallel/sharded.py:434-445`` of the JAX package), on the cells the
     kernel's brick grid covers."""
-    sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
-    shape, dev = pad.shape, pad.device
-    interior = (global_interior_mask(shape, geom.origin, geom.gshape, 1, dev)
-                & interior_mask(shape, 1, dev))
-    new = _dense_step(pad, sc, interior)
-    ones = torch.ones(geom.bricks(shape), dtype=torch.int32, device=dev)
-    written = brick_cells(ones, shape, geom.brick_origin)
-    if active is not None:
-        new = torch.where(brick_cells(active, shape, geom.brick_origin), new,
-                          pad)
-    return finish_block_plain(new, written, pad, out, with_rms, geom)
+    return _block_steps_plain(pad, dx, h1, geom, band_radius, threshold, 1,
+                              active, out, with_rms)
 
 
 def minmax_step_block(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
@@ -225,6 +241,77 @@ def minmax_fusedk(phi, dx, h1, band_radius=4.1, threshold=0.0, *, ksteps,
 
 
 minmax_fusedk.launches = 0
+
+
+def check_fusedk_halo(name, shape, geom: BlockGeom, ksteps):
+    """Raise unless K fused steps leave the owned cells (``geom``'s box)
+    exact: ``ksteps`` array cells on each side of the box, except where
+    the box reaches a global face."""
+    box = geom.box()
+    for ax, (n, o, g) in enumerate(zip(shape, geom.origin, geom.gshape)):
+        lo, hi = box[2 * ax] - o, box[2 * ax + 1] - o
+        if ((lo < ksteps and box[2 * ax] > 0)
+                or (n - hi < ksteps and box[2 * ax + 1] < g)):
+            raise ValueError(f"{name}: {ksteps} fused steps need a halo of "
+                             f"{ksteps} cells around the owned box on axis "
+                             f"{ax} (array {tuple(shape)}, box {box}, "
+                             f"origin {geom.origin})")
+
+
+def minmax_fusedk_block_plain(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
+                              threshold=0.0, *, ksteps, active=None,
+                              out=None, with_rms=False):
+    """The plain version of :func:`minmax_fusedk_block` (any dtype, any
+    device): ``ksteps`` plain block steps (``minmax_step_block_plain``'s
+    rule) of the whole padded array, written on the cells the brick grid
+    covers; the sum is the last step's."""
+    check_fusedk_halo("minmax_fusedk_block", pad.shape, geom, ksteps)
+    return _block_steps_plain(pad, dx, h1, geom, band_radius, threshold,
+                              ksteps, active, out, with_rms)
+
+
+def minmax_fusedk_block(pad, dx, h1, geom: BlockGeom, band_radius=4.1,
+                        threshold=0.0, *, ksteps, active=None, out=None,
+                        with_rms=False):
+    """``ksteps`` (1..4) fused min/max steps of one shard's padded block
+    (K4's block mode, ``minmax_fusedk_padded``'s ``offsets``): ``pad``
+    holds the owned cells and a halo of at least ``ksteps`` cells on the
+    sharded axes, ``geom`` (:func:`..parallel.sharded.minmax_geoms` of that
+    halo) places it in the global grid and lays the brick grid over the
+    owned cells.  Cells the brick grid covers are written into ``out`` (a
+    copy of ``pad`` when None), the owned ones equal to ``ksteps`` steps of
+    the global grid bitwise; bricks with ``active == 0`` copy.
+    ``with_rms`` adds the LAST inner step's float64 sum over ``geom``'s
+    box."""
+    if not 1 <= ksteps <= 4:
+        raise ValueError(f"ksteps must be 1..4, got {ksteps}")
+    if pad.device.type == "cpu":
+        return minmax_fusedk_block_plain(
+            pad, dx, h1, geom, band_radius, threshold, ksteps=ksteps,
+            active=active, out=out, with_rms=with_rms)
+    check_fusedk_halo("minmax_fusedk_block", pad.shape, geom, ksteps)
+    if out is None:
+        out = pad.clone()
+    check_block("minmax_fusedk_block", pad, out, active, geom)
+    sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
+    partials = dsq = None
+    if with_rms:
+        nb = geom.bricks(pad.shape)
+        partials = torch.empty(nb[0] * nb[1] * nb[2], dtype=torch.float64,
+                               device=pad.device)
+        dsq = torch.empty((), dtype=torch.float64, device=pad.device)
+    with on_device(pad.device):
+        cuda_build.launch(
+            "lsf_minmax_fusedk_block_f32", pad.data_ptr(), out.data_ptr(),
+            *pad.shape, geom.ints(pad.shape), sc["h1"], sc["inv_dx2"],
+            sc["band_dx"], sc["threshold"], int(ksteps), ptr(active),
+            ptr(partials), ptr(dsq),
+            torch.cuda.current_stream(pad.device).cuda_stream)
+    minmax_fusedk_block.launches += 1
+    return (out, dsq) if with_rms else out
+
+
+minmax_fusedk_block.launches = 0
 
 
 def minmax_step_packed_plain(phi, dx, h1, live, band_radius=4.1,

@@ -10,6 +10,10 @@ threshold is the JAX package's, so both packages take the same branch.
 An iterate is a tensor or, for a sharded solve, the list of a field's
 blocks: the branch is then decided per shard, from one block's bytes, as
 under ``shard_map``.
+
+:func:`remat_scan` is the other form, for the solver options that have no
+kernel: plain tensor steps under autograd, each step checkpointed (the JAX
+package's ``jax.checkpoint`` around its scan body).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 #: Largest trajectory, in bytes, that the backward stashes flat.
 _FLAT_TRAJ_BYTES = int(1.5 * 2 ** 30)
@@ -125,3 +130,17 @@ def scalar_cotangent(meta, cot):
         return None
     dtype, device, shape = meta
     return cot.to(dtype=dtype, device=device).reshape(shape)
+
+
+def remat_scan(step, p0, steps: int):
+    """``steps`` applications of ``step`` (a function of the iterate, its
+    other inputs closed over) differentiable by autograd, each step
+    checkpointed: the backward keeps one iterate per step and recomputes
+    one step's intermediates at a time (``jax.checkpoint`` in the JAX
+    package's ``lax.scan`` with ``remat=True``).  Without autograd (no
+    grad mode) the steps just run."""
+    p = p0
+    for _ in range(int(steps)):
+        p = (checkpoint(step, p, use_reentrant=False)
+             if torch.is_grad_enabled() else step(p))
+    return p

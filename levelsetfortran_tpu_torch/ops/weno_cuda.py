@@ -358,17 +358,19 @@ def box_cells(geom, shape, device):
     return masks[0] & masks[1] & masks[2]
 
 
-def finish_block_plain(res, written, pad, out, with_rms, geom):
+def finish_block_plain(res, written, pad, out, with_rms, geom, base=None):
     """Write ``res`` where ``written`` into ``out`` (a copy of ``pad`` when
-    None); with ``with_rms`` also the float64 sum of squared changes over
-    the written cells of ``geom``'s box."""
+    None); with ``with_rms`` also the float64 sum of squared changes
+    against ``base`` (default ``pad``) over the written cells of ``geom``'s
+    box."""
     if out is None:
         out = pad.clone()
     out.copy_(torch.where(written, res, out))
     if not with_rms:
         return out
     d = torch.where(written & box_cells(geom, pad.shape, pad.device),
-                    res - pad, torch.zeros_like(pad)).double()
+                    res - (pad if base is None else base),
+                    torch.zeros_like(pad)).double()
     return out, (d * d).sum()
 
 

@@ -30,7 +30,9 @@ Three families of steps:
   (the upstream cotangent exchanged, each owned cell's cotangent gathered
   in the solo kernel's order), so values and gradients are the solo fixed
   solvers' bitwise; the scalar cotangents are per-shard sums added in
-  shard order.
+  shard order.  An average half-width other than 1 has no kernel (in the
+  JAX package neither): its plain block step runs under autograd, each
+  step checkpointed, the exchange's backward its transpose.
 
 Departures from the JAX package: origins on three axes (z may be sharded
 with the kernels, which keep no axis whole); the overlap step's shell is up
@@ -63,13 +65,16 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import minmax_cuda, reverse, weno_cuda
+from ..ops.derivs import second_derivative
+from ..ops.minmax import seven_point_average
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
 from ..utils.metrics import emit_iteration
 from .distributed import comm_device, shard_order_sum
-from .halo import crop, halo_exchange, local_offsets, refresh_halos
+from .halo import (crop, halo_exchange, halo_exchange_transpose,
+                   local_offsets, refresh_halos)
 from .mesh import (ShardMesh, default_devices, factor3, gather_blocks,
-                   make_mesh, split_blocks)
+                   make_mesh, replicate, split_blocks)
 
 HALO = 4   # max stencil radius: WENO5 needs 3, order-8 derivatives need 4
 
@@ -818,24 +823,89 @@ class _MinmaxFixedSharded(torch.autograd.Function):
                 reverse.scalar_cotangent(ctx.meta[3], zero), None, *gp)
 
 
+class _Exchange(torch.autograd.Function):
+    """:func:`~.halo.halo_exchange` as an autograd op on a shard list (None
+    for another rank's block): the backward is its transpose,
+    :func:`~.halo.halo_exchange_transpose`, in one process and across
+    processes."""
+
+    @staticmethod
+    def forward(ctx, mesh, widths, *blocks):
+        ctx.spec = (mesh, widths)
+        return tuple(halo_exchange(list(blocks), widths, mesh))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, widths = ctx.spec
+        cots = halo_exchange_transpose(
+            [None if g is None else g.contiguous() for g in gs], widths,
+            mesh)
+        return (None, None, *cots)
+
+
+def minmax_step_blocks_plain(blocks, dxs, h1s, *, gshape, mesh: ShardMesh,
+                             band_radius=4.1, threshold=0.0,
+                             avg_halfwidth=1) -> list:
+    """One min/max step of every block with any average half-width, in the
+    JAX package's jnp block form (``sharded.py:434-445``): a halo of
+    ``max(1, avg_halfwidth)`` cells exchanged (:class:`_Exchange`,
+    differentiable), the Laplacian and the average on the padded block,
+    cropped; the update gated by the cell's own band and, as in the solo
+    step, the global interior.  ``dxs`` and ``h1s``: the scalars, one per
+    shard (:func:`~.mesh.replicate`).  Each owned cell is the solo
+    :func:`~..solvers.minmax_flow.minmax_step`'s bitwise wherever the band
+    stays off the global faces (there the solo step's average wraps around
+    the grid and the halo holds zeros)."""
+    widths = sharded_widths(mesh, max(1, int(avg_halfwidth)))
+    pads = _Exchange.apply(mesh, widths, *blocks)
+    offs = local_offsets(mesh, mesh.block_shape(gshape))
+
+    def step(phi_l, pad, dx, h1, origin):
+        pure, _ = second_derivative(pad, dx)
+        curv = crop(pure.sum(dim=-1), widths)
+        pave = crop(seven_point_average(pad, avg_halfwidth), widths)
+        f = torch.where(pave < threshold, torch.clamp_max(curv, 0.0),
+                        torch.clamp_min(curv, 0.0))
+        gate = (torch.abs(phi_l) < band_radius * dx) & global_interior_mask(
+            phi_l.shape, origin, gshape, 1, phi_l.device)
+        return torch.where(gate, phi_l + h1 * f, phi_l)
+
+    return _each(step, blocks, pads, dxs, h1s, offs)
+
+
+def _per_shard(mesh: ShardMesh, x) -> list:
+    """A scalar for every shard: a tensor replicated with a backward that
+    adds the shards' cotangents in shard order (:func:`~.mesh.replicate`),
+    a number as it is."""
+    if isinstance(x, torch.Tensor):
+        return replicate(mesh, x)
+    return [x] * mesh.n_shards
+
+
 def minmax_fixed_sharded(mesh: ShardMesh, blocks, dx, h1, steps: int, *,
                          band_radius=4.1, threshold=0.0,
                          avg_halfwidth=1) -> list:
     """``steps`` min/max steps of a sharded field, reverse-mode
     differentiable in the blocks and (as 0-d tensors) ``dx``, ``h1``,
     ``band_radius`` and ``threshold`` — the port of
-    ``parallel/sharded.py:minmax_fixed_sharded`` on its fused-kernel route:
-    K3's block mode forward, K6's block mode backward (gather form), each
-    owned cell bitwise the solo :func:`~..solvers.minmax_flow.
-    minmax_flow_fixed`'s.  Needs blocks of >= 2 cells on the sharded axes;
-    an average half-width other than 1 has no kernel and raises."""
-    if avg_halfwidth != 1:
-        raise NotImplementedError(
-            f"minmax_fixed_sharded: avg_halfwidth={avg_halfwidth} has no "
-            f"kernel; the sharded min/max runs the default half-width 1 "
-            f"(ROADMAP Queue 1 item 8: the non-default options of the fixed "
-            f"solvers)")
+    ``parallel/sharded.py:minmax_fixed_sharded``.  The default half-width:
+    its fused-kernel route, K3's block mode forward, K6's block mode
+    backward (gather form), each owned cell bitwise the solo
+    :func:`~..solvers.minmax_flow.minmax_flow_fixed`'s; needs blocks of >= 2
+    cells on the sharded axes.  Another half-width: its jnp route,
+    :func:`minmax_step_blocks_plain` under autograd, each step
+    checkpointed (``jax.checkpoint`` there; the exchange runs again in the
+    backward), the scalars' cotangents added over the shards in shard
+    order; needs blocks of at least the half-width on the sharded axes."""
     gshape = _global_shape(mesh, blocks)
+    if avg_halfwidth != 1:
+        w = max(1, int(avg_halfwidth))
+        _check_block_sizes(mesh, gshape, w, "minmax_fixed_sharded")
+        dxs, h1s = _per_shard(mesh, dx), _per_shard(mesh, h1)
+        return reverse.remat_scan(lambda p: minmax_step_blocks_plain(
+            p, dxs, h1s, gshape=gshape, mesh=mesh, band_radius=band_radius,
+            threshold=threshold, avg_halfwidth=avg_halfwidth),
+            list(blocks), steps)
     _check_block_sizes(mesh, gshape, weno_cuda.VJP_HALO["minmax"],
                        "minmax_fixed_sharded")
     return list(_MinmaxFixedSharded.apply(dx, h1, band_radius, threshold,

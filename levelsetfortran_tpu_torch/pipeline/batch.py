@@ -175,11 +175,15 @@ def minmax_batched_packed(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
 # ------------------------------ grid stacking ------------------------------
 
 def common_shape_grids(meshes: Sequence[SurfaceMesh], dx: float,
-                       pad_cells: int) -> List[Grid3D]:
-    """Per-mesh grids sharing one common (per-axis max) shape.  Each grid
-    keeps its own origin, so the extra cells are far-field padding on the
-    high side, which the narrow band never reaches."""
-    grids = [gridmod.from_surface(m.vertices, dx, pad_cells) for m in meshes]
+                       pad_cells: int,
+                       multiple_of=(1, 1, 1)) -> List[Grid3D]:
+    """Per-mesh grids sharing one common (per-axis max) shape, each axis
+    rounded as :func:`..grid.grid.from_surface` rounds it with
+    ``multiple_of``.  Each grid keeps its own origin, so the extra cells are
+    far-field padding on the high side, which the narrow band never
+    reaches."""
+    grids = [gridmod.from_surface(m.vertices, dx, pad_cells, multiple_of)
+             for m in meshes]
     shape = tuple(int(max(g.shape[i] for g in grids)) for i in range(3))
     return [Grid3D(shape=shape, origin=g.origin, dx=dx) for g in grids]
 

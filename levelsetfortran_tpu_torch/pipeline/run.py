@@ -40,6 +40,7 @@ from ..grid import grid as gridmod
 from ..io.s3d import read_s3d, write_s3d
 from ..io.stl import SurfaceMesh, read_stl
 from ..io.vti import write_vti, write_vti_streaming
+from ..ops.derivs import first_derivative
 from ..ops.init_sign import (initialize_sign_field, signed_distance_init,
                               signed_distance_init_sharded)
 from ..parallel import distributed
@@ -403,3 +404,10 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
         phi_final=fields[2], advected=advected_h, asymptotic_error=asym,
         reinit_iters=r_it, minmax_iters=m_it, reinit_diverged=r_div,
         minmax_diverged=m_div, timers=dict(timer.marks))
+
+
+def gradient_magnitude(phi, dx, order: int = 2):
+    """Diagnostic |grad phi| via central differences (set3d.f90:528-536),
+    on ``phi``'s device (a numpy array becomes a CPU tensor)."""
+    _, mag = first_derivative(torch.as_tensor(phi), dx, order=order)
+    return mag

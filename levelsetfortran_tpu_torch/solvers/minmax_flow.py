@@ -5,6 +5,11 @@ RHS and whole-grid RMS steady-state detection.  Steps are kernels K3/K4
 (:mod:`..ops.minmax_cuda`) on a CUDA tensor and their plain versions on a
 CPU tensor.  :func:`minmax_flow_fixed` is the differentiable fixed-step
 solve, with kernel K6 in its backward.
+
+The options ``avg_halfwidth`` other than 1 and ``use_true_curvature`` have
+no kernel, in the JAX package neither (``minmax_pallas_applicable``): they
+take the whole-grid :func:`minmax_step` in plain tensor ops, on the card as
+on the CPU.  The route follows from the options alone.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from ..ops import minmax_cuda, reverse
 from ..ops.band import narrow_band
 from ..ops.minmax import minmax_rhs
 from ..ops.stencil import interior_mask
+from ..ops.reverse import remat_scan
 from ..ops.weno_cuda import solve_buffers, tile_activity
 from ..utils.metrics import emit_iteration
 from .reinit import rms_denominator
@@ -30,36 +36,46 @@ class MinMaxResult(NamedTuple):
     diverged: bool
 
 
+def kernel_route(avg_halfwidth=1, use_true_curvature=False) -> bool:
+    """Whether the min/max solvers step with kernels K3/K4/K6: the default
+    options only (``minmax_pallas_applicable`` of the JAX package)."""
+    return avg_halfwidth == 1 and not use_true_curvature
+
+
 def minmax_step(phi, dx, h1, *, band_radius=4.1, threshold=0.0,
-                avg_halfwidth=1):
+                avg_halfwidth=1, use_true_curvature=False):
     """One Jacobi min/max Euler step gated by the band and the interior, in
-    the JAX package's whole-grid form (any average half-width)."""
+    the JAX package's whole-grid form (any option)."""
     nb, _ = narrow_band(phi, dx, band_radius, band_radius)
-    f = minmax_rhs(phi, dx, threshold=threshold, avg_halfwidth=avg_halfwidth)
+    f = minmax_rhs(phi, dx, threshold=threshold, avg_halfwidth=avg_halfwidth,
+                   use_true_curvature=use_true_curvature)
     gate = nb & interior_mask(phi.shape, 1, phi.device)
     return torch.where(gate, phi + h1 * f, phi)
 
 
 def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
-                threshold=0.0, avg_halfwidth=1,
+                threshold=0.0, avg_halfwidth=1, use_true_curvature=False,
                 metrics_every: int = 0) -> MinMaxResult:
     """Up to ``iters`` dense steps with RMS early exit; a ``"minmax"``
-    metrics event every ``metrics_every`` steps.  The default half-width 1
-    runs kernel K3; other half-widths have no kernel (as in the JAX
-    package) and run :func:`minmax_step`."""
+    metrics event every ``metrics_every`` steps.  The default options run
+    kernel K3; the others have no kernel (as in the JAX package) and run
+    :func:`minmax_step`."""
     denom = rms_denominator(phi0.shape)
-    bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
-    sums = solve_buffers(phi0)
+    fused = kernel_route(avg_halfwidth, use_true_curvature)
+    if fused:
+        bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
+        sums = solve_buffers(phi0)
     p, n, rms = phi0, 0, math.inf
     while n < iters:
-        if avg_halfwidth == 1:
+        if fused:
             new, dsq = minmax_cuda.minmax_step(
                 p, dx, h1, band_radius, threshold, out=bufs[n % 2],
                 with_rms=True, bufs=sums)
         else:
             new = minmax_step(p, dx, h1, band_radius=band_radius,
                               threshold=threshold,
-                              avg_halfwidth=avg_halfwidth)
+                              avg_halfwidth=avg_halfwidth,
+                              use_true_curvature=use_true_curvature)
             d = (new - p).double()
             dsq = (d * d).sum()
         p, n = new, n + 1
@@ -165,11 +181,21 @@ class _MinmaxFixed(torch.autograd.Function):
 
 
 def minmax_flow_fixed(phi0, dx, h1, steps: int, *, band_radius=4.1,
-                      threshold=0.0):
+                      threshold=0.0, avg_halfwidth=1,
+                      use_true_curvature=False):
     """``steps`` dense min/max steps, reverse-mode differentiable in
     ``phi0`` and (as 0-d tensors) ``dx``, ``h1``, ``band_radius`` and
-    ``threshold`` — the port of ``solvers/minmax_flow.py:minmax_flow_fixed``
-    on its fused-kernel route (default half-width, Laplacian proxy).  The
-    forward is kernel K3 per step, the backward kernel K6 per step."""
-    return _MinmaxFixed.apply(phi0, dx, h1, band_radius, threshold,
-                              int(steps))
+    ``threshold`` — the port of ``solvers/minmax_flow.py:minmax_flow_fixed``.
+    Default options: its fused-kernel route, kernel K3 per step forward and
+    kernel K6 per step backward.  Other options: its jnp route, the plain
+    :func:`minmax_step` under autograd, each step checkpointed
+    (:func:`~..ops.reverse.remat_scan`), so the backward keeps one field per
+    step; ``band_radius`` and ``threshold`` enter through comparisons only
+    and get no gradient there."""
+    if kernel_route(avg_halfwidth, use_true_curvature):
+        return _MinmaxFixed.apply(phi0, dx, h1, band_radius, threshold,
+                                  int(steps))
+    return remat_scan(lambda p: minmax_step(
+        p, dx, h1, band_radius=band_radius, threshold=threshold,
+        avg_halfwidth=avg_halfwidth, use_true_curvature=use_true_curvature),
+        phi0, steps)

@@ -8,6 +8,11 @@ and a NaN flag.  Each step is kernel K1 (:mod:`..ops.weno_cuda`) on a CUDA
 tensor and its plain version on a CPU tensor; the loops are Python loops
 that read the RMS scalar to the host once per check.  :func:`reinit_fixed`
 is the differentiable fixed-step solve, with kernel K5 in its backward.
+
+A ``grad_fn`` (a callable phi -> |grad phi| in place of the WENO5/Godunov
+operator) has no kernel, in the JAX package neither (``_use_pallas``): the
+solvers then take the whole-grid :func:`reinit_step` in plain tensor ops,
+on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import reverse, weno_cuda
+from ..ops.reverse import remat_scan
 from ..ops.sign import smeared_sign
 from ..ops.stencil import boundary_extrapolate, interior_mask
 from ..ops.weno import weno_godunov
@@ -32,13 +38,17 @@ class ReinitResult(NamedTuple):
 
 
 def reinit_step(phi, phi_sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
-                quirk_y_p5_zero=False):
+                quirk_y_p5_zero=False, grad_fn=None):
     """One Jacobi step in the JAX package's whole-grid form (the fused form
-    the solvers run is :func:`..ops.weno_cuda.reinit_step`)."""
-    grad_mag, _ = weno_godunov(phi, dx, eps_scale=eps_scale,
-                               eps_floor=eps_floor,
-                               quirk_y_p5_zero=quirk_y_p5_zero,
-                               switch=phi_sign_src)
+    the solvers run is :func:`..ops.weno_cuda.reinit_step`); ``grad_fn``
+    maps phi to the |grad phi| that replaces the Godunov operator's."""
+    if grad_fn is None:
+        grad_mag, _ = weno_godunov(phi, dx, eps_scale=eps_scale,
+                                   eps_floor=eps_floor,
+                                   quirk_y_p5_zero=quirk_y_p5_zero,
+                                   switch=phi_sign_src)
+    else:
+        grad_mag = grad_fn(phi)
     sgn = smeared_sign(phi_sign_src, dx, grad_mag)
     update = phi + h * sgn * (1.0 - grad_mag)
     phi = torch.where(interior_mask(phi.shape, 1, phi.device), update, phi)
@@ -51,20 +61,30 @@ def rms_denominator(shape) -> int:
 
 
 def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
-           eps_floor=None, quirk_y_p5_zero=False,
+           eps_floor=None, quirk_y_p5_zero=False, grad_fn=None,
            metrics_every: int = 0) -> ReinitResult:
     """Up to ``iters`` dense steps, stopping at RMS < tol or NaN; a
-    ``"reinit"`` metrics event every ``metrics_every`` steps."""
+    ``"reinit"`` metrics event every ``metrics_every`` steps.  Kernel K1
+    per step, or with ``grad_fn`` the plain :func:`reinit_step`."""
     sign = phi0 if sign_src is None else sign_src
     denom = rms_denominator(phi0.shape)
-    bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
-    sums = weno_cuda.solve_buffers(phi0)
+    if grad_fn is None:
+        bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
+        sums = weno_cuda.solve_buffers(phi0)
     p, n, rms = phi0, 0, math.inf
     while n < iters:
-        p, dsq = weno_cuda.reinit_step(
-            p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
-            quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2], with_rms=True,
-            bufs=sums)
+        if grad_fn is None:
+            p, dsq = weno_cuda.reinit_step(
+                p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
+                quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2],
+                with_rms=True, bufs=sums)
+        else:
+            new = reinit_step(p, sign, dx, h, eps_scale=eps_scale,
+                              eps_floor=eps_floor,
+                              quirk_y_p5_zero=quirk_y_p5_zero,
+                              grad_fn=grad_fn)
+            d = (new - p).double()
+            p, dsq = new, (d * d).sum()
         n += 1
         rms = math.sqrt(dsq.item() / denom)
         emit_iteration("reinit", metrics_every, n, rms, cells=phi0.numel())
@@ -162,12 +182,18 @@ class _ReinitFixed(torch.autograd.Function):
 
 
 def reinit_fixed(phi0, dx, h, steps: int, *, eps_scale=1e-6, eps_floor=None,
-                 quirk_y_p5_zero=False):
+                 quirk_y_p5_zero=False, grad_fn=None):
     """``steps`` dense reinit steps, reverse-mode differentiable in
     ``phi0`` and (as 0-d tensors) ``dx`` and ``h`` — the port of
-    ``solvers/reinit.py:reinit_fixed`` on its fused-kernel route.  The
-    forward is kernel K1 per step, the backward kernel K5 per step (their
-    plain versions on a CPU tensor)."""
+    ``solvers/reinit.py:reinit_fixed``.  Without ``grad_fn``: its
+    fused-kernel route, kernel K1 per step forward and kernel K5 per step
+    backward (their plain versions on a CPU tensor).  With ``grad_fn``: its
+    jnp route, the plain :func:`reinit_step` under autograd with the sign
+    source ``phi0`` in the graph, each step checkpointed
+    (:func:`~..ops.reverse.remat_scan`)."""
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
               quirk_y_p5_zero=quirk_y_p5_zero)
-    return _ReinitFixed.apply(phi0, dx, h, int(steps), kw)
+    if grad_fn is None:
+        return _ReinitFixed.apply(phi0, dx, h, int(steps), kw)
+    return remat_scan(lambda p: reinit_step(p, phi0, dx, h, grad_fn=grad_fn,
+                                            **kw), phi0, steps)

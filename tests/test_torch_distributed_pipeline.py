@@ -320,20 +320,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Start the two workers once; their output directory."""
-    out = tmp_path_factory.mktemp("ranks")
+def run_workers(script, out, world=WORLD, timeout=TIMEOUT_S):
+    """Run ``script <rank> <world> <port> <out>`` as ``world`` processes
+    (one CPU thread each) and wait for them; a rank that fails or outlives
+    ``timeout`` seconds fails the caller with its log."""
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    logs = [open(out / f"rank{r}.log", "w+") for r in range(WORLD)]
+    logs = [open(out / f"rank{r}.log", "w+") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(WORLD), str(port), str(out)],
+        [sys.executable, script, str(r), str(world), str(port), str(out)],
         cwd=ROOT, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(WORLD)]
+        for r in range(world)]
     try:
         for p in procs:
-            p.wait(timeout=TIMEOUT_S)
+            p.wait(timeout=timeout)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -344,6 +344,13 @@ def ranks(tmp_path_factory):
         text = f.read()
         f.close()
         assert p.returncode == 0, f"rank {r} rc={p.returncode}:\n{text[-3000:]}"
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Start the two workers once; their output directory."""
+    out = tmp_path_factory.mktemp("ranks")
+    run_workers(__file__, out)
     return out
 
 

@@ -1,5 +1,6 @@
-"""The PyTorch port imports without JAX, Triton or the JAX package, and its
-config carries the JAX package's config across."""
+"""The PyTorch port (and its example ``examples/render_stl_torch.py``)
+imports without JAX, Triton or the JAX package, and its config carries the
+JAX package's config across."""
 
 import dataclasses
 import os
@@ -37,6 +38,19 @@ def test_every_module_imports_without_jax_or_triton():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.split()[-1]) >= 40
+
+
+def test_render_example_imports_without_jax():
+    code = ("import importlib.util, sys\n"
+            "for name in ('jax', 'jaxlib', 'triton', 'levelsetfortran_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "spec = importlib.util.spec_from_file_location(\n"
+            "    'ex', 'examples/render_stl_torch.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.split()[-1] == "ok", r.stderr
 
 
 def test_reference_defaults_round_trip():

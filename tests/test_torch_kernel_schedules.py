@@ -267,58 +267,78 @@ def k3_launch_partials(new, old):
     return _tree(d)
 
 
-def k4_wavefront(phi, dx, h1, ksteps, active, chunk):
+def k4_wavefront(phi, dx, h1, ksteps, active, chunk, geom=None):
     """K4's schedule (mint): the field after ``ksteps`` steps and the last
-    step's per-brick partials."""
+    step's per-brick partials.  ``geom``: the block-mode record (None: the
+    whole grid), its brick grid the launch's columns and slabs, a cell
+    stepping where it is interior in the array and in the global grid, the
+    sum counting ``geom``'s box; cells the brick grid does not cover keep
+    ``phi``."""
     K = ksteps
     sc = mc.minmax_scalars(phi.dtype, dx, h1, 4.1, 0.0)
     nx, ny, nz = phi.shape
-    nbx, nby, nbz = wc.brick_grid(phi.shape)
-    out = torch.full_like(phi, float("nan"))
+    geom = geom or wc.BlockGeom(tuple(phi.shape))
+    nbx, nby, nbz = geom.bricks(phi.shape)
+    c0, c1, c2 = geom.brick_origin
+    o, g = geom.origin, geom.gshape
+    ones = torch.ones((nbx, nby, nbz), dtype=torch.int32)
+    covered = wc.brick_cells(ones, phi.shape, geom.brick_origin)
+    out = torch.where(covered, torch.full_like(phi, float("nan")), phi)
     parts = torch.full((nbx * nby * nbz,), float("nan"), dtype=torch.float64)
-    act = torch.ones((nbx, nby, nbz), dtype=torch.int32) if active is None \
-        else active
-    live_cells = wc.brick_cells(act, phi.shape)
+    act = ones if active is None else active
+    live_cells = wc.brick_cells(act, phi.shape, geom.brick_origin)
+    box = wc.box_cells(geom, phi.shape, phi.device)
 
     def brick_id(bx, by, bz):
         return (bx * nby + by) * nbz + bz
 
-    for y0 in range(0, ny, TY):
-        for z0 in range(0, nz, TZ):
+    def x_ok(i):
+        return 1 <= i <= nx - 2 and 1 <= o[0] + i <= g[0] - 2
+
+    for by0 in range(0, nby, TY // BRICK):
+        for bz0 in range(0, nbz, TZ // BRICK):
+            y0, z0 = c1 + by0 * BRICK, c2 + bz0 * BRICK
             ylo, yhi = max(y0 - K, 0), min(y0 + TY + K, ny)  # widened column
             zlo, zhi = max(z0 - K, 0), min(z0 + TZ + K, nz)
-            bys = range(y0 // BRICK, min((y0 + TY) // BRICK, nby))
-            bzs = range(z0 // BRICK, min((z0 + TZ) // BRICK, nbz))
-            yc = slice(y0 - ylo, min(y0 + TY, ny) - ylo)  # the owned column
-            zc = slice(z0 - zlo, min(z0 + TZ, nz) - zlo)
+            bys = range(by0, min(by0 + TY // BRICK, nby))
+            bzs = range(bz0, min(bz0 + TZ // BRICK, nbz))
+            # the owned column: cells of the launch's bricks in the array
+            yc0, yc1 = max(y0, 0), min(y0 + TY, ny, c1 + nby * BRICK)
+            zc0, zc1 = max(z0, 0), min(z0 + TZ, nz, c2 + nbz * BRICK)
+            yc, zc = slice(yc0 - ylo, yc1 - ylo), slice(zc0 - zlo, zc1 - zlo)
             # a three-plane slab's middle plane steps where its cells are
-            # interior in global coordinates (face planes are copied)
-            inner = global_interior_mask((3, yhi - ylo, zhi - zlo),
-                                         (0, ylo, zlo), (3, ny, nz), 1)
+            # interior in the array and the global grid (planes that are
+            # not copy their values)
+            shp = (3, yhi - ylo, zhi - zlo)
+            inner = (global_interior_mask(shp, (0, ylo, zlo), (3, ny, nz), 1)
+                     & global_interior_mask(shp, (0, o[1] + ylo, o[2] + zlo),
+                                            (3, g[1], g[2]), 1))
+
+            def x0_of(bx):
+                return c0 + bx * BRICK
 
             def live(bx):
                 return bool(act[bx, bys.start:bys.stop,
                                 bzs.start:bzs.stop].any())
 
-            for c0 in range(0, nbx, chunk):
-                c1 = min(c0 + chunk, nbx)
-                first = c0
-                while first < c1:
+            for b0 in range(0, nbx, chunk):
+                b1 = min(b0 + chunk, nbx)
+                first = b0
+                while first < b1:
                     if not live(first):
-                        x = slice(first * BRICK, min(first * BRICK + BRICK,
-                                                     nx))
-                        out[x, y0:y0 + TY, z0:z0 + TZ] = \
-                            phi[x, y0:y0 + TY, z0:z0 + TZ]
+                        x = slice(max(x0_of(first), 0),
+                                  min(x0_of(first) + BRICK, nx))
+                        out[x, yc0:yc1, zc0:zc1] = phi[x, yc0:yc1, zc0:zc1]
                         for by in bys:
                             for bz in bzs:
                                 parts[brick_id(first, by, bz)] = 0.0
                         first += 1
                         continue
                     last = first
-                    while last + 1 < c1 and (live(last + 1) or (
-                            last + 2 < c1 and live(last + 2))):
+                    while last + 1 < b1 and (live(last + 1) or (
+                            last + 2 < b1 and live(last + 2))):
                         last += 1
-                    xs, xe = first * BRICK, min((last + 1) * BRICK, nx)
+                    xs, xe = max(x0_of(first), 0), min(x0_of(last + 1), nx)
                     xr, xl = max(xs - K, 0), min(xe + K, nx)
                     lev = [dict() for _ in range(K + 1)]
                     dq = {}
@@ -332,7 +352,7 @@ def k4_wavefront(phi, dx, h1, ksteps, active, chunk):
                             if s == K and not xs <= p < xe:
                                 continue
                             src = lev[s - 1]
-                            if p in (0, nx - 1):     # a face plane: no step
+                            if not x_ok(p):          # no step on this plane
                                 lev[s][p] = src[p]
                             else:
                                 slab = torch.stack([src[p - 1], src[p],
@@ -347,26 +367,28 @@ def k4_wavefront(phi, dx, h1, ksteps, active, chunk):
                         if xs <= p < xe:
                             new = lev[K][p][yc, zc]
                             old = lev[K - 1][p][yc, zc]
-                            cells = live_cells[p, y0:y0 + TY, z0:z0 + TZ]
-                            out[p, y0:y0 + TY, z0:z0 + TZ] = torch.where(
-                                cells, new, phi[p, y0:y0 + TY, z0:z0 + TZ])
+                            cells = live_cells[p, yc0:yc1, zc0:zc1]
+                            out[p, yc0:yc1, zc0:zc1] = torch.where(
+                                cells, new, phi[p, yc0:yc1, zc0:zc1])
                             d = torch.zeros(TY, TZ, dtype=torch.float64)
                             dd = (new - old).double()
-                            d[:dd.shape[0], :dd.shape[1]] = dd * dd
-                            dq[p % BRICK] = d
-                            if p % BRICK == BRICK - 1 or p == xe - 1:
+                            dd = torch.where(box[p, yc0:yc1, zc0:zc1],
+                                             dd * dd, torch.zeros_like(dd))
+                            d[yc0 - y0:yc1 - y0, zc0 - z0:zc1 - z0] = dd
+                            m = (p - c0) % BRICK
+                            dq[m] = d
+                            if m == BRICK - 1 or p == xe - 1:
                                 col = torch.stack(
                                     [dq.get(i, torch.zeros(TY, TZ,
                                                            dtype=torch.float64))
                                      for i in range(BRICK)])
                                 xt = _tree(col.permute(1, 2, 0))  # (TY, TZ)
-                                bx = p // BRICK
+                                bx = (p - c0) // BRICK
                                 for by in bys:
                                     for bz in bzs:
-                                        blk = xt[(by * BRICK - y0):
-                                                 (by * BRICK - y0) + BRICK,
-                                                 (bz * BRICK - z0):
-                                                 (bz * BRICK - z0) + BRICK]
+                                        ly = (by - by0) * BRICK
+                                        lz = (bz - bz0) * BRICK
+                                        blk = xt[ly:ly + BRICK, lz:lz + BRICK]
                                         v = _tree(blk.reshape(-1))
                                         parts[brick_id(bx, by, bz)] = (
                                             v if act[bx, by, bz] else 0.0)
@@ -416,6 +438,53 @@ def test_k4_wavefront_matches_k_plain_steps_bitwise(shape, ksteps, chunk,
     assert torch.equal(_bits(got_parts), _bits(want_parts))
     assert torch.equal(_bits(_reduce_partials(got_parts)),
                        _bits(_reduce_partials(want_parts)))
+
+
+@pytest.mark.parametrize("ksteps,chunk", [(1, 2), (2, 1), (3, 2), (4, 3)])
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 1), (2, 2, 2)])
+@pytest.mark.parametrize("case", ["dense", "banded", "noisy"])
+def test_k4_wavefront_block_geometry_bitwise(mesh_shape, ksteps, chunk,
+                                            case):
+    """K4's block mode: the wavefront in one shard's padded block (a halo
+    of K, blocks that are not multiples of 8, so the last bricks reach into
+    the halo) against the plain block version (fields, bitwise) and a
+    brick-per-block launch's partials of the last step over the owned box
+    (bitwise)."""
+    shape, dx = (38, 46, 22), 0.1
+    h1 = 0.15 * dx * dx
+    mesh = make_mesh(mesh_shape, ["cpu"])
+    phi = _sphere(shape, dx, 1.2, (0.13, -0.05, 0.02))
+    if case == "noisy":
+        rng = np.random.default_rng(7)
+        noise = (rng.standard_normal(shape) * dx
+                 * 10.0 ** rng.uniform(-8.0, 0.0, shape))
+        phi = (0.02 * phi + torch.tensor(noise, dtype=phi.dtype)
+               ).clamp(-3.0 * dx, 3.0 * dx)
+    w = sh.sharded_widths(mesh, ksteps)
+    pads = halo_exchange(split_blocks(mesh, phi), w, mesh)
+    geoms = sh.minmax_geoms(mesh, shape, w)
+    blocks = split_blocks(mesh, phi)
+    for n in (0, len(pads) - 1):
+        pad, geom = pads[n].contiguous(), geoms[n]
+        act = None
+        if case == "banded":
+            act = wc.tile_activity(blocks[n], dx, 4.1, window="owned")
+            act.view(-1)[::5] = 0
+            assert 0 < int(act.sum()) < act.numel()
+        got, parts = k4_wavefront(pad, dx, h1, ksteps, act, chunk, geom)
+        want = mc.minmax_fusedk_block_plain(pad, dx, h1, geom, ksteps=ksteps,
+                                            active=act)
+        assert torch.equal(_bits(got), _bits(want))
+        prev = pad if ksteps == 1 else mc.minmax_fusedk_block_plain(
+            pad, dx, h1, geom, ksteps=ksteps - 1, active=act)
+        nb = geom.bricks(pad.shape)
+        counted = (wc.brick_cells(torch.ones(nb, dtype=torch.int32)
+                                  if act is None else act, pad.shape,
+                                  geom.brick_origin)
+                   & wc.box_cells(geom, pad.shape, "cpu"))
+        d = torch.where(counted, want - prev, torch.zeros_like(pad))
+        ref = box_partials(d, _launch_record(geom, pad.shape))
+        assert torch.equal(_bits(parts), _bits(ref))
 
 
 # ---------------------- (c, d) the march of K3 and K1 ----------------------

@@ -214,13 +214,12 @@ def test_unused_blocks_get_zero_cotangents():
 def test_sharded_solvers_raise_on_what_they_do_not_take():
     phi, _, _ = fields(torch.float32, (16, 16, 16))
     m = make_mesh((2, 2, 1), ["cpu"])
-    blocks = split_blocks(m, phi)
-    with pytest.raises(NotImplementedError, match="avg_halfwidth"):
-        sh.minmax_fixed_sharded(m, blocks, DX, H1, 2, avg_halfwidth=2)
+    m4 = make_mesh((4, 1, 1), ["cpu"])
     with pytest.raises(ValueError, match=">= 6 cells"):
-        sh.reinit_fixed_sharded(make_mesh((4, 1, 1), ["cpu"]),
-                                split_blocks(make_mesh((4, 1, 1), ["cpu"]),
-                                             phi), DX, H, 2)
+        sh.reinit_fixed_sharded(m4, split_blocks(m4, phi), DX, H, 2)
+    with pytest.raises(ValueError, match=">= 5 cells"):   # the half-width
+        sh.minmax_fixed_sharded(m4, split_blocks(m4, phi), DX, H1, 2,
+                                avg_halfwidth=5)
     odd = make_mesh((2, 1, 1), ["cpu"])
     with pytest.raises(ValueError, match="multiples of 8"):
         sh.reinit_fixed_sharded(odd, split_blocks(odd, torch.tensor(
