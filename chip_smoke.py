@@ -132,7 +132,24 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      peak, a finite gradient; at 24^3 the card against the CPU, run D's
      gate); ``minmax_fixed_sharded(avg_halfwidth=2)`` at 256^3 on (2,2,1)
      against the solo solve (values bitwise) and on two ranks, every rank
-     bitwise the one-process run.
+     bitwise the one-process run;
+ 16. dtypes: the JAX package's dtype routing on the card (float32 takes
+     the kernels, bfloat16 and float64 their plain versions): (a)
+     ``REFERENCE_PARITY`` (float64) on the twoCube10 twin against
+     ``tests/golden/parity_twocube10.npz`` at
+     ``tests/test_torch_parity_golden.py``'s gates; (b) run B's mesh
+     through ``run()`` in float64 and in bfloat16 (the CLI's ``--dtype``
+     parsed into the config), beside phase 3's float32 run B: walls,
+     iterations, near-surface error, peak memory and no kernel launched,
+     float64 held to run B's error gates, bfloat16 finite, converged and
+     under BF16_RUN_B (the near-surface, smoothed-median and advected
+     errors), and run B's mesh in bfloat16 at the spacings of BF16_JAX
+     within BF16_VS_JAX of the JAX package's readings; (c) bfloat16
+     reinit and min/max solves at 48^3, the
+     card against the CPU; (d) the float64 gradient of the 24^3
+     octahedron, the card against the CPU to rtol 1e-10; (e)
+     ``run_batch`` of two icospheres in float64 and bfloat16, two
+     data-parallel shares bitwise the undivided batch.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per CLI run and
 one per rank of runs J, L and G-ranks and of the options phase's ranks,
@@ -201,6 +218,24 @@ BENCH_DX = 2.0 / (BENCH_N - 1)
 #: kernels; the kernels' fused sums are bitwise fixed, so they cannot move.
 EXPECTED_ITERS = {"A": (18, 1080), "B": (9, 40), "C": (13, 1064),
                   "F": (2, 24)}
+#: Phase 16: the JAX package's own bfloat16 errors on run B's mesh (the
+#: icosphere of 20,480 triangles, default config) at coarser spacings than
+#: run B's, by ``tools/bf16_run_b_errors.py`` on the CPU (the JAX package
+#: does not run on the card's machine, and run B's 222^3 is a full-size
+#: run for a CPU): {dx: (sdf near-surface max, smoothed median, advected
+#: max |sdf|)}.  All three shrink with dx (71 / 42 and 57 / 44
+#: iterations).
+BF16_JAX = {0.04: (0.021284, 0.0037105, 0.022008),
+            0.02: (0.014391, 0.0028805, 0.018050)}
+#: The port's bfloat16 errors at those spacings, on the card, at most this
+#: many times the JAX package's (the port on the CPU and on the card:
+#: 1.022, 1.095, 1.069 at dx 0.04; on the card 1.074, 1.003, 1.126 at dx
+#: 0.02).
+BF16_VS_JAX = 1.25
+#: bfloat16 run B (dx 0.01): each error within BF16_VS_JAX of the JAX
+#: package's reading at the finest spacing scanned, which bounds its
+#: reading at run B's, the errors shrinking with dx in both packages.
+BF16_RUN_B = tuple(BF16_VS_JAX * e for e in BF16_JAX[min(BF16_JAX)])
 #: The card's name and power limit as nvidia-smi prints them (set by
 #: start()), printed beside every time.
 CARD = "nvidia-smi not read"
@@ -3428,6 +3463,262 @@ def options_phase(card, record, tmp, device="cuda"):
     return launches
 
 
+def kernel_counters():
+    """Every kernel wrapper of the record, by name: their launch
+    counters."""
+    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
+    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
+    return {n: getattr(wc, n, None) or getattr(mc, n)
+            for n in kernel_names()}
+
+
+@contextlib.contextmanager
+def no_kernel(what):
+    """Zero every launch counter, and fail if the block launched a
+    kernel of csrc/."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    yield
+    launched = {n: c.launches for n, c in counters.items() if c.launches}
+    check(not launched, f"{what}: kernels launched {launched}")
+
+
+def parity_on_card(card, device="cuda"):
+    """Phase 16a: ``REFERENCE_PARITY`` on the card (its default device)
+    against the golden of the JAX package's parity run, at the CPU test's
+    gates."""
+    from levelsetfortran_tpu_torch.config import REFERENCE_PARITY
+    from levelsetfortran_tpu_torch.models.analytic import two_cubes_mesh
+    from levelsetfortran_tpu_torch.pipeline.run import run_mesh
+    g = np.load(os.path.join(HERE, "tests", "golden",
+                             "parity_twocube10.npz"))
+    check(REFERENCE_PARITY.device == "cuda", "parity config on the card")
+    cfg = REFERENCE_PARITY.replace(device=device)
+    with no_kernel("REFERENCE_PARITY"):
+        res, wall = sync_time(lambda: run_mesh(two_cubes_mesh(), cfg))
+    iters = (res.reinit_iters, res.minmax_iters)
+    check(iters == (int(g["reinit_iters"]), int(g["minmax_iters"])),
+          f"parity iterations {iters}")
+    e_smooth = float(np.abs(res.phi_smoothed - g["phi_smoothed"]).max())
+    h8 = np.abs(g["phi_init"]) <= 1.5e-6
+    d_init = np.abs(res.phi_init - g["phi_init"])
+    e_init, off = float(d_init[~h8].max()), int((d_init[h8] > 1e-5).sum())
+    dist = np.linalg.norm(g["advected"][:, None, :]
+                          - res.advected[None, :, :], axis=-1)
+    match = dist.argmin(axis=1)
+    e_nodes = float(dist[np.arange(len(match)), match].max())
+    check(int(h8.sum()) == 4802 and e_smooth <= 1e-5 and e_init <= 1e-5
+          and off <= 14 and len(set(match.tolist())) == len(match)
+          and e_nodes <= 1e-6,
+          f"parity: phi_smoothed {e_smooth:.3g}, phi_init {e_init:.3g}, "
+          f"H8 cells off {off}, nodes {e_nodes:.3g}")
+    t = res.timers
+    phase("dtypes", f"(a) REFERENCE_PARITY (float64) on {device}, "
+          f"{res.grid.shape}: iterations {iters[0]} / {iters[1]} (golden "
+          f"13 / 1064), phi_smoothed max err {e_smooth:.3g}, phi_init "
+          f"{e_init:.3g} off the H8 cells (atol 1e-5), {off} of 4802 H8 "
+          f"cells off (<= 14), nodes {e_nodes:.3g} (1e-6), no kernel "
+          f"launched; wall {wall:.2f} s (init {t['search']:.2f}, reinit "
+          f"{t['initialization'] - t['search']:.2f}, min/max "
+          f"{t['minmax'] - t['initialization']:.2f} s); card {card}")
+
+
+def dtype_run_b(stl, truth_fn, dtype, tmp, dx=0.01, device="cuda"):
+    """Phase 16b: run B's configuration through ``run()`` in ``dtype`` on
+    the card, the config parsed from the CLI's ``--dtype``."""
+    import torch
+    from levelsetfortran_tpu_torch.pipeline.cli import (build_parser,
+                                                        config_from_args)
+    from levelsetfortran_tpu_torch.pipeline.run import run
+    extra = [] if device == "cuda" else ["--device", device]
+    cfg = config_from_args(build_parser().parse_args(
+        [stl, "--dx", str(dx), "--dtype", dtype, *extra]))
+    check(cfg.dtype == getattr(torch, dtype) and cfg.device == device,
+          f"--dtype {dtype}")
+    out = os.path.join(tmp, f"B_{dtype}_{dx}")
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with no_kernel(f"run B {dtype}"):
+        res, wall = sync_time(lambda: run(stl, cfg, out_dir=out))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    e_sdf = near_surface_errors(
+        os.path.join(out, "signedDistanceFunction.vti"), truth_fn)
+    e_smooth = near_surface_errors(
+        os.path.join(out, "smoothedDistanceFunction.vti"), truth_fn)
+    adv = np.abs(truth_fn(res.advected))
+    finite = all(np.isfinite(f).all() for f in
+                 (res.phi_init, res.phi_smoothed, res.phi_final,
+                  res.advected))
+    return dict(res=res, wall=wall, peak=peak, e_sdf=float(e_sdf.max()),
+                e_smooth=float(np.median(e_smooth)), adv=float(adv.max()),
+                finite=finite, cap=cfg.reinit_iters,
+                minmax_cap=cfg.minmax_iters)
+
+
+def run_text(r):
+    t = r["res"].timers
+    return (f"iterations {r['res'].reinit_iters} / {r['res'].minmax_iters}, "
+            f"sdf near-surface max err {r['e_sdf']:.4g}, smoothed median "
+            f"{r['e_smooth']:.4g}, advected max |sdf| {r['adv']:.4g}, "
+            f"asymptotic_error {r['res'].asymptotic_error:.4g}, wall "
+            f"{r['wall']:.1f} s (init {t['search']:.2f}, reinit "
+            f"{t['initialization'] - t['search']:.2f}, min/max "
+            f"{t['minmax'] - t['initialization']:.2f}, advect "
+            f"{t['advect'] - t['minmax']:.2f}, final "
+            f"{t['total'] - t['advect']:.2f} s), peak {r['peak']:.2f} GiB")
+
+
+def dtype_batches(card, device="cuda", dx=0.03):
+    """Phase 16e: ``run_batch`` of two icospheres in float64 and in
+    bfloat16 (auto: the sequential strategy on the plain versions),
+    undivided and in two data-parallel shares, which must agree
+    bitwise."""
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig, run_batch
+    from levelsetfortran_tpu_torch.models import analytic
+    meshes = [analytic.icosphere_mesh(radius=r, subdivisions=3)
+              for r in (0.5, 0.6)]
+    notes = []
+    for d in (torch.float64, torch.bfloat16):
+        cfg = LevelSetConfig(dtype=d, dx=dx, device=device)
+        with no_kernel(f"run_batch {d}"):
+            items, wall = sync_time(lambda: run_batch(meshes, cfg))
+            halves = run_batch(meshes, cfg, data_parallel=2)
+        check(all(np.isfinite(f).all() for it in items for f in (
+            it.phi_init, it.phi_smoothed, it.advected)),
+            f"run_batch {d}: not finite")
+        check(all((a.reinit_iters, a.minmax_iters) == (
+            b.reinit_iters, b.minmax_iters) and all(
+            np.array_equal(getattr(a, f), getattr(b, f))
+            for f in ("phi_init", "phi_smoothed", "advected"))
+            for a, b in zip(items, halves)),
+            f"run_batch {d}: two shares differ from the undivided batch")
+        notes.append(f"{str(d).split('.')[-1]} iterations "
+                     f"{[(it.reinit_iters, it.minmax_iters) for it in items]}"
+                     f" in {wall:.2f} s")
+    phase("dtypes", f"(e) run_batch of two icospheres (1,280 triangles) at "
+          f"dx {dx}, grid {items[0].grid.shape}: {'; '.join(notes)}; "
+          f"data_parallel=2 bitwise the undivided batch; no kernel "
+          f"launched; card {card}")
+
+
+def bf16_card_vs_cpu(card, n=48, dx=0.05, radius=0.6, device="cuda"):
+    """Phase 16c: bfloat16 reinit and min/max solves of a 48^3 sphere, the
+    card against the CPU: the same iterations and the fields bitwise or
+    within one bfloat16 ulp of |phi|."""
+    import torch
+    from levelsetfortran_tpu_torch.solvers.minmax_flow import minmax_flow
+    from levelsetfortran_tpu_torch.solvers.reinit import reinit
+    phi = sphere((n,) * 3, dx, radius, device="cpu").to(torch.bfloat16)
+    h, h1 = 0.1 * dx, 0.01 * dx * dx
+    out = {}
+    for dev in (device, "cpu"):
+        p = phi.to(dev)
+        with no_kernel(f"bfloat16 solves on {dev}"):
+            r = reinit(p, dx, h, 200, 1e-5)
+            m = minmax_flow(r.phi, dx, h1, 200, 1e-7)
+        out[dev] = (r.iterations, m.iterations, r.phi.cpu().float(),
+                    m.phi.cpu().float())
+    (rg, mg, pg, qg), (rc, mc_, pc, qc) = out[device], out["cpu"]
+    notes = []
+    for what, a, b in (("reinit", pg, pc), ("min/max", qg, qc)):
+        d = (a - b).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126))) - 7)
+        worst = float((d / ulp).max())
+        check(worst <= 1.0, f"bfloat16 {what}: card vs CPU {worst} ulps")
+        notes.append(f"{what} " + ("bitwise" if worst == 0 else
+                                   f"{int((d > 0).sum())} cells off, at "
+                                   f"most {worst:g} ulp"))
+    check((rg, mg) == (rc, mc_), f"bfloat16 iterations card {(rg, mg)} "
+          f"vs CPU {(rc, mc_)}")
+    phase("dtypes", f"(c) bfloat16 at {(n,) * 3}, the card against the "
+          f"CPU: iterations {rg} / {mg} on both, {', '.join(notes)} (tol "
+          f"one bfloat16 ulp of |phi|); no kernel launched")
+
+
+def f64_gradient_card_vs_cpu(card, device="cuda"):
+    """Phase 16d: the float64 pixels -> vertices gradient of the 24^3
+    octahedron, the card against the CPU."""
+    import torch
+    from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
+    from levelsetfortran_tpu_torch.grid.grid import Grid3D
+    v = 0.7 * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                        [0, 0, 1], [0, 0, -1]], np.float64)
+    f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int32)
+    n, half = 24, 1.2
+    grid = Grid3D(shape=(n, n, n), origin=(-half,) * 3,
+                  dx=2 * half / (n - 1))
+    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0), reinit_steps=5,
+              minmax_steps=3, height=12, width=12, n_march_steps=48)
+    res = {}
+    for dev in (device, "cpu"):
+        with no_kernel(f"float64 gradient on {dev}"):
+            res[dev] = image_loss_and_vertex_grad(
+                torch.tensor(v, device=dev), f, grid,
+                torch.zeros((12, 12), dtype=torch.float64, device=dev), **kw)
+    (lg, gg), (lc, gc) = res[device], res["cpu"]
+    lrel = abs(float(lg) - float(lc)) / abs(float(lc))
+    grel = float((gg.cpu() - gc).abs().max() / gc.abs().max())
+    check(gg.dtype == torch.float64 and lrel <= 1e-10 and grel <= 1e-10,
+          f"float64 gradient: loss rel {lrel:.3g}, grad rel {grel:.3g}")
+    phase("dtypes", f"(d) float64 octahedron 24^3 on the card vs the CPU: "
+          f"loss {float(lg):.15g} (rel {lrel:.3g}), grad max err "
+          f"{grel:.3g} of max |grad| {float(gc.abs().max()):.4g} (rtol "
+          f"1e-10); no kernel launched")
+
+
+def dtypes_phase(card, tmp, ball, ball_sdf, run_b=None, device="cuda",
+                 dx=0.01):
+    """Phase 16: the dtype routing on the card.  ``run_b``: phase 3's
+    float32 run B (its launches and result), printed beside."""
+    from levelsetfortran_tpu_torch import write_stl
+    parity_on_card(card, device)
+    stl = os.path.join(tmp, "B.stl")
+    write_stl(stl, ball)
+    runs = {d: dtype_run_b(stl, ball_sdf, d, tmp, dx, device)
+            for d in ("float64", "bfloat16")}
+    r64, r16 = runs["float64"], runs["bfloat16"]
+    check(r64["finite"] and not r64["res"].reinit_diverged
+          and not r64["res"].minmax_diverged and r64["e_sdf"] < 5e-3
+          and r64["e_smooth"] < 6e-3 and r64["adv"] <= 1.5 * dx
+          and r64["res"].reinit_iters < r64["cap"],
+          f"run B float64 gates: {run_text(r64)}")
+    errs = (r16["e_sdf"], r16["e_smooth"], r16["adv"])
+    check(r16["finite"] and not r16["res"].reinit_diverged
+          and not r16["res"].minmax_diverged
+          and r16["res"].reinit_iters < r16["cap"]
+          and r16["res"].minmax_iters < r16["minmax_cap"]
+          and all(e <= b for e, b in zip(errs, BF16_RUN_B)),
+          f"run B bfloat16 gates (bounds {BF16_RUN_B}): {run_text(r16)}")
+    for sdx, ref in BF16_JAX.items():
+        r = dtype_run_b(stl, ball_sdf, "bfloat16", tmp, sdx, device)
+        errs = (r["e_sdf"], r["e_smooth"], r["adv"])
+        check(r["finite"] and all(e <= BF16_VS_JAX * j
+                                  for e, j in zip(errs, ref)),
+              f"bfloat16 at dx {sdx}: {errs} against the JAX package's "
+              f"{ref}")
+        phase("dtypes", f"(b) run B's mesh in bfloat16 at dx {sdx} "
+              f"{r['res'].grid.shape}: {run_text(r)}; the JAX package's "
+              f"(sdf, smoothed, advected) {ref}, ratios "
+              f"{tuple(round(e / j, 4) for e, j in zip(errs, ref))}; card "
+              f"{card}")
+    if run_b is not None:
+        launches, res = run_b
+        phase("dtypes", f"(b) run B float32 (phase 3): iterations "
+              f"{res.reinit_iters} / {res.minmax_iters}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    for d, r in runs.items():
+        phase("dtypes", f"(b) run B {d} {r['res'].grid.shape}: "
+              f"{run_text(r)}; no kernel launched; card {card}")
+    bf16_card_vs_cpu(card, device=device)
+    f64_gradient_card_vs_cpu(card, device)
+    dtype_batches(card, device)
+
+
 def start():
     """Phases 0 and 1: the card's line, TF32 on, the kernels built.
     Returns the card's name and power limit."""
@@ -3531,6 +3822,8 @@ def main() -> int:
             launches, results[label] = run_phase(label, mesh, truth, dx,
                                                  extra, tmp)
             count(launches)
+            if label == "B":
+                runs_b = launches
         run_a_fused(results["A"], cubes)
         launches, run_f = run_f_phase(ball, ball_sdf, results["B"], card,
                                       tmp)
@@ -3585,6 +3878,10 @@ def main() -> int:
             lambda: options_phase(card, record, tmp))
         count(launches)
     phase("options", f"wall {wall_opt:.1f} s; card {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, wall_dt = sync_time(lambda: dtypes_phase(
+            card, tmp, ball, ball_sdf, (runs_b, results["B"])))
+    phase("dtypes", f"wall {wall_dt:.1f} s; card {card}")
 
     kernels = []
     for n, (src, repl) in names.items():

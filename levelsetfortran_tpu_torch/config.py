@@ -7,8 +7,10 @@ domain-decomposed pipelines (``mesh_shape``, ``steps_per_exchange``,
 checkpointed solves (``checkpoint_dir``, ``checkpoint_chunk``) and the
 in-loop metrics stream (``metrics_every``).  Dropped: ``mesh_axis_names``
 and ``halo_width`` (nothing reads them), the dead ``sign_eps`` literal,
-and the TPU-only ``use_pallas`` switch — here the tensor's device decides
-whether a step runs its CUDA kernel.
+and the TPU-only ``use_pallas`` switch — here the field decides whether a
+step runs its CUDA kernel: a float32 field on the card does, a bfloat16 or
+float64 field runs the kernels' plain versions on the configured device
+(the JAX package's ``pallas_supported``), the card by default.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ class QuirkConfig:
     deriv1_plus_sign: bool = False
 
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 #: Fields of the JAX config that the port lacks, with the JAX defaults they
 #: must hold for a config to carry across (``use_pallas`` is ignored).
@@ -85,7 +88,9 @@ class LevelSetConfig:
     final_reinit_cfl: float = 0.001
 
     # --- numerics ---
-    dtype: torch.dtype = torch.float32  # the kernels' type; f64 for CPU parity
+    #: float32 (the kernels' type), float64 (reference parity) or bfloat16;
+    #: the last two run the kernels' plain versions, on the card as on the CPU
+    dtype: torch.dtype = torch.float32
     weno_eps_scale: float = 1e-6        # subs.f90:533
     weno_eps_floor: float = 1e-99       # subs.f90:533 (clamped to dtype tiny)
 
@@ -137,8 +142,8 @@ class LevelSetConfig:
         if self.init_culling not in ("auto", "off"):
             raise ValueError("init_culling must be 'auto' or 'off'; "
                              f"got {self.init_culling!r}")
-        if self.dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype must be float32 or float64; "
+        if self.dtype not in _DTYPES.values():
+            raise ValueError(f"dtype must be float32, float64 or bfloat16; "
                              f"got {self.dtype}")
         m = self.mesh_shape
         if isinstance(m, list):
@@ -153,28 +158,28 @@ class LevelSetConfig:
 
     @property
     def eps_floor(self) -> float:
-        """WENO epsilon floor clamped so its square stays normal in dtype."""
+        """WENO epsilon floor clamped so its square stays normal in dtype:
+        float64 keeps ``weno_eps_floor``, float32 and bfloat16 take 1e-18
+        (``config.py:170-176`` of the JAX package)."""
         if self.dtype == torch.float64:
             return self.weno_eps_floor
         return 1e-18
 
     def torch_device(self) -> torch.device:
-        """Exactly the device asked for, never another one."""
+        """Exactly the device asked for, never another one, in every
+        dtype."""
         device = torch.device(self.device)
-        if device.type == "cuda":
-            if self.dtype == torch.float64:
-                raise ValueError("float64 runs on the CPU only (the CUDA "
-                                 "kernels take float32): pass device='cpu'")
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: pass device='cpu' to run "
-                                   "the kernels' plain versions")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                               "the kernels' plain versions")
         return device
 
     @classmethod
     def from_reference_fields(cls, d: dict, **overrides) -> "LevelSetConfig":
         """Build from ``dataclasses.asdict()`` of the JAX package's config.
 
-        Dtypes map by name; every field the slice uses is copied.  A JAX
+        Dtypes map by name (float32, float64, bfloat16); every field the
+        slice uses is copied.  A JAX
         field the port lacks must hold its JAX default (``use_pallas`` is
         ignored: the tensor's device picks the kernel), else this raises.
         """

@@ -2,13 +2,15 @@
 
 Binary STL: an 80-byte header, an int32 triangle count, then per triangle
 12 float32s (normal + 3 vertices) and a 2-byte pad (``subs.f90:17-121``).
-Shared vertices are deduplicated by exact float32 bit pattern, keeping
-first-occurrence order — the reference's numbering at its 1e-13 tolerance.
+Shared vertices are deduplicated at the reference's per-coordinate
+tolerance of 1e-13, keeping first-occurrence order — the reference's
+numbering, and the JAX package's native spatial hash's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import struct
 
 import numpy as np
@@ -41,16 +43,76 @@ class SurfaceMesh:
         return self.vertices.min(axis=0), self.vertices.max(axis=0)
 
 
+#: The reference's per-coordinate dedup tolerance (subs.f90:79-81).
+DEDUP_TOL = 1e-13
+
+
 def _dedup_vertices(tri_verts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """First-occurrence-order exact-bit dedup of (n, 3) float32 rows."""
-    as_void = np.ascontiguousarray(tri_verts).view(
-        np.dtype((np.void, tri_verts.dtype.itemsize * 3))).ravel()
-    _, first_idx, inverse = np.unique(as_void, return_index=True,
-                                      return_inverse=True)
-    order = np.argsort(first_idx, kind="stable")
-    rank = np.empty_like(order)
-    rank[order] = np.arange(order.size)
-    return tri_verts[first_idx[order]], rank[inverse].astype(np.int32)
+    """First-occurrence-order dedup of (n, 3) float32 rows: rows whose
+    coordinates all agree within ``DEDUP_TOL`` (``|a - b| <= 1e-13``, the
+    reference's linear scan, ``subs.f90:69-93``) are one vertex, numbered
+    by and holding the bits of its first occurrence — the JAX package's
+    native spatial hash (``native/stl_dedup.cpp``), so -0.0 merges with
+    +0.0.
+
+    A float32 coordinate of magnitude >= 2^-19 lies within the tolerance
+    only of itself (the spacing of float32 is wider there), so two rows
+    can merge only where they agree exactly on such coordinates and both
+    are below 2^-19 on the rest.  Rows are therefore grouped by their
+    coordinates with those below 2^-19 set to 0, and the groups do not
+    interact.  A group whose small coordinates are all zeros is one vertex,
+    made by its first row (one vectorised pass); only a group holding a
+    nonzero coordinate below 2^-19 takes the hash's own loop
+    (:func:`_dedup_tolerance`), and a row with a NaN (within the tolerance
+    of nothing) is a vertex of its own."""
+    rows = np.ascontiguousarray(tri_verts, np.float32)
+    n = len(rows)
+    small = np.abs(rows) < 2.0 ** -19
+    nan = np.isnan(rows).any(axis=1)
+    key = np.where(small, np.float32(0.0), rows)
+    as_void = key.view(np.dtype((np.void, key.dtype.itemsize * 3))).ravel()
+    _, first_idx, group = np.unique(as_void, return_index=True,
+                                    return_inverse=True)
+    group = group.reshape(-1)
+    maker = first_idx[group]                 # the row that makes its vertex
+    maker[nan] = np.flatnonzero(nan)
+    loose = np.unique(group[(small & (rows != 0)).any(axis=1) & ~nan])
+    if loose.size:
+        members = np.flatnonzero(np.isin(group, loose) & ~nan)
+        order = members[np.argsort(group[members], kind="stable")]
+        cuts = np.flatnonzero(np.diff(group[order])) + 1
+        for idx in np.split(order, cuts):
+            first, inverse = _dedup_tolerance(rows[idx])
+            maker[idx] = idx[np.asarray(first)[inverse]]
+    makers = np.unique(maker)
+    rank = np.empty(n, np.int64)
+    rank[makers] = np.arange(makers.size)
+    return rows[makers], rank[maker].astype(np.int32)
+
+
+def _dedup_tolerance(rows: np.ndarray) -> tuple[list, np.ndarray]:
+    """The native hash's loop (``stl_dedup.cpp:45-95``): each point probes
+    the 27 tolerance-sized cells around its own for the first earlier
+    vertex within the tolerance, else becomes a new vertex.  Returns the
+    rows that made vertices and each row's vertex."""
+    pts = rows.astype(np.float64)
+    cells = np.floor(pts * (1.0 / DEDUP_TOL))
+    buckets, first, inverse = {}, [], np.empty(len(pts), np.int64)
+    for i, (p, c) in enumerate(zip(pts, cells)):
+        found = -1
+        for d in itertools.product((-1, 0, 1), repeat=3):
+            for j in buckets.get(tuple(c + d), ()):
+                if (np.abs(pts[first[j]] - p) <= DEDUP_TOL).all():
+                    found = j
+                    break
+            if found >= 0:
+                break
+        if found < 0:
+            found = len(first)
+            first.append(i)
+            buckets.setdefault(tuple(c), []).append(found)
+        inverse[i] = found
+    return first, inverse
 
 
 def _finish(tri_verts: np.ndarray) -> SurfaceMesh:

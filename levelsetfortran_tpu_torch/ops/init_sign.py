@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..grid.grid import Grid3D
+from .weno_cuda import scalar_type
 
 #: Bound on a scan step's (blocks, points, tile) pair count, as in the JAX
 #: package (``init_sign.py:699``): ~4M pairs, some 40 float temporaries.
@@ -176,6 +177,8 @@ def _select_scan(points, tri, feat, tile, rel_tie=1e-3):
     eps = 1e-30
     qeps = (64.0 * float(np.finfo(np.float32).eps)
             * p_sq.amax(dim=1, keepdim=True))         # (G, 1)
+    rounded = scalar_type(dt)
+    tie, tie_floor = float(rounded(1.0 + rel_tie)), float(rounded(1e-12))
     best_d = torch.full((G, P), math.inf, dtype=dt, device=points.device)
     acc = torch.zeros((G, P), dtype=dt, device=points.device)
     best_i = torch.zeros((G, P), dtype=torch.long, device=points.device)
@@ -230,7 +233,7 @@ def _select_scan(points, tri, feat, tile, rel_tie=1e-3):
         new_d = torch.where(better, tile_d, best_d)
         best_i = torch.where(better, base + tile_best, best_i)
 
-        thresh = new_d * (1.0 + rel_tie) + 1e-12 + qeps
+        thresh = new_d * tie + tie_floor + qeps
         pi = torch.full_like(d, math.pi)
         w = torch.where(in_a, ang_t[:, None, :, 0],
                         torch.where(in_b, ang_t[:, None, :, 1],
@@ -467,7 +470,8 @@ def _scan_blocks(grid, tri_s, feat, rows, borig, loc, *, dtype, tile):
     ``origin + dx * index`` of ``grid`` (for one block of a larger grid:
     :class:`_BlockView`, the larger grid's origin and the global index)."""
     origin = torch.tensor(grid.origin, dtype=dtype, device=tri_s.device)
-    pts = origin + grid.dx * (borig[:, None, :] + loc[None]).to(dtype)
+    pts = origin + float(scalar_type(dtype)(grid.dx)) * (
+        borig[:, None, :] + loc[None]).to(dtype)
     with torch.no_grad():
         best_i, ps = _select_scan(pts, tri_s.detach()[rows],
                                   tuple(f[rows] for f in feat), tile)
@@ -572,7 +576,7 @@ def signed_distance_init(grid: Grid3D, vertices, elements, *,
                        else elements)
     if isinstance(vertices, torch.Tensor):
         v = vertices.to(dtype=dtype, device=device or vertices.device)
-        host_v = vertices.detach().cpu().numpy()
+        host_v = vertices.detach().cpu().double().numpy()
     else:
         host_v = np.asarray(vertices)
         v = torch.as_tensor(host_v, dtype=dtype, device=device or "cpu")
@@ -725,11 +729,16 @@ def initialize_sign_field(grid: Grid3D, vertices, elements, *,
     tri = v[elems]
     centroids = tri.mean(dim=1)
 
-    host_v = v.cpu().numpy()
+    # the bbox in the field's dtype and its arithmetic, as the JAX package
+    # forms it from its dtype's host array (0-d tensors: numpy has no
+    # bfloat16)
+    host_v = v.detach().cpu()
     (i0, i1), (j0, j1), (k0, k1) = subbox_ranges(
-        grid, host_v.min(axis=0), host_v.max(axis=0), margin)
+        grid, host_v.amin(0), host_v.amax(0), margin)
     ni, nj, nk = i1 - i0 + 1, j1 - j0 + 1, k1 - k0 + 1
-    xs, ys, zs = (grid.origin[a] + grid.dx * (o + torch.arange(
+    rounded = scalar_type(dtype)
+    dxv = float(rounded(grid.dx))
+    xs, ys, zs = (float(rounded(grid.origin[a])) + dxv * (o + torch.arange(
         n, dtype=dtype, device=v.device))
         for a, o, n in ((0, i0, ni), (1, j0, nj), (2, k0, nk)))
     gx, gy, gz = torch.meshgrid(xs, ys, zs, indexing="ij")

@@ -32,10 +32,12 @@ the scalar cotangents up on the device.  :func:`minmax_scan` is the differentiab
 dense or banded (bitwise the same values and gradients).
 
 The wrappers run the plain version only for a CPU tensor; for a CUDA tensor
-they launch the kernel or raise.  A solver passes ``bufs``
-(:func:`..weno_cuda.solve_buffers`) so that its launches reuse one set of
-sum buffers, the stream and the device; the scalars are rounded once per
-distinct input.  K4 is bitwise equal to K launches of K3
+they launch the kernel or raise.  A solver picks the wrapper or the plain
+version by the field's dtype (:func:`..weno_cuda.route`): bfloat16 and
+float64 run the plain versions, on the card as on the CPU.  A solver
+passes ``bufs`` (:func:`..weno_cuda.solve_buffers`) so that its launches
+reuse one set of sum buffers, the stream and the device; the scalars are
+rounded once per distinct input.  K4 is bitwise equal to K launches of K3
 (one shared cell update, built with ``--fmad=false``).
 """
 
@@ -55,9 +57,10 @@ from .weno_cuda import (VJP_HALO, BlockGeom, SolveBuffers, _sum_args,
                         box_cells, brick_cells, brick_grid,
                         check_adjoint_geom, check_block, check_cuda,
                         check_inputs, check_packed, chunk_lengths,
-                        finish_block_plain, finish_plain, live_vector,
-                        np_dtype, on_device, owned_slices, packed_vector,
-                        ptr, rms_buffers, run_packed_plain, tile_activity)
+                        finish_block_plain, finish_plain, kernel_supported,
+                        live_vector, on_device, owned_slices, packed_vector,
+                        ptr, rms_buffers, route, run_packed_plain,
+                        scalar_type, tile_activity)
 
 
 def minmax_scalars(dtype, dx, h1, band_radius, threshold):
@@ -70,7 +73,7 @@ def minmax_scalars(dtype, dx, h1, band_radius, threshold):
 
 @functools.lru_cache(maxsize=256)
 def _minmax_scalars(dtype, dx, h1, band_radius, threshold):
-    t = np_dtype(dtype)
+    t = scalar_type(dtype)
     dxv = t(dx)
     return types.MappingProxyType(dict(
         dx=float(dxv), h1=float(t(h1)), inv_dx2=float(t(1) / (dxv * dxv)),
@@ -111,8 +114,10 @@ def minmax_fusedk_plain(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
 
 
 def minmax_step_plain(phi, dx, h1, band_radius=4.1, threshold=0.0, *,
-                      active=None, out=None, mint=True, with_rms=False):
-    """The plain version of :func:`minmax_step`."""
+                      active=None, out=None, mint=True, with_rms=False,
+                      bufs=None):
+    """The plain version of :func:`minmax_step` (same arguments; ``bufs``
+    unused)."""
     return minmax_fusedk_plain(phi, dx, h1, band_radius, threshold,
                                ksteps=1, active=active, out=out, mint=mint,
                                with_rms=with_rms)
@@ -315,9 +320,10 @@ minmax_fusedk_block.launches = 0
 
 
 def minmax_step_packed_plain(phi, dx, h1, live, band_radius=4.1,
-                             threshold=0.0, *, out=None, with_rms=False):
-    """The plain version of :func:`minmax_step_packed` (any dtype, any
-    device): the solo plain step per live geometry."""
+                             threshold=0.0, *, out=None, with_rms=False,
+                             bufs=None):
+    """The plain version of :func:`minmax_step_packed` (same arguments, any
+    dtype, any device): the solo plain step per live geometry."""
     hv = packed_vector(h1, phi.shape[0], phi.dtype, "cpu").tolist()
     return run_packed_plain(phi, out, live, with_rms, lambda g, o, rms: (
         minmax_step_plain(phi[g], dx, hv[g], band_radius, threshold, out=o,
@@ -403,17 +409,29 @@ def _vjp_plain(phi, g, sc, origin, gshape, live, owned):
 
 
 def minmax_step_vjp_plain(phi, g, dx, h1, band_radius=4.1, threshold=0.0, *,
-                          active=None):
+                          active=None, bufs=None):
     """The plain version of :func:`minmax_step_vjp` and, with ``active``, of
     :func:`minmax_step_vjp_banded` (any dtype, any device), the gather-form
     adjoint of ``minmax_pallas._make_bwd_kernel`` (:742-757):
     ``cot_phi = g - 6/dx^2 cot_lap + gather_6(cot_lap / dx^2)`` with
     ``d min(lap, 0)/d lap`` = 1, 0.5 at ``lap == 0``, else 0 (JAX's
     convention for ``lax.min``; ``torch.clamp`` would give 1 at the tie);
-    an inactive brick passes ``g`` through."""
+    an inactive brick passes ``g`` through.  ``bufs`` as in the wrapper:
+    the scalar cotangents are added into ``bufs.sums``."""
     sc = minmax_scalars(phi.dtype, dx, h1, band_radius, threshold)
     live = None if active is None else brick_cells(active, phi.shape)
-    return _vjp_plain(phi, g, sc, (0, 0, 0), tuple(phi.shape), live, None)
+    return _with_bufs(
+        "minmax_step_vjp", phi, (dx, h1, band_radius, threshold), None, bufs,
+        lambda: _vjp_plain(phi, g, sc, (0, 0, 0), tuple(phi.shape), live,
+                           None))
+
+
+def minmax_step_vjp_banded_plain(phi, g, dx, h1, active, band_radius=4.1,
+                                 threshold=0.0, *, bufs=None):
+    """The plain version of :func:`minmax_step_vjp_banded` (same
+    arguments)."""
+    return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold,
+                                 active=active, bufs=bufs)
 
 
 class VjpBuffers:
@@ -424,9 +442,10 @@ class VjpBuffers:
     ticket counter; and ``sums``, the solve's running ``(cot_dx, cot_h1)``
     (float64, zero at first): each launch adds its two scalar cotangents
     into them on the device, as a caller adds each step's to its total
-    (``total + step``, in launch order).  For a CPU tensor only ``sums``
-    (the plain versions add into it).  ``running=False``: one launch's own
-    sums, written, not added (a call without buffers)."""
+    (``total + step``, in launch order).  For a CPU tensor, or a field the
+    kernel does not take, only ``sums`` (the plain versions add into it).
+    ``running=False``: one launch's own sums, written, not added (a call
+    without buffers)."""
 
     def __init__(self, phi, dx, h1, band_radius=4.1, threshold=0.0, *,
                  geom: Optional[BlockGeom] = None, name="minmax_step_vjp",
@@ -444,7 +463,8 @@ class VjpBuffers:
                                       threshold)
         make = torch.zeros if running else torch.empty
         self.sums = make(2, dtype=torch.float64, device=phi.device)
-        if phi.device.type != "cuda":
+        if phi.device.type != "cuda" or not kernel_supported(
+                self.shape, phi.dtype):
             return
         self.scal = (sc["h1"], sc["inv_dx2"], sc["band_dx"], sc["threshold"])
         self.scale = -2.0 / sc["dx"]
@@ -521,10 +541,8 @@ def minmax_step_vjp(phi, g, dx, h1, band_radius=4.1, threshold=0.0, *,
     same scalars): a backward solve's reused state; the scalar cotangents
     are then added into ``bufs.sums`` and returned as None."""
     if phi.device.type == "cpu":
-        return _with_bufs(
-            "minmax_step_vjp", phi, (dx, h1, band_radius, threshold), None,
-            bufs, lambda: minmax_step_vjp_plain(phi, g, dx, h1, band_radius,
-                                                threshold))
+        return minmax_step_vjp_plain(phi, g, dx, h1, band_radius, threshold,
+                                     bufs=bufs)
     res = _minmax_vjp_cuda("minmax_step_vjp", phi, g, dx, h1, band_radius,
                            threshold, None, None, bufs)
     minmax_step_vjp.launches += 1
@@ -544,10 +562,9 @@ def minmax_step_vjp_banded(phi, g, dx, h1, active, band_radius=4.1,
     updates in the chunk).  Returns what :func:`minmax_step_vjp` returns;
     ``bufs`` as there."""
     if phi.device.type == "cpu":
-        return _with_bufs(
-            "minmax_step_vjp_banded", phi, (dx, h1, band_radius, threshold),
-            None, bufs, lambda: minmax_step_vjp_plain(
-                phi, g, dx, h1, band_radius, threshold, active=active))
+        return minmax_step_vjp_banded_plain(phi, g, dx, h1, active,
+                                            band_radius, threshold,
+                                            bufs=bufs)
     res = _minmax_vjp_cuda("minmax_step_vjp_banded", phi, g, dx, h1,
                            band_radius, threshold, None, active, bufs)
     minmax_step_vjp_banded.launches += 1
@@ -558,17 +575,24 @@ minmax_step_vjp_banded.launches = 0
 
 
 def minmax_step_block_vjp_plain(pad, g_pad, dx, h1, geom: BlockGeom,
-                                band_radius=4.1, threshold=0.0):
-    """The plain version of :func:`minmax_step_block_vjp` (any dtype, any
-    device): the solo plain VJP with the face rule in global coordinates,
-    cropped to the owned box; the sums count the owned cells."""
-    check_adjoint_geom("minmax_step_block_vjp", pad.shape, geom,
-                       VJP_HALO["minmax"], 0)
+                                band_radius=4.1, threshold=0.0, *,
+                                bufs=None):
+    """The plain version of :func:`minmax_step_block_vjp` (same arguments,
+    any dtype, any device): the solo plain VJP with the face rule in
+    global coordinates, cropped to the owned box; the sums count the owned
+    cells (added into ``bufs.sums`` when given)."""
     sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
-    cot_phi, cdx, ch = _vjp_plain(pad, g_pad, sc, geom.origin, geom.gshape,
-                                  None, box_cells(geom, pad.shape,
-                                                   pad.device))
-    return cot_phi[owned_slices(geom)].contiguous(), cdx, ch
+
+    def plain():
+        check_adjoint_geom("minmax_step_block_vjp", pad.shape, geom,
+                           VJP_HALO["minmax"], 0)
+        cot_phi, cdx, ch = _vjp_plain(pad, g_pad, sc, geom.origin,
+                                      geom.gshape, None,
+                                      box_cells(geom, pad.shape, pad.device))
+        return cot_phi[owned_slices(geom)].contiguous(), cdx, ch
+
+    return _with_bufs("minmax_step_block_vjp", pad,
+                      (dx, h1, band_radius, threshold), geom, bufs, plain)
 
 
 def minmax_step_block_vjp(pad, g_pad, dx, h1, geom: BlockGeom,
@@ -583,10 +607,8 @@ def minmax_step_block_vjp(pad, g_pad, dx, h1, geom: BlockGeom,
     ``bufs`` (:class:`VjpBuffers` of ``pad`` with ``geom``) as in
     :func:`minmax_step_vjp`."""
     if pad.device.type == "cpu":
-        return _with_bufs(
-            "minmax_step_block_vjp", pad, (dx, h1, band_radius, threshold),
-            geom, bufs, lambda: minmax_step_block_vjp_plain(
-                pad, g_pad, dx, h1, geom, band_radius, threshold))
+        return minmax_step_block_vjp_plain(pad, g_pad, dx, h1, geom,
+                                           band_radius, threshold, bufs=bufs)
     res = _minmax_vjp_cuda("minmax_step_block_vjp", pad, g_pad, dx, h1,
                            band_radius, threshold, geom, None, bufs)
     minmax_step_block_vjp.launches += 1
@@ -612,12 +634,13 @@ class _MinmaxScanBanded(torch.autograd.Function):
         args = (float(dx), float(h1), float(band_radius), float(threshold))
         ctx.chunks = chunk_lengths(steps, refresh_every)
         ctx.starts = []
+        step = route(phi0, minmax_step, minmax_step_plain)
         p = phi0
         for n in ctx.chunks:
             ctx.starts.append(p)
             active = tile_activity(p, args[0], args[2], window="owned")
             for _ in range(n):
-                p = minmax_step(p, *args, active=active)
+                p = step(p, *args, active=active)
         ctx.args = args
         ctx.meta = tuple(reverse.scalar_meta(x)
                          for x in (dx, h1, band_radius, threshold))
@@ -629,15 +652,17 @@ class _MinmaxScanBanded(torch.autograd.Function):
         zero = torch.zeros((), dtype=torch.float64, device=g.device)
         gp = g.contiguous()
         bufs = VjpBuffers(gp, *args)
+        step = route(gp, minmax_step, minmax_step_plain)
+        vjp = route(gp, minmax_step_vjp_banded, minmax_step_vjp_banded_plain)
         for p, n in zip(reversed(ctx.starts), reversed(ctx.chunks)):
             act_f = tile_activity(p, args[0], args[2], window="owned")
             act_b = tile_activity(p, args[0], args[2], window="band4")
             traj = [p]
             for _ in range(n - 1):
-                traj.append(minmax_step(traj[-1], *args, active=act_f))
+                traj.append(step(traj[-1], *args, active=act_f))
             for p_in in reversed(traj):
-                gp = minmax_step_vjp_banded(p_in, gp, args[0], args[1],
-                                            act_b, *args[2:], bufs=bufs)[0]
+                gp = vjp(p_in, gp, args[0], args[1], act_b, *args[2:],
+                         bufs=bufs)[0]
         cdx, ch = bufs.sums[0], bufs.sums[1]
         ctx.starts = None
         # band_radius and threshold enter through comparisons only

@@ -40,7 +40,10 @@ kernel's.  :func:`reinit_scan_banded` is the differentiable narrow-band
 scan that runs the banded modes of K1 and K5.
 
 :func:`reinit_step` and :func:`reinit_step_vjp` run the plain version only
-for a CPU tensor; for a CUDA tensor they launch the kernel or raise.  K1
+for a CPU tensor; for a CUDA tensor they launch the kernel or raise.  The
+solvers pick the wrapper or the plain version by the field's dtype
+(:func:`kernel_supported`, :func:`route`): float32 takes the kernels,
+bfloat16 and float64 the plain versions on their own device.  K1
 and its plain version evaluate the same expressions in the same order on
 scalars rounded once in the working dtype (:func:`step_scalars`), so they
 agree to the last bits; K5 also sums its stencil and ghost-BC terms in
@@ -72,8 +75,45 @@ from .weno import default_eps_floor
 BRICK = 8
 
 
-def np_dtype(dtype: torch.dtype):
+def kernel_supported(shape, dtype) -> bool:
+    """Whether a field of grid ``shape`` and ``dtype`` takes the CUDA
+    kernels: a 3-D float32 grid, where the JAX package takes its Pallas
+    kernels (``weno_pallas.pallas_supported``).  bfloat16 and float64 take
+    the kernels' plain versions (:func:`route`), on the device the field
+    lies on, as the JAX package sends them to its jnp path.  The TPU's
+    least axis of 8 (its tile layout) is not ported: a float32 grid the
+    kernels do not take reaches them and raises."""
+    return len(shape) == 3 and dtype == torch.float32
+
+
+def route(phi, kernel, plain):
+    """The step a solver runs on ``phi``: ``kernel`` (a wrapper: its CUDA
+    kernel for a CUDA tensor, its plain version for a CPU one) where
+    :func:`kernel_supported` takes ``phi``'s grid (a pack's: its last three
+    axes), else ``plain``, the plain version with the same arguments, on
+    ``phi``'s own device.  A route chosen by dtype, as the JAX package's
+    ``_use_pallas`` chooses it, never a fallback: on the kernel route a
+    wrapper launches its kernel or raises."""
+    return kernel if kernel_supported(tuple(phi.shape[-3:]), phi.dtype) \
+        else plain
+
+
+def scalar_type(dtype: torch.dtype):
+    """A constructor of scalars rounded once in ``dtype`` whose arithmetic
+    rounds in ``dtype``: numpy's float32 / float64, or 0-d CPU tensors for
+    bfloat16, which numpy lacks (no ``ml_dtypes`` needed)."""
+    if dtype == torch.bfloat16:
+        return functools.partial(torch.tensor, dtype=torch.bfloat16)
     return np.float32 if dtype == torch.float32 else np.float64
+
+
+def round_to(values, dtype, device=None) -> torch.Tensor:
+    """``values`` (numbers, an array or a tensor) rounded once into a
+    ``dtype`` tensor on ``device``, on the host (float64 -> dtype)."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().double().numpy()
+    return torch.as_tensor(np.array(values, np.float64)).to(
+        dtype=dtype, device=device)
 
 
 def step_scalars(dtype, dx, h, eps_scale=1e-6, eps_floor=None):
@@ -88,18 +128,23 @@ def step_scalars(dtype, dx, h, eps_scale=1e-6, eps_floor=None):
 
 @functools.lru_cache(maxsize=256)
 def _step_scalars(dtype, dx, h, eps_scale, eps_floor):
-    t = np_dtype(dtype)
+    t = scalar_type(dtype)
+    f64 = dtype == torch.float64
     if eps_floor is None:
         eps_floor = default_eps_floor(dtype)
     dxv = t(dx)
     dx2 = dxv * dxv
-    floor = t(1e-18 if dtype == torch.float32 else 1e-99)
+    floor = t(1e-99 if f64 else 1e-18)
     scaled = t(eps_floor) * dx2
     return types.MappingProxyType(dict(
         dx=float(dxv), h=float(t(h)), dx2=float(dx2),
         inv_dx2=float(t(1) / dx2), eps_scale=float(t(eps_scale)),
         eps_floor=float(max(scaled, floor)),
-        ef_dx=float(t(2.0 * eps_floor) * dxv) if scaled >= floor else 0.0))
+        ef_dx=float(t(2.0 * eps_floor) * dxv) if scaled >= floor else 0.0,
+        # the plain versions' clamps (the weights' ratio floor, the smeared
+        # sign's sqrt floor): float64's, or float32's for float32/bfloat16
+        ratio_floor=float(t(1e-70 if f64 else 1e-7)),
+        sqrt_floor=float(t(1e-30 if f64 else 1e-20))))
 
 
 # ----------------------------- plain version ------------------------------
@@ -160,8 +205,7 @@ def _interior_update(phi, sign_src, sc, quirk_y_p5_zero, deep=None):
     """Euler-updated values of the interior cells (face cells: garbage).
     ``deep``: the WENO5 region (default: 4 cells inside ``phi``'s own
     faces; a block of a larger grid passes its global-coordinate mask)."""
-    f64 = phi.dtype == torch.float64
-    ratio_floor = 1e-70 if f64 else 1e-7
+    ratio_floor = sc["ratio_floor"]
     if deep is None:
         deep = interior_mask(phi.shape, 4, phi.device)
     pos = sign_src > 0.0
@@ -181,7 +225,7 @@ def _interior_update(phi, sign_src, sc, quirk_y_p5_zero, deep=None):
         total = g * g if total is None else total + g * g
     gm = torch.sqrt(total * sc["inv_dx2"])
     d2 = sign_src * sign_src + sc["dx2"] * gm
-    sg = sign_src / torch.sqrt(torch.clamp_min(d2, 1e-30 if f64 else 1e-20))
+    sg = sign_src / torch.sqrt(torch.clamp_min(d2, sc["sqrt_floor"]))
     return phi + sc["h"] * sg * (1.0 - gm)
 
 
@@ -260,7 +304,7 @@ def tile_activity(phi, dx, radius_cells, margin_cells=0.0,
     padded block; its brick grid starts at ``geom.brick_origin``, cells
     past a global face are ignored, and freshly exchanged halo cells take
     part, so a brick at a shard seam sees the band across it."""
-    t = np_dtype(phi.dtype)
+    t = scalar_type(phi.dtype)
     thresh = float(t(radius_cells + margin_cells) * t(dx))
     a = torch.abs(phi)
     inf = float("inf")
@@ -326,9 +370,10 @@ def finish_plain(res, phi, out, with_rms, base=None):
 
 def reinit_step_plain(phi, sign_src, dx, h, *, eps_scale=1e-6,
                       eps_floor=None, quirk_y_p5_zero=False, active=None,
-                      out=None, mint=True, with_rms=False):
+                      out=None, mint=True, with_rms=False, bufs=None):
     """The plain version of :func:`reinit_step` (same arguments, any dtype,
-    any device): whole-grid tensor ops, then the banded write."""
+    any device): whole-grid tensor ops, then the banded write.  ``bufs``
+    is unused: a plain step keeps no device buffers."""
     sc = step_scalars(phi.dtype, dx, h, eps_scale, eps_floor)
     upd = _interior_update(phi, sign_src, sc, quirk_y_p5_zero)
     if active is not None:
@@ -587,9 +632,7 @@ def _vjp_plain(phi, sign_src, g, sc, quirk_y_p5_zero, origin, gshape, live,
     all), ``owned``: the cells the scalar sums count (None: all).  Returns
     the array-shaped ``(cot_phi, cot_sign, cot_dx, cot_h)``; ``cot_phi`` is
     right where every stencil source lies in the array."""
-    f64 = phi.dtype == torch.float64
-    ratio_floor = 1e-70 if f64 else 1e-7
-    sm_floor = 1e-30 if f64 else 1e-20
+    ratio_floor, sm_floor = sc["ratio_floor"], sc["sqrt_floor"]
     shape, dev = phi.shape, phi.device
     in_grid = global_interior_mask(shape, origin, gshape, 0, dev)
     interior = global_interior_mask(shape, origin, gshape, 1, dev)
@@ -711,12 +754,13 @@ VJP_HALO = {"reinit": 6, "minmax": 2}
 
 
 def reinit_step_block_vjp_plain(pad, sign_pad, g_pad, dx, h, geom, *,
-                                active=None, eps_scale=1e-6, eps_floor=None,
-                                quirk_y_p5_zero=False):
-    """The plain version of :func:`reinit_step_block_vjp` (any dtype, any
-    device): the solo plain VJP on the padded block with every mask in
-    global coordinates, cropped to the owned box; the sums count the owned
-    cells."""
+                                active=None, scratch=None, eps_scale=1e-6,
+                                eps_floor=None, quirk_y_p5_zero=False):
+    """The plain version of :func:`reinit_step_block_vjp` (same arguments,
+    any dtype, any device): the solo plain VJP on the padded block with
+    every mask in global coordinates, cropped to the owned box; the sums
+    count the owned cells.  ``scratch`` is unused (the kernel's buffer
+    between its passes)."""
     check_adjoint_geom("reinit_step_block_vjp", pad.shape, geom,
                        VJP_HALO["reinit"], 3)
     sc = step_scalars(pad.dtype, dx, h, eps_scale, eps_floor)
@@ -738,7 +782,8 @@ def check_inputs(name, phi, inputs, active=None, nb=None):
     grid)."""
     if phi.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32 only, got "
-                        f"{phi.dtype} (float64 runs on the CPU)")
+                        f"{phi.dtype} (other dtypes take the plain versions: "
+                        f"weno_cuda.route)")
     if phi.dim() != 3 or min(phi.shape) < 3 or phi.numel() >= 2 ** 31:
         raise ValueError(f"{name}: unsupported grid shape {tuple(phi.shape)}")
     for t in (phi, *inputs):
@@ -816,8 +861,10 @@ def solve_buffers(phi, *, geom: Optional[BlockGeom] = None, tile_range=None,
                   packed=False) -> Optional[SolveBuffers]:
     """The buffers of a solve of ``phi`` (a (B, nx, ny, nz) batch when
     ``packed``, one shard's padded block under ``geom``); None for a CPU
-    tensor, whose steps run the plain versions."""
-    if phi.device.type != "cuda":
+    tensor or a field the kernels do not take (:func:`kernel_supported`),
+    whose steps run the plain versions."""
+    if phi.device.type != "cuda" or not kernel_supported(
+            tuple(phi.shape[-3:]), phi.dtype):
         return None
     groups = phi.shape[0] if packed else None
     n = solve_buffers_size(phi, geom=geom, tile_range=tile_range,
@@ -1067,9 +1114,8 @@ def packed_vector(h, batch, dtype, device) -> torch.Tensor:
         return h.contiguous()
     if isinstance(h, torch.Tensor):
         h = h.detach().cpu().double().numpy()
-    v = np.broadcast_to(np.asarray(h, np.float64).astype(np_dtype(dtype)),
-                        (batch,))
-    return torch.tensor(v, device=device)
+    return round_to(np.broadcast_to(np.asarray(h, np.float64), (batch,)),
+                    dtype, device)
 
 
 def live_vector(live, batch, device) -> torch.Tensor:
@@ -1122,9 +1168,9 @@ def run_packed_plain(phi, out, live, with_rms, step):
 
 def reinit_step_packed_plain(phi, sign_src, dx, h, live, *, out=None,
                              with_rms=False, eps_scale=1e-6, eps_floor=None,
-                             quirk_y_p5_zero=False):
-    """The plain version of :func:`reinit_step_packed` (any dtype, any
-    device): the solo plain step per live geometry."""
+                             quirk_y_p5_zero=False, bufs=None):
+    """The plain version of :func:`reinit_step_packed` (same arguments, any
+    dtype, any device): the solo plain step per live geometry."""
     hv = packed_vector(h, phi.shape[0], phi.dtype, "cpu").tolist()
     return run_packed_plain(phi, out, live, with_rms, lambda g, o, rms: (
         reinit_step_plain(phi[g], sign_src[g], dx, hv[g],
@@ -1217,13 +1263,14 @@ class _ReinitScanBanded(torch.autograd.Function):
         dxf, hf = float(dx), float(h)
         ctx.chunks = chunk_lengths(steps, refresh_every)
         ctx.starts = []
+        step = route(phi0, reinit_step, reinit_step_plain)
         p = phi0
         for n in ctx.chunks:
             ctx.starts.append(p)
             active = tile_activity(p, dxf, band_radius, n * hf / dxf,
                                    window="band4")
             for _ in range(n):
-                p = reinit_step(p, phi0, dxf, hf, active=active, **kw)
+                p = step(p, phi0, dxf, hf, active=active, **kw)
         ctx.save_for_backward(phi0)
         ctx.args = (dxf, hf, band_radius, kw)
         ctx.meta = (reverse.scalar_meta(dx), reverse.scalar_meta(h))
@@ -1235,16 +1282,18 @@ class _ReinitScanBanded(torch.autograd.Function):
         dxf, hf, band_radius, kw = ctx.args
         zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
         gp, cs, cdx, ch = g.contiguous(), torch.zeros_like(phi0), zero, zero
+        step = route(phi0, reinit_step, reinit_step_plain)
+        vjp = route(phi0, reinit_step_vjp_banded, reinit_step_vjp_plain)
         for p, n in zip(reversed(ctx.starts), reversed(ctx.chunks)):
             active = tile_activity(p, dxf, band_radius, n * hf / dxf,
                                    window="band4")
             traj = [p]
             for _ in range(n - 1):
-                traj.append(reinit_step(traj[-1], phi0, dxf, hf,
-                                        active=active, **kw))
+                traj.append(step(traj[-1], phi0, dxf, hf, active=active,
+                                 **kw))
             for p_in in reversed(traj):
-                gp, csi, cdxi, chi = reinit_step_vjp_banded(
-                    p_in, phi0, gp, dxf, hf, active, **kw)
+                gp, csi, cdxi, chi = vjp(p_in, phi0, gp, dxf, hf,
+                                         active=active, **kw)
                 cs, cdx, ch = cs + csi, cdx + cdxi, ch + chi
         ctx.starts = None
         # the sign source IS phi0: both cotangent paths land on it

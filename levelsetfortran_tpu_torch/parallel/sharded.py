@@ -22,8 +22,10 @@ Three families of steps:
   persistently padded blocks: one block-mode launch of K1 or K3 per shard
   (:func:`~..ops.weno_cuda.reinit_step_block`,
   :func:`~..ops.minmax_cuda.minmax_step_block`; on CPU tensors their plain
-  versions).  :class:`ShardedLevelSet` runs these and nothing else: there
-  is no second route to fall back to;
+  versions; bfloat16 and float64 blocks run the plain versions on every
+  device, the route the JAX package takes by dtype).
+  :class:`ShardedLevelSet` runs these and nothing else: there is no second
+  route to fall back to;
 * the differentiable fixed-step solvers :func:`reinit_fixed_sharded` (dense
   and banded) and :func:`minmax_fixed_sharded`: K1/K3 block mode forward,
   the block modes of the adjoint kernels K5/K6 backward, in gather form
@@ -83,6 +85,14 @@ def _each(fn, *lists) -> list:
     """``fn`` over the shards of this process: ``lists`` side by side in
     shard order, None where the first holds another rank's (None) block."""
     return [None if args[0] is None else fn(*args) for args in zip(*lists)]
+
+
+def _route(blocks, kernel, plain):
+    """The block step of this field's dtype (:func:`~..ops.weno_cuda.route`
+    of one of this rank's blocks): the block-mode wrapper for float32, its
+    plain version for bfloat16 and float64, on every device."""
+    mine = next((b for b in blocks if b is not None), None)
+    return kernel if mine is None else weno_cuda.route(mine, kernel, plain)
 
 
 # ----------------------- global-coordinate masks -----------------------
@@ -253,9 +263,11 @@ def reinit_k_steps_persistent(pads, outs, sign_pads, dx, h, k, *, geoms,
             p, dx, band_radius, k * h / dx, window="band4", geom=g),
             pads, geoms)
     dsqs = None
+    step = _route(pads, weno_cuda.reinit_step_block,
+                  weno_cuda.reinit_step_block_plain)
     for i in range(int(k)):
         rms = with_rms and i == int(k) - 1
-        res = _each(lambda p, o, s, g, a: weno_cuda.reinit_step_block(
+        res = _each(lambda p, o, s, g, a: step(
             p, s, dx, h, g, active=a, out=o, with_rms=rms, **kw),
             pads, outs, sign_pads, geoms, actives)
         if rms:
@@ -337,10 +349,12 @@ def reinit_step_overlap_persistent(pads, outs, sign_pads, dx, h, *, geoms,
     computed twice.  Same returns as :func:`reinit_k_steps_persistent`."""
     shards = list(zip(pads, outs, sign_pads, geoms, ranges))
     parts = [[] for _ in shards]
+    step = _route(pads, weno_cuda.reinit_step_block,
+                  weno_cuda.reinit_step_block_plain)
 
     def launch(n, p, o, s, g, tile_range):
-        r = weno_cuda.reinit_step_block(p, s, dx, h, g, tile_range=tile_range,
-                                        out=o, with_rms=with_rms, **kw)
+        r = step(p, s, dx, h, g, tile_range=tile_range, out=o,
+                 with_rms=with_rms, **kw)
         if with_rms:
             parts[n].append(r[1])
 
@@ -378,7 +392,9 @@ def minmax_step_persistent(pads, outs, dx, h1, band_radius, threshold, *,
     :func:`reinit_k_steps_persistent`."""
     refresh_halos(pads, widths, mesh)
     actives = actives or [None] * len(pads)
-    res = _each(lambda p, o, g, a: minmax_cuda.minmax_step_block(
+    step = _route(pads, minmax_cuda.minmax_step_block,
+                  minmax_cuda.minmax_step_block_plain)
+    res = _each(lambda p, o, g, a: step(
         p, dx, h1, g, band_radius, threshold, active=a, out=o,
         with_rms=with_rms), pads, outs, geoms, actives)
     dsqs = [None if r is None else r[1] for r in res] if with_rms else None
@@ -412,7 +428,8 @@ class ShardedLevelSet:
     ``band_radius`` cells from the interface (reinit: mask per exchange;
     min/max: one solve-long mask); ``overlap`` (k = 1, dense) runs the
     exchange beside the interior launch.  Every block step is the K1/K3
-    block-mode kernel on CUDA blocks and its plain version on CPU blocks.
+    block-mode kernel on float32 CUDA blocks and its plain version on CPU
+    blocks and on bfloat16 or float64 blocks anywhere.
     ``metrics_every``: one metrics event per check for the whole mesh
     (``"reinit"`` / ``"minmax"``) when the iteration count is a multiple.
     On a mesh across processes the lists hold this rank's blocks (None for
@@ -588,9 +605,10 @@ def _shard_order_sum(parts, mesh: ShardMesh) -> torch.Tensor:
 def _scratch_for(cache, pad):
     """K5's pad.shape scratch (one float per cell between its passes), one
     per device and shape for a whole backward sweep (the launches on one
-    card run in order on its stream); None on the CPU, whose plain version
-    needs none."""
-    if pad.device.type != "cuda":
+    card run in order on its stream); None on the CPU and for a dtype the
+    kernel does not take, whose plain version needs none."""
+    if pad.device.type != "cuda" or not weno_cuda.kernel_supported(
+            tuple(pad.shape), pad.dtype):
         return None
     key = (pad.device, tuple(pad.shape))
     if key not in cache:
@@ -637,11 +655,12 @@ class _ReinitFixedSharded(torch.autograd.Function):
         wf = sharded_widths(mesh, HALO)
         geoms = reinit_geoms(mesh, gshape, wf)
         spads = halo_exchange(blocks, wf, mesh)
+        step = _route(blocks, weno_cuda.reinit_step_block,
+                      weno_cuda.reinit_step_block_plain)
 
         def fstep(p, actives=(None,) * len(geoms)):
             return _each(lambda pad, sp, g, a: crop(
-                weno_cuda.reinit_step_block(pad, sp, dxf, hf, g, active=a,
-                                            **kw), wf).contiguous(),
+                step(pad, sp, dxf, hf, g, active=a, **kw), wf).contiguous(),
                 halo_exchange(p, wf, mesh), spads, geoms, actives)
 
         def masks(p, n):
@@ -675,6 +694,8 @@ class _ReinitFixedSharded(torch.autograd.Function):
         geoms = reinit_geoms(mesh, gshape, wb)
         spads = halo_exchange(blocks, wb, mesh)
         scratch = {}
+        vjp = _route(blocks, weno_cuda.reinit_step_block_vjp,
+                     weno_cuda.reinit_step_block_vjp_plain)
 
         def bstep(carry, p_in, actives=(None,) * len(geoms)):
             gp, cs, cdx, ch = carry
@@ -686,7 +707,7 @@ class _ReinitFixedSharded(torch.autograd.Function):
                     for acc in out:
                         acc.append(None)
                     continue
-                cp, csi, cdxi, chi = weno_cuda.reinit_step_block_vjp(
+                cp, csi, cdxi, chi = vjp(
                     pad, sp, gpad, dxf, hf, g, active=a,
                     scratch=_scratch_for(scratch, pad), **kw)
                 for acc, v in zip(out, (cp, cs[i] + csi, cdx[i] + cdxi,
@@ -770,9 +791,11 @@ class _MinmaxFixedSharded(torch.autograd.Function):
         args = (float(dx), float(h1), float(band_radius), float(threshold))
         wf = sharded_widths(mesh, 1)
         geoms = minmax_geoms(mesh, gshape, wf)
+        step = _route(blocks, minmax_cuda.minmax_step_block,
+                      minmax_cuda.minmax_step_block_plain)
 
         def fstep(p):
-            return _each(lambda pad, g: crop(minmax_cuda.minmax_step_block(
+            return _each(lambda pad, g: crop(step(
                 pad, args[0], args[1], g, *args[2:]), wf).contiguous(),
                 halo_exchange(p, wf, mesh), geoms)
 
@@ -792,6 +815,8 @@ class _MinmaxFixedSharded(torch.autograd.Function):
         geoms = minmax_geoms(mesh, gshape, wb)
 
         bufs = []                     # per shard, made at the first step
+        vjp = _route(blocks, minmax_cuda.minmax_step_block_vjp,
+                     minmax_cuda.minmax_step_block_vjp_plain)
 
         def bstep(gp, p_in):
             pads = halo_exchange(p_in, wb, mesh)
@@ -799,8 +824,7 @@ class _MinmaxFixedSharded(torch.autograd.Function):
                 bufs.extend(_each(lambda pad, g: minmax_cuda.VjpBuffers(
                     pad, *args, geom=g, name="minmax_step_block_vjp"),
                     pads, geoms))
-            return _each(lambda pad, gpad, g, b:
-                         minmax_cuda.minmax_step_block_vjp(
+            return _each(lambda pad, gpad, g, b: vjp(
                              pad, gpad, args[0], args[1], g, *args[2:],
                              bufs=b)[0],
                          pads, halo_exchange(gp, wb, mesh), geoms, bufs)

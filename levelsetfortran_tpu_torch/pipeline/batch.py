@@ -10,17 +10,20 @@ below the tolerance, or is NaN, is frozen — its field and its count stop —
 while the others go on, so each trajectory equals a solo run's.
 
 Strategies (``run_batch``):
-  * ``packed`` (and ``auto``, which means it): one launch per step for the
-    whole batch, of the pack modes of kernels K1 and K3
-    (:func:`..ops.weno_cuda.reinit_step_packed`,
+  * ``packed``: one launch per step for the whole batch, of the pack
+    modes of kernels K1 and K3 (:func:`..ops.weno_cuda.reinit_step_packed`,
     :func:`..ops.minmax_cuda.minmax_step_packed`); the (B,) RMS vector is
     read to the host once per step.  Fields and counts equal the solo
     dense solvers' bitwise.  On the CPU the pack modes run their plain
-    versions, in any dtype; on the card they take float32 grids of at
-    least 3 points per axis and raise on anything else.  A min/max average
-    half-width other than 1, which no kernel takes, runs the solo
-    :func:`..solvers.minmax_flow.minmax_flow` per geometry.
+    versions; on the card float32 grids launch them (an axis under 3
+    points raises), bfloat16 and float64 run the plain versions there.  A
+    min/max average half-width other than 1, which no kernel takes, runs
+    the solo :func:`..solvers.minmax_flow.minmax_flow` per geometry.
   * ``sequential``: the solo dense solvers per geometry.
+  * ``auto``: ``packed`` where the pack kernels take the batch's dtype
+    (float32: :func:`..ops.weno_cuda.kernel_supported`, the JAX package's
+    ``packed_applicable``), else ``sequential``, as the JAX package's auto
+    strategy picks (``batch.py:370-385``; it has no vmap strategy here).
 There is no final reinit, as in the JAX package's batch pipeline.
 
 Data parallelism (``run_batch(data_parallel=...)``, the CLI's
@@ -52,7 +55,8 @@ from ..io.stl import SurfaceMesh, read_stl
 from ..io.vti import write_vti
 from ..ops import minmax_cuda, weno_cuda
 from ..ops.init_sign import initialize_sign_field, signed_distance_init
-from ..ops.weno_cuda import np_dtype, packed_vector
+from ..ops.weno_cuda import (kernel_supported, packed_vector, round_to,
+                              route)
 from ..parallel.mesh import default_devices
 from ..solvers.advect import advect_nodes
 from ..solvers.minmax_flow import minmax_flow
@@ -129,9 +133,11 @@ def _reinit_packed_step(phi0, dx, h, *, eps_scale=1e-6, eps_floor=None,
                         quirk_y_p5_zero=False):
     hv = packed_vector(h, phi0.shape[0], phi0.dtype, phi0.device)
     sums = weno_cuda.solve_buffers(phi0, packed=True)
+    packed = route(phi0, weno_cuda.reinit_step_packed,
+                   weno_cuda.reinit_step_packed_plain)
 
     def step(p, out, live):
-        return weno_cuda.reinit_step_packed(
+        return packed(
             p, phi0, dx, hv, live, out=out, with_rms=True,
             eps_scale=eps_scale, eps_floor=eps_floor,
             quirk_y_p5_zero=quirk_y_p5_zero, bufs=sums)
@@ -142,9 +148,11 @@ def _reinit_packed_step(phi0, dx, h, *, eps_scale=1e-6, eps_floor=None,
 def _minmax_packed_step(phi0, dx, h1, *, band_radius=4.1, threshold=0.0):
     hv = packed_vector(h1, phi0.shape[0], phi0.dtype, phi0.device)
     sums = weno_cuda.solve_buffers(phi0, packed=True)
+    packed = route(phi0, minmax_cuda.minmax_step_packed,
+                   minmax_cuda.minmax_step_packed_plain)
 
     def step(p, out, live):
-        return minmax_cuda.minmax_step_packed(
+        return packed(
             p, dx, hv, live, band_radius, threshold, out=out, with_rms=True,
             bufs=sums)
 
@@ -207,11 +215,11 @@ class BatchItem:
 def step_sizes(meshes: Sequence[SurfaceMesh], cfg: LevelSetConfig) -> tuple:
     """Each geometry's (reinit h, min/max h1), as the JAX package forms
     them (``batch.py:365-366``): the cfl times ``dx / diag`` of its own
-    surface, in ``cfg.dtype`` arrays."""
-    t = np_dtype(cfg.dtype)
-    dxx = np.asarray([cfg.dx / gridmod.surface_diag(m.vertices)
-                      for m in meshes], t)
-    return t(cfg.reinit_cfl) * dxx, t(cfg.minmax_cfl) * dxx
+    surface, in ``cfg.dtype`` (CPU tensors)."""
+    dxx = round_to([cfg.dx / gridmod.surface_diag(m.vertices)
+                    for m in meshes], cfg.dtype)
+    return (round_to(cfg.reinit_cfl, cfg.dtype) * dxx,
+            round_to(cfg.minmax_cfl, cfg.dtype) * dxx)
 
 
 def _load(m: MeshLike) -> tuple:
@@ -304,7 +312,11 @@ def run_batch(inputs: Sequence[MeshLike],
     timer.mark("search")
 
     h_r, h_m = step_sizes(meshes, cfg)
-    strategy = "packed" if strategy == "auto" else strategy
+    if strategy == "auto":
+        # the pack kernels take a batch exactly where the solo kernels
+        # take its grids (the JAX package's packed_applicable)
+        strategy = ("packed" if kernel_supported(shape, dtype)
+                    else "sequential")
     log_event("batch_strategy", strategy=strategy)
 
     rkw = dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,

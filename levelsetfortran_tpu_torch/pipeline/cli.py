@@ -88,9 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated reference-as-written quirk flags "
                         "(weno_y_p5_zero,deriv8_y_jp1,deriv1_plus_sign) "
                         "or 'all'")
-    p.add_argument("--dtype", choices=["float32", "float64"],
+    p.add_argument("--dtype", choices=["float32", "float64", "bfloat16"],
                    default="float32",
-                   help="float64 runs on the CPU only (--device cpu)")
+                   help="float32 runs the CUDA kernels; float64 and bfloat16 "
+                        "run their plain PyTorch versions on --device")
     p.add_argument("--device", default=d.device,
                    help="'cuda' (the CUDA kernels; the default, with no "
                         "fallback) or 'cpu' (their plain PyTorch versions)")
@@ -161,7 +162,7 @@ def config_from_args(args) -> LevelSetConfig:
         metrics_every=args.metrics_every,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_chunk=args.checkpoint_chunk,
-        dtype={"float32": torch.float32, "float64": torch.float64}[args.dtype],
+        dtype=getattr(torch, args.dtype),
         device=args.device,
         quirks=QuirkConfig(**{q: True for q in qnames}))
 

@@ -4,12 +4,16 @@
 RHS and whole-grid RMS steady-state detection.  Steps are kernels K3/K4
 (:mod:`..ops.minmax_cuda`) on a CUDA tensor and their plain versions on a
 CPU tensor.  :func:`minmax_flow_fixed` is the differentiable fixed-step
-solve, with kernel K6 in its backward.
+solve, with kernel K6 in its backward.  bfloat16 and float64 fields run
+the kernels' plain versions, on the device they lie on
+(:func:`..ops.weno_cuda.route`, the dtype term of
+``minmax_pallas_applicable``).
 
 The options ``avg_halfwidth`` other than 1 and ``use_true_curvature`` have
 no kernel, in the JAX package neither (``minmax_pallas_applicable``): they
 take the whole-grid :func:`minmax_step` in plain tensor ops, on the card as
-on the CPU.  The route follows from the options alone.
+on the CPU.  The route follows from the options and the dtype, never
+from a failure.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from ..ops.band import narrow_band
 from ..ops.minmax import minmax_rhs
 from ..ops.stencil import interior_mask
 from ..ops.reverse import remat_scan
-from ..ops.weno_cuda import solve_buffers, tile_activity
+from ..ops.weno_cuda import route, solve_buffers, tile_activity
 from ..utils.metrics import emit_iteration
 from .reinit import rms_denominator
 
@@ -36,9 +40,11 @@ class MinMaxResult(NamedTuple):
     diverged: bool
 
 
-def kernel_route(avg_halfwidth=1, use_true_curvature=False) -> bool:
-    """Whether the min/max solvers step with kernels K3/K4/K6: the default
-    options only (``minmax_pallas_applicable`` of the JAX package)."""
+def kernel_form(avg_halfwidth=1, use_true_curvature=False) -> bool:
+    """Whether the min/max solvers take the kernels' step, K3/K4/K6 or
+    their plain versions (the options' term of
+    ``minmax_pallas_applicable``): the default options only.  Which of the
+    two follows from the field's dtype (:func:`..ops.weno_cuda.route`)."""
     return avg_halfwidth == 1 and not use_true_curvature
 
 
@@ -61,14 +67,16 @@ def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
     kernel K3; the others have no kernel (as in the JAX package) and run
     :func:`minmax_step`."""
     denom = rms_denominator(phi0.shape)
-    fused = kernel_route(avg_halfwidth, use_true_curvature)
+    fused = kernel_form(avg_halfwidth, use_true_curvature)
     if fused:
+        step = route(phi0, minmax_cuda.minmax_step,
+                     minmax_cuda.minmax_step_plain)
         bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
         sums = solve_buffers(phi0)
     p, n, rms = phi0, 0, math.inf
     while n < iters:
         if fused:
-            new, dsq = minmax_cuda.minmax_step(
+            new, dsq = step(
                 p, dx, h1, band_radius, threshold, out=bufs[n % 2],
                 with_rms=True, bufs=sums)
         else:
@@ -111,14 +119,15 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     if iters <= 0:
         return MinMaxResult(phi0, 0, math.inf, False)
     args = (dx, h1, band_radius, threshold)
+    fusedk = route(phi0, minmax_cuda.minmax_fusedk,
+                   minmax_cuda.minmax_fusedk_plain)
     p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
     n, dsq, done = 0, None, False
     while not done and n + chunk_steps <= iters:
         active = tile_activity(p, dx, band_radius, window="owned")
         for c in range(calls):
-            r = minmax_cuda.minmax_fusedk(p, *args, ksteps=K, active=active,
-                                          out=q, mint=c == 0,
-                                          with_rms=c == calls - 1)
+            r = fusedk(p, *args, ksteps=K, active=active, out=q,
+                       mint=c == 0, with_rms=c == calls - 1)
             p, q = q, p
         n += chunk_steps
         dsq = r[1]
@@ -130,9 +139,11 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     if rem:
         active = tile_activity(p, dx, band_radius, window="owned")
         sums = solve_buffers(p)
+        step = route(p, minmax_cuda.minmax_step,
+                     minmax_cuda.minmax_step_plain)
         for _ in range(rem):
-            _, dsq = minmax_cuda.minmax_step(p, *args, active=active, out=q,
-                                             with_rms=True, bufs=sums)
+            _, dsq = step(p, *args, active=active, out=q, with_rms=True,
+                          bufs=sums)
             p, q = q, p
     n += rem
     rms = math.inf if dsq is None else math.sqrt(dsq.item() / denom)
@@ -147,8 +158,10 @@ class _MinmaxFixed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, phi0, dx, h1, band_radius, threshold, steps):
         args = (float(dx), float(h1), float(band_radius), float(threshold))
-        p, ctx.traj = reverse.run_forward(
-            lambda q: minmax_cuda.minmax_step(q, *args), phi0, steps)
+        step = route(phi0, minmax_cuda.minmax_step,
+                     minmax_cuda.minmax_step_plain)
+        p, ctx.traj = reverse.run_forward(lambda q: step(q, *args), phi0,
+                                          steps)
         ctx.save_for_backward(phi0)
         ctx.args = (args, steps)
         ctx.meta = tuple(reverse.scalar_meta(x)
@@ -160,13 +173,18 @@ class _MinmaxFixed(torch.autograd.Function):
         phi0, = ctx.saved_tensors
         args, steps = ctx.args
 
+        step = route(phi0, minmax_cuda.minmax_step,
+                     minmax_cuda.minmax_step_plain)
+        vjp = route(phi0, minmax_cuda.minmax_step_vjp,
+                    minmax_cuda.minmax_step_vjp_plain)
+
         def fstep(p):
-            return minmax_cuda.minmax_step(p, *args)
+            return step(p, *args)
 
         bufs = minmax_cuda.VjpBuffers(phi0, *args)
 
         def bstep(gp, p_in):
-            return minmax_cuda.minmax_step_vjp(p_in, gp, *args, bufs=bufs)[0]
+            return vjp(p_in, gp, *args, bufs=bufs)[0]
 
         zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
         gp = reverse.run_reverse("minmax_flow_fixed", fstep, bstep, phi0,
@@ -187,12 +205,13 @@ def minmax_flow_fixed(phi0, dx, h1, steps: int, *, band_radius=4.1,
     ``phi0`` and (as 0-d tensors) ``dx``, ``h1``, ``band_radius`` and
     ``threshold`` — the port of ``solvers/minmax_flow.py:minmax_flow_fixed``.
     Default options: its fused-kernel route, kernel K3 per step forward and
-    kernel K6 per step backward.  Other options: its jnp route, the plain
-    :func:`minmax_step` under autograd, each step checkpointed
-    (:func:`~..ops.reverse.remat_scan`), so the backward keeps one field per
-    step; ``band_radius`` and ``threshold`` enter through comparisons only
-    and get no gradient there."""
-    if kernel_route(avg_halfwidth, use_true_curvature):
+    kernel K6 per step backward (their plain versions on a CPU tensor, and
+    for bfloat16 and float64 on any device).  Other options: its jnp
+    route, the plain :func:`minmax_step` under autograd, each step
+    checkpointed (:func:`~..ops.reverse.remat_scan`), so the backward keeps
+    one field per step; ``band_radius`` and ``threshold`` enter through
+    comparisons only and get no gradient there."""
+    if kernel_form(avg_halfwidth, use_true_curvature):
         return _MinmaxFixed.apply(phi0, dx, h1, band_radius, threshold,
                                   int(steps))
     return remat_scan(lambda p: minmax_step(

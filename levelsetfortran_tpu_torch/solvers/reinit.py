@@ -6,8 +6,12 @@ Jacobi steps, interior-only update, ghost-extrapolation BC, RMS over the
 reference's ``(nx-1)(ny-1)(nz-1)`` denominator, early exit below ``tol``
 and a NaN flag.  Each step is kernel K1 (:mod:`..ops.weno_cuda`) on a CUDA
 tensor and its plain version on a CPU tensor; the loops are Python loops
-that read the RMS scalar to the host once per check.  :func:`reinit_fixed`
-is the differentiable fixed-step solve, with kernel K5 in its backward.
+that read the RMS scalar to the host once per check.  The route follows
+the field's dtype, as the JAX package's ``_use_pallas``: float32 takes
+the kernels, bfloat16 and float64 the kernels' plain versions
+(:func:`..ops.weno_cuda.route`) on the device the field lies on.
+:func:`reinit_fixed` is the differentiable fixed-step solve, with kernel
+K5 in its backward.
 
 A ``grad_fn`` (a callable phi -> |grad phi| in place of the WENO5/Godunov
 operator) has no kernel, in the JAX package neither (``_use_pallas``): the
@@ -55,6 +59,13 @@ def reinit_step(phi, phi_sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
     return boundary_extrapolate(phi, dx)
 
 
+def _step(phi):
+    """Kernel K1's wrapper, or its plain version where the kernel does not
+    take ``phi``'s dtype (``_use_pallas`` of the JAX package)."""
+    return weno_cuda.route(phi, weno_cuda.reinit_step,
+                           weno_cuda.reinit_step_plain)
+
+
 def rms_denominator(shape) -> int:
     """The reference's nx*ny*nz, i.e. points-1 per axis (subs.f90:914)."""
     return (shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
@@ -65,16 +76,18 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
            metrics_every: int = 0) -> ReinitResult:
     """Up to ``iters`` dense steps, stopping at RMS < tol or NaN; a
     ``"reinit"`` metrics event every ``metrics_every`` steps.  Kernel K1
-    per step, or with ``grad_fn`` the plain :func:`reinit_step`."""
+    per step (its plain version off float32), or with ``grad_fn`` the
+    plain :func:`reinit_step`."""
     sign = phi0 if sign_src is None else sign_src
     denom = rms_denominator(phi0.shape)
     if grad_fn is None:
+        step = _step(phi0)
         bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
         sums = weno_cuda.solve_buffers(phi0)
     p, n, rms = phi0, 0, math.inf
     while n < iters:
         if grad_fn is None:
-            p, dsq = weno_cuda.reinit_step(
+            p, dsq = step(
                 p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
                 quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2],
                 with_rms=True, bufs=sums)
@@ -121,15 +134,15 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
               quirk_y_p5_zero=quirk_y_p5_zero,
               bufs=weno_cuda.solve_buffers(phi0))
+    step = _step(phi0)
     p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
     n, rms = 0, math.inf
     while n < iters:
         active = weno_cuda.tile_activity(p, dx, band_radius, margin,
                                          window="band4")
         for s in range(chunk):
-            r = weno_cuda.reinit_step(p, sign, dx, h, active=active, out=q,
-                                      mint=s == 0,
-                                      with_rms=s == chunk - 1, **kw)
+            r = step(p, sign, dx, h, active=active, out=q, mint=s == 0,
+                     with_rms=s == chunk - 1, **kw)
             p, q = q, p
         n += chunk
         rms = math.sqrt(r[1].item() / denom)
@@ -149,9 +162,9 @@ class _ReinitFixed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, phi0, dx, h, steps, kw):
         dxf, hf = float(dx), float(h)
+        step = _step(phi0)
         p, ctx.traj = reverse.run_forward(
-            lambda q: weno_cuda.reinit_step(q, phi0, dxf, hf, **kw), phi0,
-            steps)
+            lambda q: step(q, phi0, dxf, hf, **kw), phi0, steps)
         ctx.save_for_backward(phi0)
         ctx.args = (dxf, hf, steps, kw)
         ctx.meta = (reverse.scalar_meta(dx), reverse.scalar_meta(h))
@@ -162,13 +175,16 @@ class _ReinitFixed(torch.autograd.Function):
         phi0, = ctx.saved_tensors
         dxf, hf, steps, kw = ctx.args
 
+        step = _step(phi0)
+        vjp = weno_cuda.route(phi0, weno_cuda.reinit_step_vjp,
+                              weno_cuda.reinit_step_vjp_plain)
+
         def fstep(p):
-            return weno_cuda.reinit_step(p, phi0, dxf, hf, **kw)
+            return step(p, phi0, dxf, hf, **kw)
 
         def bstep(carry, p_in):
             gp, cs, cdx, ch = carry
-            cp, csi, cdxi, chi = weno_cuda.reinit_step_vjp(
-                p_in, phi0, gp, dxf, hf, **kw)
+            cp, csi, cdxi, chi = vjp(p_in, phi0, gp, dxf, hf, **kw)
             return cp, cs + csi, cdx + cdxi, ch + chi
 
         zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
@@ -187,7 +203,8 @@ def reinit_fixed(phi0, dx, h, steps: int, *, eps_scale=1e-6, eps_floor=None,
     ``phi0`` and (as 0-d tensors) ``dx`` and ``h`` — the port of
     ``solvers/reinit.py:reinit_fixed``.  Without ``grad_fn``: its
     fused-kernel route, kernel K1 per step forward and kernel K5 per step
-    backward (their plain versions on a CPU tensor).  With ``grad_fn``: its
+    backward (their plain versions on a CPU tensor, and for bfloat16 and
+    float64 on any device).  With ``grad_fn``: its
     jnp route, the plain :func:`reinit_step` under autograd with the sign
     source ``phi0`` in the graph, each step checkpointed
     (:func:`~..ops.reverse.remat_scan`)."""

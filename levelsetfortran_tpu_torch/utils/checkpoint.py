@@ -13,7 +13,11 @@ and a ``meta.json``:
   a process killed mid-save leaves the previous checkpoint usable;
   ``latest_step`` and ``restore`` see only complete step directories;
 * ``restore(like=...)`` loads each block onto the device of ``like``'s
-  block, in its dtype; without ``like`` tensors come back on the CPU.
+  block, in its dtype; without ``like`` tensors come back on the CPU;
+* ``save`` takes tensors or host arrays (:func:`as_tensor`), a bfloat16
+  state of the JAX package included: ``np.asarray`` of a JAX bfloat16
+  array is an ``ml_dtypes`` array, carried across through its 16-bit
+  pattern, so nothing here imports ``ml_dtypes``.
 
 Under a process group (:mod:`..parallel.distributed`; the directory one
 that every rank sees) the checkpointer is collective, as orbax is: every
@@ -50,6 +54,18 @@ _META = "meta.json"
 
 def _is_step(name: str) -> bool:
     return name.isdigit()
+
+
+def as_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, a host array (numpy, or what
+    ``np.asarray`` makes of a JAX array) copied bit for bit; a bfloat16
+    array through a 16-bit integer view of its bits."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.ascontiguousarray(np.asarray(x))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 class FieldCheckpointer:
@@ -91,9 +107,10 @@ class FieldCheckpointer:
 
     def save(self, step: int, phi, extra: Optional[dict] = None,
              *, wait: bool = False) -> bool:
-        """Write ``phi`` (a tensor or a list of block tensors) and
-        ``extra`` as step ``step``; False when the policy skips the step.
-        Saves are synchronous, so ``wait`` has nothing to wait for."""
+        """Write ``phi`` (a tensor or a list of block tensors; host arrays
+        go through :func:`as_tensor`) and ``extra`` as step ``step``; False
+        when the policy skips the step.  Saves are synchronous, so ``wait``
+        has nothing to wait for."""
         step = int(step)
         latest = self.latest_step()
         if latest is not None and latest >= step:
@@ -115,12 +132,12 @@ class FieldCheckpointer:
         try:
             if blocks is None:
                 if is_primary():
-                    torch.save(phi.detach().cpu(),
+                    torch.save(as_tensor(phi).detach().cpu(),
                                os.path.join(tmp, "phi.pt"))
             else:
                 for i, b in enumerate(blocks):
                     if b is not None:
-                        torch.save(b.detach().cpu(),
+                        torch.save(as_tensor(b).detach().cpu(),
                                    os.path.join(tmp, f"phi.{i}.pt"))
             if group:
                 dist.barrier()
@@ -204,8 +221,9 @@ def save_stage_field(path: str, phi, grid=None) -> None:
     reference's ``.vti`` dumps), while :class:`FieldCheckpointer` owns the
     resume state: ``.npy`` without a grid, else ``.vti``."""
     from ..io.vti import write_vti
-    host = (phi.detach().cpu().numpy() if isinstance(phi, torch.Tensor)
-            else np.asarray(phi))
+    t = as_tensor(phi).detach().cpu()
+    # numpy has no bfloat16: its values go out as float32, exactly
+    host = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     if grid is None:
         np.save(path, host)
     else:

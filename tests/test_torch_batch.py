@@ -297,17 +297,22 @@ def test_pack_modes_raise_off_the_cpu(case):
 
 
 def test_default_device_is_cuda_with_no_fallback():
-    """The default asks for the card; without one, every entry point
-    raises instead of running on the CPU."""
+    """The default asks for the card, in every dtype; without one, every
+    entry point raises instead of running on the CPU, for float64 and
+    bfloat16 as for float32."""
     cfg = LevelSetConfig(**BASE)
     assert cfg.device == "cuda" == cli.build_parser().parse_args(
         ["a.stl"]).device
     assert cfg.replace(device="cpu").torch_device() == torch.device("cpu")
-    with pytest.raises(ValueError, match="pass device='cpu'"):
-        cfg.replace(dtype=torch.float64).torch_device()
     if torch.cuda.is_available():
+        for dtype in (torch.float64, torch.bfloat16):
+            assert cfg.replace(dtype=dtype).torch_device().type == "cuda"
         pytest.skip("a CUDA device is present: nothing falls back here")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_mesh(_meshes(analytic)[0], cfg)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_batch(_meshes(analytic), cfg)
+    for c in (cfg, cfg.replace(dtype=torch.float64),
+              cfg.replace(dtype=torch.bfloat16)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            c.torch_device()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_mesh(_meshes(analytic)[0], c)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_batch(_meshes(analytic), c)

@@ -68,8 +68,9 @@ TIMEOUT_S = 240
 GSHAPE = (32, 16, 16)
 
 #: run_mesh configurations: (mesh shape, config keywords).  The float32
-#: runs take the default routing (narrow band, stop tests on), the float64
-#: run the JAX comparison's configuration (its run_mesh takes every one of
+#: runs take the default routing (narrow band, stop tests on), bfloat16
+#: the dense plain route with the stop tests on, the float64 run the JAX
+#: comparison's configuration (its run_mesh takes every one of
 #: the 8 virtual devices, so (2, 2, 2)); "dense" is the checkpointed runs'
 #: plain twin (dense solvers, so chunks change nothing, and a reinit that
 #: converges after 8 steps).
@@ -85,6 +86,8 @@ RUNS = {
                                 final_reinit_iters=4, narrow_band="off",
                                 dtype=torch.float64)),
     "dense-221": ((2, 2, 1), dict(BASE, narrow_band="off", reinit_tol=2e-4)),
+    # bfloat16 slabs between the ranks (the plain route, dense solvers)
+    "bf16-221": ((2, 2, 1), dict(BASE, dtype=torch.bfloat16)),
 }
 CK_CHUNK = 3
 MESHES = ((2, 2, 1), (4, 1, 1))

@@ -96,17 +96,21 @@ def test_carries_the_sharding_fields_across(field):
 
 @pytest.mark.parametrize("field", [
     dict(checkpoint_dir="/nonexistent"), dict(init_mode="reference"),
-    dict(metrics_every=5), dict(checkpoint_chunk=7)])
+    dict(metrics_every=5), dict(checkpoint_chunk=7),
+    dict(dtype=jnp.bfloat16)])
 def test_carries_the_operations_fields_across(field):
     cfg = LevelSetConfig.from_reference_fields(
         dataclasses.asdict(JaxConfig(**field)))
-    (name, value), = field.items()
+    # a dtype maps by name (jnp.bfloat16 -> torch.bfloat16)
+    ours = {k: getattr(torch, jnp.dtype(v).name) if k == "dtype" else v
+            for k, v in field.items()}
+    (name, value), = ours.items()
     assert getattr(cfg, name) == value
-    assert cfg == LevelSetConfig(**field)
+    assert cfg == LevelSetConfig(**ours)
 
 
 @pytest.mark.parametrize("field", [
-    dict(dtype=jnp.bfloat16), dict(halo_width=2), dict(sign_eps=1e-9)])
+    dict(halo_width=2), dict(sign_eps=1e-9)])
 def test_raises_on_fields_the_port_lacks(field):
     with pytest.raises(ValueError):
         LevelSetConfig.from_reference_fields(

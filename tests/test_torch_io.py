@@ -54,6 +54,91 @@ def test_stl_round_trips_both_ways(name, tmp_path):
     _same_mesh(tstl.read_stl(str(tmp_path / "port.stl")), mesh)
 
 
+def _signed_zero_stl(path):
+    """A binary STL of the octahedron whose odd triangles write their zero
+    coordinates as -0.0, as CAD exporters often do."""
+    v = 0.7 * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                        [0, 0, 1], [0, 0, -1]], np.float32)
+    f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]])
+    tri = v[f]
+    odd = tri[1::2]
+    odd[odd == 0] = -0.0
+    tri[1::2] = odd
+    rec = np.zeros((len(f), 50), np.uint8)
+    rec[:, 12:48] = tri.reshape(len(f), 9).astype("<f4").view(
+        np.uint8).reshape(len(f), 36)
+    path.write_bytes(b" " * 80 + np.int32(len(f)).astype("<i4").tobytes()
+                     + rec.tobytes())
+
+
+def _noisy_rows():
+    """The triangle rows of an icosphere of 81,920 triangles (245,760 rows)
+    with CAD-like noise: one zero coordinate set to 1e-8, and a chain of
+    rows 1e-8 apart by an ulp or two (within the tolerance of their
+    neighbours, not of each other) and rows beside 2^-19."""
+    rows = tan.icosphere_mesh(subdivisions=6).vertices[
+        tan.icosphere_mesh(subdivisions=6).elements].reshape(-1, 3).astype(
+        np.float32)
+    at = np.flatnonzero(rows[:, 0] == 0)[0]
+    rows[at, 0] = 1e-8
+    e = np.float32(1e-8)
+    chain = [e, np.nextafter(e, np.float32(1)), e,
+             np.float32(e + 120 * np.spacing(e)),
+             np.float32(e + 60 * np.spacing(e))]
+    edge = [np.float32(2.0 ** -19), np.float32(2.0 ** -19 - 2.0 ** -43),
+            np.float32(-(2.0 ** -19)), np.float32(2.0 ** -19)]
+    extra = np.array([[c, 0.5, 0.25] for c in chain + edge], np.float32)
+    return np.concatenate([rows[:1000], extra, rows[1000:], extra])
+
+
+@pytest.mark.parametrize("case", ["rows", "tiny", "stl", "noisy"])
+def test_dedup_merges_signed_zeros_as_the_native_hash(case, tmp_path,
+                                                      monkeypatch):
+    """Vertices equal within the reference's 1e-13 per coordinate are one
+    node, as in the JAX package's native hash (``stl_dedup.cpp:69-71``):
+    -0.0 merges with +0.0, the first occurrence keeping its bits ("rows";
+    ROADMAP H22), tiny nonzero coordinates merge too ("tiny", the hash's
+    own loop), an STL with signed zeros reads to the same mesh in both
+    packages ("stl"), and a large mesh with a few noisy coordinates
+    ("noisy") sends only the rows beside them through the loop (at most
+    32 of 245,778; measured 17)."""
+    from levelsetfortran_tpu import native
+    if native.get_lib() is None:
+        pytest.skip("the JAX package's native library cannot be built")
+    if case == "noisy":
+        rows = _noisy_rows()
+        looped = []
+        real = tstl._dedup_tolerance
+        monkeypatch.setattr(tstl, "_dedup_tolerance", lambda r: (
+            looped.append(len(r)) or real(r)))
+        verts, inverse = tstl._dedup_vertices(rows)
+        jverts, jinverse = jstl._dedup_vertices(rows)
+        np.testing.assert_array_equal(inverse, jinverse)
+        np.testing.assert_array_equal(verts.view(np.uint32),
+                                      jverts.view(np.uint32))
+        assert 0 < sum(looped) <= 32, looped
+        return
+    if case == "stl":
+        _signed_zero_stl(tmp_path / "z.stl")
+        ours = tstl.read_stl(str(tmp_path / "z.stl"))
+        _same_mesh(jstl.read_stl(str(tmp_path / "z.stl")), ours)
+        assert ours.n_nodes == 6
+        return
+    rows = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [-0.0, 0, 0],
+                     [0, -1, 0], [1, 0, 0]], np.float32)
+    if case == "tiny":
+        rows = np.concatenate([rows, np.array(
+            [[1e-14, 0, 0], [-3e-14, 0, 1], [2e-14, 0, 1], [5e-6, 0, 0]],
+            np.float32)])
+    verts, inverse = tstl._dedup_vertices(rows)
+    jverts, jinverse = jstl._dedup_vertices(rows)
+    np.testing.assert_array_equal(inverse, jinverse)
+    np.testing.assert_array_equal(verts.view(np.uint32),
+                                  jverts.view(np.uint32))
+    assert inverse[:6].tolist() == [0, 1, 2, 0, 3, 1]
+
+
 def test_ascii_stl(tmp_path):
     mesh = tan.two_cubes_mesh()
     tri = mesh.vertices[mesh.elements]
