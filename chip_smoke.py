@@ -149,7 +149,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      card against the CPU; (d) the float64 gradient of the 24^3
      octahedron, the card against the CPU to rtol 1e-10; (e)
      ``run_batch`` of two icospheres in float64 and bfloat16, two
-     data-parallel shares bitwise the undivided batch.
+     data-parallel shares bitwise the undivided batch;
+ 17. init kernels: K7 (the init's selection scan) against its plain
+     version on the card, each case run through ``signed_distance_init``
+     on the K7 route and on the plain route: run B's mesh at 222^3 culled,
+     the dense init on run A's grid, one block of run B's (2,2,1) mesh and
+     run D's 256^3 with vertices that require grad (the vertex gradient of
+     a seeded linear loss); the argmin of every point against the plain
+     version on the same inputs (apart only at a tie of exact distances),
+     the fields' magnitudes within INIT_TOL, their signs apart only under
+     INIT_SIGN_BAND; K7 timed beside the plain version and the bound; run
+     B's whole init under torch.profiler under INIT_KERNELS CUDA kernels;
+     then K8 (the advection) on run B's and run E's smoothed fields and
+     nodes, bitwise the plain loop and the runs' own advected nodes, timed
+     beside the loop.  Phases 3, 4, 5 and 6 read K7's and K8's counters
+     (K8 stays at 0 under a mesh, whose advection runs its plain loop) and
+     print the init split into the host's culling build, the selection
+     and the exact re-evaluation.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per CLI run and
 one per rank of runs J, L and G-ranks and of the options phase's ranks,
@@ -193,8 +209,17 @@ FP32_OPS_PER_S = 67e12
 #: for the tail) and the fused sum (3); per in-band interior cell, one
 #: min/max update (14) and its adjoint's own terms (19), and per cell K6's
 #: 6-neighbour gather (16); per cell K5's forward and adjoint (~1600).
+#: Per (point, candidate) pair, one evaluation of the selection scan's
+#: pair (``ops/init_cuda.py:_select_scan``): the four dots (20), d1..d6
+#: (6), va, vb, vc (9), the region tests (17), the region's distance and
+#: its clamp (8), the running minimum (2), the tie test and term (8) — K7
+#: evaluates each pair twice (its two passes).  Per node and iteration of
+#: the advection (and once more for the final sample): the index, its
+#: clamps and floor (21), four trilinear blends (84), |g|^2 (5), the
+#: direction (4) and the move (10).
 OPS = {"reinit": 452, "rms": 3, "minmax_band": 14, "reinit_vjp": 1600,
-       "minmax_vjp_band": 19, "minmax_vjp": 16}
+       "minmax_vjp_band": 19, "minmax_vjp": 16, "init_pair": 70,
+       "advect_iter": 124}
 #: Run E, the batched serving path: four icospheres (5,120 triangles) and
 #: four boxes at dx 0.015 with the default config (pad 10): a common grid
 #: of 129^3 per geometry.  The boxes have 4 quads per edge (192
@@ -275,10 +300,31 @@ class Logged:
 
 def run_counters():
     """The launch counters of the kernels a pipeline run may launch."""
+    from levelsetfortran_tpu_torch.ops import advect_cuda, init_cuda
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     return (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
-            wc.reinit_step_block, mc.minmax_step_block)
+            wc.reinit_step_block, mc.minmax_step_block,
+            init_cuda.select_rows, advect_cuda.advect)
+
+
+@contextlib.contextmanager
+def init_split():
+    """The exact init's stage times (``init_sign.stage_times``) over the
+    block: yields the dict they are added to."""
+    from levelsetfortran_tpu_torch.ops import init_sign
+    init_sign.stage_times = times = {}
+    try:
+        yield times
+    finally:
+        init_sign.stage_times = None
+
+
+def split_text(times):
+    """The init split as a line's words: the host's culling build, K7 (or
+    its plain version) and the exact re-evaluation."""
+    return ", ".join(f"{k} {times.get(k, 0.0):.3f} s"
+                     for k in ("culling", "select", "exact"))
 
 
 def sphere(shape, dx, radius, device="cuda", center=(0.0, 0.0, 0.0)):
@@ -696,7 +742,8 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     counters = run_counters()
     for c in counters:
         c.launches = 0
-    res = run(stl, cfg, out_dir=os.path.join(tmp, f"{label}_py"))
+    with init_split() as split:
+        res = run(stl, cfg, out_dir=os.path.join(tmp, f"{label}_py"))
     launches = {c.__name__: c.launches for c in counters}
 
     e_sdf = near_surface_errors(
@@ -715,9 +762,11 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
           f"(dx {dx}), launches {launches}, CLI {cli_s:.1f} s, "
           f"timers {json.dumps({k: round(v, 3) for k, v in res.timers.items()})}")
     t = res.timers
-    phase(f"run {label}", f"stages: reinit "
+    phase(f"run {label}", f"stages: init {t['search']:.3f} s ("
+          f"{split_text(split)}), reinit "
           f"{t['initialization'] - t['search']:.4f} s, min/max "
-          f"{t['minmax'] - t['initialization']:.4f} s; card {CARD}")
+          f"{t['minmax'] - t['initialization']:.4f} s, advect "
+          f"{t['advect'] - t['minmax']:.3f} s; card {CARD}")
     check((res.reinit_iters, res.minmax_iters) == EXPECTED_ITERS[label],
           f"run {label}: iterations {res.reinit_iters} / "
           f"{res.minmax_iters}, expected {EXPECTED_ITERS[label]}")
@@ -731,11 +780,13 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     check(finite and not res.reinit_diverged and not res.minmax_diverged,
           f"run {label}: diverged or non-finite")
     if "--mesh-shape" in extra_args:
-        want = ("reinit_step_block", "minmax_step_block")
+        # the sharded advection runs its plain loop (ROADMAP: the next
+        # slice), so K8 stays at 0 with the solo kernels
+        want = ("reinit_step_block", "minmax_step_block", "select_rows")
     elif "off" in extra_args:
-        want = ("reinit_step", "minmax_step")
+        want = ("reinit_step", "minmax_step", "select_rows", "advect")
     else:
-        want = ("reinit_step", "minmax_fusedk")
+        want = ("reinit_step", "minmax_fusedk", "select_rows", "advect")
     for name in want:
         check(launches[name] > 0, f"run {label}: {name} never launched")
     if "--mesh-shape" in extra_args:
@@ -788,7 +839,7 @@ def run_d_phase(ball, card, record, n=256):
     import torch
     from levelsetfortran_tpu_torch import image_loss_and_vertex_grad
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
-    from levelsetfortran_tpu_torch.ops import reverse
+    from levelsetfortran_tpu_torch.ops import init_cuda, reverse
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     from levelsetfortran_tpu_torch.ops.init_sign import build_init_culling
 
@@ -800,7 +851,7 @@ def run_d_phase(ball, card, record, n=256):
     kw = dict(RUN_D_KW, culling=cull)
     target = torch.zeros((64, 64), device="cuda")
     counters = (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
-                wc.reinit_step_vjp, mc.minmax_step_vjp)
+                wc.reinit_step_vjp, mc.minmax_step_vjp, init_cuda.select_rows)
     reverse.last_branch.clear()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -815,7 +866,7 @@ def run_d_phase(ball, card, record, n=256):
           "run D: non-finite loss or gradient")
     check(gmax > 0.0, "run D: zero vertex gradient")
     for name in ("reinit_step", "minmax_step", "reinit_step_vjp",
-                 "minmax_step_vjp"):
+                 "minmax_step_vjp", "select_rows"):
         check(launches[name] > 0, f"run D: {name} never launched")
     check(branches == {"reinit_fixed": "sqrtn",
                        "minmax_flow_fixed": "flat"},
@@ -837,7 +888,8 @@ def run_d_phase(ball, card, record, n=256):
           "backward (backward peak): " + ", ".join(
               f"{s} {t[s]:.3f} / {b[s]:.3f} s ({pk[s]:.2f} GiB)"
               for s in ("init", "reinit", "minmax", "render"))
-          + f"; {split['hits']} rays hit; the chained gradient equals the "
+          + f" (init: {split_text(split['split'])}); {split['hits']} rays "
+          f"hit; the chained gradient equals the "
           f"main path's (loss rel {lrel:.3g}, grad max err {gerr:.3g}, "
           f"gate 1e-4 of max|grad|); card {card}")
 
@@ -875,9 +927,10 @@ def stage_split(v, elements, grid, target, kw):
     torch.autograd.backward(2.0 * w, torch.ones_like(w))
     dx, fwd, bwd, peak = grid.dx, {}, {}, {}
     vv = v.detach().requires_grad_(True)
-    phi0, fwd["init"] = sync_time(lambda: signed_distance_init(
-        grid, vv, elements, dtype=vv.dtype, device=vv.device,
-        culling=kw["culling"]))
+    with init_split() as split:
+        phi0, fwd["init"] = sync_time(lambda: signed_distance_init(
+            grid, vv, elements, dtype=vv.dtype, device=vv.device,
+            culling=kw["culling"]))
     x0 = phi0.detach().requires_grad_(True)
     phi1, fwd["reinit"] = sync_time(lambda: reinit_fixed(
         x0, dx, 0.1 * dx, kw["reinit_steps"]))
@@ -900,7 +953,8 @@ def stage_split(v, elements, grid, target, kw):
         _, bwd[stage] = sync_time(partial(
             torch.autograd.backward, y, None if x is None else x.grad))
         peak[stage] = torch.cuda.max_memory_allocated() / 2 ** 30
-    return {"fwd": fwd, "bwd": bwd, "peak": peak, "loss": loss.detach(),
+    return {"fwd": fwd, "bwd": bwd, "peak": peak, "split": split,
+            "loss": loss.detach(),
             "grad": vv.grad, "hits": int(out.hit.sum()),
             "phi0": phi0.detach(), "phi1": phi1.detach()}
 
@@ -1740,9 +1794,10 @@ def run_g_phase(ball, card, run_d):
     check(math.isfinite(loss) and bool(torch.isfinite(grad).all()),
           "run G: non-finite loss or gradient")
     check(gmax > 0.0, "run G: zero vertex gradient")
-    check(all(launches[k] > 0 for k in BLOCK_KERNELS),
+    mesh_kernels = BLOCK_KERNELS + SHARDED_INIT
+    check(all(launches[k] > 0 for k in mesh_kernels),
           f"run G: a block-mode kernel never launched {launches}")
-    check(all(v == 0 for k, v in launches.items() if k not in BLOCK_KERNELS),
+    check(all(v == 0 for k, v in launches.items() if k not in mesh_kernels),
           f"run G: solo kernels launched under a mesh {launches}")
     check(branches == {"reinit_fixed_sharded": "flat",
                        "minmax_fixed_sharded": "flat"},
@@ -1932,6 +1987,7 @@ def batch_run(label, card, tmp, extra=()):
     import torch
     from levelsetfortran_tpu_torch import write_stl
     from levelsetfortran_tpu_torch.io.vti import read_vti
+    from levelsetfortran_tpu_torch.ops import advect_cuda, init_cuda
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     from levelsetfortran_tpu_torch.pipeline import batch
@@ -1970,12 +2026,13 @@ def batch_run(label, card, tmp, extra=()):
 
     batch.signed_distance_init = keep
     counters = (wc.reinit_step_packed, mc.minmax_step_packed, wc.reinit_step,
-                mc.minmax_step, mc.minmax_fusedk)
+                mc.minmax_step, mc.minmax_fusedk, init_cuda.select_rows,
+                advect_cuda.advect)
     for c in counters:
         c.launches = 0
     timer = StageTimer()
     try:
-        with Logged() as log:
+        with Logged() as log, init_split() as split:
             items = batch.run_batch(paths, cfg, timer=timer,
                                     data_parallel=dp)
     finally:
@@ -1987,6 +2044,10 @@ def batch_run(label, card, tmp, extra=()):
     check(cfg.device != "cuda" or launches["reinit_step_packed"] > 0
           and launches["minmax_step_packed"] > 0,
           f"run {label}: pack kernels not launched {launches}")
+    check(cfg.device != "cuda" or launches["select_rows"] >= len(names)
+          and launches["advect"] >= len(names),
+          f"run {label}: K7 / K8 not launched for every geometry "
+          f"{launches}")
     check(all(launches[n] == 0 for n in ("reinit_step", "minmax_step",
                                          "minmax_fusedk")),
           f"run {label}: solo kernels launched in the batched stages "
@@ -2051,7 +2112,7 @@ def batch_run(label, card, tmp, extra=()):
           f"{where}, launches {launches}; run_batch wall "
           f"{marks['total']:.3f} s: " + ", ".join(
               f"{k} {v:.3f} s" for k, v in stages.items())
-          + f"; CLI {cli_s:.1f} s; card {card}")
+          + f" (init: {split_text(split)}); CLI {cli_s:.1f} s; card {card}")
     return launches, items, inits, cfg, (marks["total"], cli_s)
 
 
@@ -2389,6 +2450,9 @@ RUN_L_CHUNK = 100
 #: Kernels of the sharded paths: what runs L and G-ranks must launch.
 BLOCK_KERNELS = ("reinit_step_block", "minmax_step_block",
                  "reinit_step_block_vjp", "minmax_step_block_vjp")
+#: The sharded init's scans: K7 runs under a mesh too, one launch per
+#: block (the sharded advection is still a plain loop: no K8).
+SHARDED_INIT = ("select_rows",)
 #: Exchanges timed for the advection's per-iteration all-reduce.
 EXCHANGE_REPS = 200
 
@@ -2462,10 +2526,7 @@ def timed_checkpointer(times):
 def counted(fn):
     """``(fn(), launches)``: every kernel's counter set to 0 before and
     read after."""
-    from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
-    from levelsetfortran_tpu_torch.ops import weno_cuda as wc
-    counters = [getattr(wc, k, None) or getattr(mc, k)
-                for k in kernel_names()]
+    counters = list(kernel_counters().values())
     for c in counters:
         c.launches = 0
     out = fn()
@@ -2629,9 +2690,10 @@ def run_l_phase(card, tmp, run_f, world=2, device="cuda",
             check(not diff, f"run {label}: rank {r['rank']} differs from "
                   f"run F in {diff}: {[(got[k], mine[k]) for k in diff]}")
             ln = got["launches"]
-            check(device != "cuda" or all(ln[k] > 0 for k in BLOCK_KERNELS[:2])
+            kernels = BLOCK_KERNELS[:2] + SHARDED_INIT
+            check(device != "cuda" or all(ln[k] > 0 for k in kernels)
                   and all(v == 0 for k, v in ln.items()
-                          if k not in BLOCK_KERNELS[:2]),
+                          if k not in kernels),
                   f"run {label}: rank {r['rank']} launches {ln}")
             for k, v in ln.items():
                 total[k] = total.get(k, 0) + v
@@ -2765,9 +2827,9 @@ def run_g_ranks_phase(card, tmp, run_g, world=2, device="cuda", n=256,
         check(torch.equal(g, grads[0]), f"run G-ranks: rank {r['rank']}'s "
               f"gradient differs from rank 0's")
         ln = r["launches"]
-        check(device != "cuda" or all(ln[k] > 0 for k in BLOCK_KERNELS)
-              and all(v == 0 for k, v in ln.items()
-                      if k not in BLOCK_KERNELS),
+        kernels = BLOCK_KERNELS + SHARDED_INIT
+        check(device != "cuda" or all(ln[k] > 0 for k in kernels)
+              and all(v == 0 for k, v in ln.items() if k not in kernels),
               f"run G-ranks: rank {r['rank']} launches {ln}")
         for k, v in ln.items():
             total[k] = total.get(k, 0) + v
@@ -3466,9 +3528,11 @@ def options_phase(card, record, tmp, device="cuda"):
 def kernel_counters():
     """Every kernel wrapper of the record, by name: their launch
     counters."""
+    from levelsetfortran_tpu_torch.ops import advect_cuda, init_cuda
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
-    return {n: getattr(wc, n, None) or getattr(mc, n)
+    mods = (wc, mc, init_cuda, advect_cuda)
+    return {n: next(getattr(m, n) for m in mods if hasattr(m, n))
             for n in kernel_names()}
 
 
@@ -3719,6 +3783,258 @@ def dtypes_phase(card, tmp, ball, ball_sdf, run_b=None, device="cuda",
     dtype_batches(card, device)
 
 
+#: Phase 17: K7's distances are bitwise its plain version's, so a point's
+#: triangle may differ only where two candidates' exact squared distances
+#: are within INIT_TIE_ULPS float32 ulps (a tie); the field's magnitudes
+#: agree within INIT_TOL, and its signs only where |phi| < INIT_SIGN_BAND
+#: (ROADMAP H8: on the surface the tie sum of the pseudonormals is
+#: rounding noise, and K7 adds a tile's terms in another order).
+INIT_TIE_ULPS = 1
+INIT_TOL = 1e-6
+INIT_SIGN_BAND = 1e-5
+#: Run B's whole init under torch.profiler: at most this many CUDA kernels
+#: (907,190 on the plain route in PR 13's records).
+INIT_KERNELS = 1000
+
+
+@contextlib.contextmanager
+def plain_selection():
+    """The init's selection scan on its plain version over the block, on
+    the card (the route a float64 field takes)."""
+    from levelsetfortran_tpu_torch.ops import init_sign
+    real = init_sign.kernel_supported
+    init_sign.kernel_supported = lambda shape, dtype: False
+    try:
+        yield
+    finally:
+        init_sign.kernel_supported = real
+
+
+@contextlib.contextmanager
+def k7_calls():
+    """Every K7 wrapper call of the block: its arguments and outputs."""
+    from levelsetfortran_tpu_torch.ops import init_cuda
+    real, calls = init_cuda.select_rows, []
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    spy.launches = 0        # the wrapper counts on the name it is called by
+    init_cuda.select_rows = spy
+    try:
+        yield calls
+    finally:
+        init_cuda.select_rows = real
+
+
+def k7_case(tag, run, vertices=None):
+    """Phase 17a, one case: the init ``run()`` on the K7 route, then on the
+    plain route.  Every K7 call's argmin is held against the plain version
+    on the same inputs (a difference only at a tie of exact distances
+    within INIT_TIE_ULPS ulps) and the two fields against each other
+    (magnitudes within INIT_TOL, signs apart only under INIT_SIGN_BAND);
+    with ``vertices`` (that require grad) the vertex gradients of a seeded
+    random linear loss too, at run D's gate.  Returns the record's
+    numbers."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import init_cuda
+    from levelsetfortran_tpu_torch.ops.init_sign import _exact_d2
+    with k7_calls() as calls:
+        phi_k, t_k = sync_time(run)
+    with plain_selection():
+        phi_p, t_p = sync_time(run)
+    check(len(calls) == 1, f"K7 {tag}: {len(calls)} K7 calls")
+    a, kw, (best, _) = calls[0]
+    pts, _, tri_s, _, rows = a
+    P = pts.shape[1]
+    (bp, _), t_plain = sync_time(
+        lambda: init_cuda.select_rows_plain(*a, **kw))
+    ms = median_ms(lambda: init_cuda.select_rows(*a, **kw), 3)
+    d = best != bp
+    diff = int(d.sum())
+    worst = 0.0
+    if diff:
+        dk, dp = (_exact_d2(pts[d][None], tri_s[init_cuda.triangle_ids(
+            rows, b, pts.device)[d]][None])[0].cpu().numpy()
+            for b in (best, bp))
+        ulp = np.spacing(np.maximum(dk, dp).astype(np.float32))
+        worst = float((np.abs(dk - dp) / ulp).max())
+    pairs = rows.pairs_per_point * P
+    nbytes = 4 * (pts.numel() + 2 * best.numel() + tri_s.numel()
+                  + a[3].numel()
+                  + (0 if rows.flat is None else rows.flat.size))
+    b = bound(nbytes, pairs * OPS["init_pair"])
+    x, y = phi_k.detach().double(), phi_p.detach().double()
+    flip = torch.sign(x) != torch.sign(y)
+    same = float((x - y)[~flip].abs().max())
+    mag = float((x.abs() - y.abs()).abs().max())
+    n_flip = int(flip.sum())
+    flip_max = (float(torch.maximum(x.abs(), y.abs())[flip].max())
+                if n_flip else 0.0)
+    text = ""
+    if vertices is not None:
+        g = torch.Generator(device=phi_k.device).manual_seed(17)
+        cot = torch.randn(phi_k.shape, generator=g, device=phi_k.device)
+        gk, gp = (torch.autograd.grad((f * cot).sum(), vertices)[0]
+                  for f in (phi_k, phi_p))
+        gmax, gerr = float(gk.abs().max()), err(gk, gp)
+        text = (f"; vertex gradient of a seeded linear loss max err "
+                f"{gerr:.3g} of max|grad| {gmax:.4g} (gate 1e-4 of it)")
+        check(gerr <= 1e-4 * gmax, f"K7 {tag}: vertex gradient {gerr}")
+    phase("K7", f"{tag}: {rows.counts.size} rows of {P} points, {pairs} "
+          f"(point, candidate) pairs; best_i differs at {diff} of "
+          f"{best.numel()} points ({diff / best.numel():.3g}), the exact "
+          f"d2 of the two choices within {worst:.3g} ulps; max |dphi| "
+          f"{same:.3g} where the signs agree, ||phi|| {mag:.3g} (gate "
+          f"{INIT_TOL:g}), {n_flip} sign(s) apart, at |phi| <= "
+          f"{flip_max:.3g} (gate {INIT_SIGN_BAND:g}){text}; K7 {ms:.3f} ms "
+          f"(events) vs the plain version {t_plain * 1e3:.1f} ms, bound "
+          f"{b['bound_ms']:.4g} ms ({b['bound_by']}); the init "
+          f"{t_k:.3f} s vs {t_p:.3f} s on the plain route; card {CARD}")
+    check(worst <= INIT_TIE_ULPS, f"K7 {tag}: a triangle chosen apart from "
+          f"the plain version's {worst} ulps away")
+    check(same <= INIT_TOL and mag <= INIT_TOL, f"K7 {tag}: phi {same} / "
+          f"{mag}")
+    check(flip_max < INIT_SIGN_BAND, f"K7 {tag}: a sign apart at |phi| "
+          f"{flip_max}")
+    return {"max_abs_err": max(same, mag), "ms": ms,
+            "plain_ms": t_plain * 1e3, **b}
+
+
+def cuda_kernels_of(fn, reps=3):
+    """``fn()``'s CUDA kernels under torch.profiler: (kernels, copies and
+    fills, names of the kernels); a trace that lost its device activity
+    (no kernel of csrc/ in it) is taken again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        kern = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+        if any("init_select" in n for n in kern):
+            return len(kern), len(names) - len(kern), kern
+    raise AssertionError(f"no trace of K7 in {reps} profiles")
+
+
+def k8_case(tag, phi_np, grid, vertices, iters, advected=None,
+            device="cuda"):
+    """Phase 17b, one case: K8 on a run's smoothed field and its mesh's
+    nodes against the plain loop on the card, bitwise (and against the
+    run's own advected nodes), timed beside the loop and the bound."""
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig
+    from levelsetfortran_tpu_torch.ops import advect_cuda
+    from levelsetfortran_tpu_torch.solvers.advect import banded_gradient
+    cfg = LevelSetConfig(dx=grid.dx)
+    phi = torch.tensor(phi_np, dtype=torch.float32, device=device)
+    grad = banded_gradient(phi, grid.dx, order=cfg.advect_grad_order,
+                           stencil_radius=cfg.stencil_band_radius,
+                           quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
+    x0 = torch.tensor(vertices, dtype=torch.float32, device=device)
+    args = (phi, grad, grid, x0, iters, cfg.advect_eps)
+    (xk, pk), _ = sync_time(lambda: advect_cuda.advect(*args))
+    (xp, pp), t_plain = sync_time(lambda: advect_cuda.advect_plain(*args))
+    ms = median_ms(lambda: advect_cuda.advect(*args), 5)
+    same = bitwise(xk, xp) and bitwise(pk, pp)
+    own = advected is None or np.array_equal(xk.double().cpu().numpy(),
+                                             advected)
+    # the data this run needs: the nodes in and out, phi_surf, and the 8
+    # corners (phi and its gradient) of the cells of the first and last
+    # positions
+    shape = torch.tensor(grid.shape, device=device)
+    corners = []
+    for x in (x0, xk):
+        f = grid.world_to_index(x).clamp_min(0.0)
+        i = torch.minimum(torch.floor(f).long(), shape - 2).clamp_min(0)
+        for o in np.ndindex(2, 2, 2):
+            c = i + torch.tensor(o, device=device)
+            corners.append((c[:, 0] * shape[1] + c[:, 1]) * shape[2]
+                           + c[:, 2])
+    cells = int(torch.unique(torch.cat(corners)).numel())
+    n = x0.shape[0]
+    b = bound(16 * cells + 28 * n, OPS["advect_iter"] * n * (iters + 1))
+    phase("K8", f"{tag}: {n} nodes, {iters} iterations on {grid.shape}: "
+          f"positions and phi_surf bitwise the plain loop's {same}, the "
+          f"run's own advected nodes {own}; K8 {ms:.3f} ms (events) vs the "
+          f"plain loop {t_plain * 1e3:.1f} ms, bound {b['bound_ms']:.4g} ms "
+          f"({b['bound_by']}, {cells} cells' corners); card {CARD}")
+    check(same, f"K8 {tag}: not bitwise the plain loop "
+          f"({err(xk, xp):.3g}, {err(pk, pp):.3g})")
+    check(own, f"K8 {tag}: differs from the run's advected nodes")
+    return {"max_abs_err": max(err(xk, xp), err(pk, pp)), "ms": ms,
+            "plain_ms": t_plain * 1e3, **b}
+
+
+def init_kernels_phase(card, record, ball, cubes, runs, items_e,
+                       device="cuda", n_d=256, iters_b=1000,
+                       iters_e=RUN_E_ADVECT_ITERS):
+    """Phase 17: K7 and K8 against their plain versions on the card.
+    ``runs``: phase 3's results (A, B; run B advected ``iters_b`` times);
+    ``items_e``: run E's geometries (smoothed field, grid, nodes, advected
+    nodes; ``iters_e`` times); run D's grid is ``n_d``^3."""
+    import torch
+    from levelsetfortran_tpu_torch.grid.grid import Grid3D
+    from levelsetfortran_tpu_torch.ops.init_sign import (build_init_culling,
+                                                          signed_distance_init)
+    res_b, res_a = runs["B"], runs["A"]
+    gb = res_b.grid
+
+    def init_b():
+        return signed_distance_init(gb, ball.vertices, ball.elements,
+                                    device=device)
+
+    rec = k7_case(f"run B {gb.shape} culled", init_b)
+    if device == "cuda":
+        n_kern, n_copy, names = cuda_kernels_of(init_b)
+        top = sorted(set(names), key=names.count, reverse=True)[:4]
+        phase("K7", f"run B's whole init under torch.profiler: {n_kern} "
+              f"CUDA kernels (gate {INIT_KERNELS}) and {n_copy} copies / "
+              f"fills; the most launched "
+              f"{[(n[:40], names.count(n)) for n in top]}; card {card}")
+        check(n_kern < INIT_KERNELS,
+              f"run B's init launched {n_kern} kernels")
+    errs = [rec["max_abs_err"]]
+    ga = res_a.grid
+    errs.append(k7_case(f"dense, run A's grid {ga.shape}", lambda: (
+        signed_distance_init(ga, cubes.vertices, cubes.elements,
+                             device=device, culling=None)))["max_abs_err"])
+    blk = (gb.shape[0] // 2, gb.shape[1] // 2, gb.shape[2])
+    off = (blk[0], 0, 0)
+    sub = Grid3D(shape=blk, origin=tuple(
+        o + i * gb.dx for o, i in zip(gb.origin, off)), dx=gb.dx)
+    errs.append(k7_case(f"block (1, 0, 0) {blk} of run B's (2,2,1) mesh",
+                        lambda: signed_distance_init(
+                            sub, ball.vertices, ball.elements, device=device,
+                            block_of=(gb, off)))["max_abs_err"])
+    gd = cube_grid(ball.vertices, n_d)
+    cull = build_init_culling(gd, ball.vertices, ball.elements)
+    vv = torch.tensor(ball.vertices, dtype=torch.float32,
+                      device=device).requires_grad_(True)
+    errs.append(k7_case(f"run D {gd.shape}, vertices that require grad",
+                        lambda: signed_distance_init(
+                            gd, vv, ball.elements, device=device,
+                            culling=cull), vertices=vv)["max_abs_err"])
+    record["select_rows"].update(rec, max_abs_err=max(errs))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    rec = k8_case(f"run B {gb.shape}", res_b.phi_smoothed, gb,
+                  ball.vertices, iters_b, res_b.advected,
+                  device=device)
+    errs = [rec["max_abs_err"]]
+    for i, (phi, grid, nodes, adv) in enumerate(items_e):
+        errs.append(k8_case(f"run E geometry {i}", phi, grid, nodes,
+                            iters_e, adv,
+                            device=device)["max_abs_err"])
+    record["advect"].update(rec, max_abs_err=max(errs))
+
+
 def start():
     """Phases 0 and 1: the card's line, TF32 on, the kernels built.
     Returns the card's name and power limit."""
@@ -3774,6 +4090,14 @@ def kernel_names():
                                    mm + "975 (active)"),
         "minmax_fusedk_block": (csrc + "minmax_step.cu",
                                 mm + "647 (offsets)"),
+        # no pallas_call: the jitted init's scan and the jitted advection
+        "select_rows": (csrc + "init_select.cu",
+                        "levelsetfortran_tpu/ops/init_sign.py:207 "
+                        "(nearest_sign_scan in the jitted _culled_init :660 "
+                        "and _dense_signed_distance_init :785; no Pallas)"),
+        "advect": (csrc + "advect.cu",
+                   "levelsetfortran_tpu/solvers/advect.py:46 (the jitted "
+                   "advect_nodes; no Pallas)"),
     }
     return names
 
@@ -3838,6 +4162,8 @@ def main() -> int:
         launches, wall_k = sync_time(
             lambda: run_k_phase(card, tmp, (items_e, walls_e)))
         count(launches)
+        kept_e = [(it.phi_smoothed, it.grid, it.mesh.vertices, it.advected)
+                  for it in items_e]
         del items_e
         walls = {}
         launches, walls["run H"] = sync_time(
@@ -3882,6 +4208,9 @@ def main() -> int:
         _, wall_dt = sync_time(lambda: dtypes_phase(
             card, tmp, ball, ball_sdf, (runs_b, results["B"])))
     phase("dtypes", f"wall {wall_dt:.1f} s; card {card}")
+    _, wall_17 = sync_time(lambda: init_kernels_phase(
+        card, record, ball, cubes, results, kept_e))
+    phase("init kernels", f"wall {wall_17:.1f} s; card {card}")
 
     kernels = []
     for n, (src, repl) in names.items():

@@ -91,6 +91,14 @@ SIGNATURES = {
     # scale, stream
     "lsf_minmax_bwd_block_f32": [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _F,
                                  _P, _P, _P, _I, _D, _P],
+    # pts, shift, tri, ang, flat (NULL: dense), offsets, counts, rows, P,
+    # tile, tie, tie_floor, best, acc, stream
+    "lsf_init_select_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                            _P, _P, _P],
+    # phi, grad, pos, out_pos, out_phi, n, nx, ny, nz, origin (3), inv_dx,
+    # iters, eps, mag_eps, mag_floor, stream
+    "lsf_advect_nodes_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                             _F, _I, _F, _F, _F, _P],
 }
 
 

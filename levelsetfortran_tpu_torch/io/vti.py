@@ -3,8 +3,11 @@
 
 XML ImageData header, then a raw appended payload of Float64 samples in
 x-fastest order (``set3d.f90:323-351``).  The writer emits the correct byte
-count (not the reference's ``(nx+1)**3 * 24`` quirk); the reader sizes the
-payload from the extent, so it reads either.
+count by default; ``ref_compat=True`` declares the reference's
+``(nx+1)**3 * 24`` (``set3d.f90:330``, wrong for non-cubic grids and 3x too
+large for cubic ones) so that outputs can be diffed byte for byte against
+the reference program's.  The reader sizes the payload from the extent, so
+it reads either.
 """
 
 from __future__ import annotations
@@ -20,14 +23,16 @@ from ..grid.grid import Grid3D
 _LF = b"\n"
 
 
-def _write_framed(path: str, grid: Grid3D, name: str, payload) -> None:
+def _write_framed(path: str, grid: Grid3D, name: str, payload,
+                  ref_compat: bool = False) -> None:
     """The XML frame around ``payload``, an iterable of byte chunks that
     together hold ``grid``'s samples as Float64, x fastest."""
     nx, ny, nz = (s - 1 for s in grid.shape)
     extent = f" 0 {nx:6d} 0 {ny:6d} 0 {nz:6d}"
     origin = "".join(f"{v:20.8f} " for v in grid.origin)
     spacing = "".join(f"{grid.dx:20.8f} " for _ in range(3))
-    nbyte = int(np.prod(grid.shape)) * 8
+    nbyte = ((nx + 1) ** 3 * 24 if ref_compat
+             else int(np.prod(grid.shape)) * 8)
     with open(path, "wb") as f:
         f.write(b'<?xml version="1.0"?>' + _LF)
         f.write(b'<VTKFile type="ImageData" version="0.1" '
@@ -51,13 +56,15 @@ def _write_framed(path: str, grid: Grid3D, name: str, payload) -> None:
 
 
 def write_vti(path: str, phi: np.ndarray, grid: Grid3D, *,
-              name: str = "phi") -> None:
-    """Write a scalar field of shape ``grid.shape`` (axes x, y, z)."""
+              name: str = "phi", ref_compat: bool = False) -> None:
+    """Write a scalar field of shape ``grid.shape`` (axes x, y, z);
+    ``ref_compat``: declare the reference's payload byte count."""
     phi = np.asarray(phi, dtype=np.float64)
     if phi.shape != grid.shape:
         raise ValueError(f"phi shape {phi.shape} != grid shape {grid.shape}")
     _write_framed(path, grid, name,
-                  [np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()])
+                  [np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()],
+                  ref_compat)
 
 
 def write_vti_streaming(path: str, blocks, grid: Grid3D, mesh, *,

@@ -10,10 +10,14 @@ carry.  With culling (default) each block scans only the triangles whose
 distance lower bound can beat the block's upper bound
 (:func:`build_init_culling`, host numpy, as in the JAX package).
 
-No kernel: these are PyTorch tensor ops.  The quadratic-form dot products
-are computed elementwise in full float32, so a process-wide TF32 setting
-(``torch.backends.cuda.matmul.allow_tf32``) cannot reach them — TF32 breaks
-the region classification the way the TPU's default bf16 passes did.
+The scan of every block is one launch of kernel K7 for float32
+(``ops/init_cuda.py``, the JAX package's jitted scan), its plain version
+for bfloat16 and float64; the exact re-evaluation at each point's
+triangle is PyTorch ops over chunks of :data:`_EXACT_POINTS` points.  The
+quadratic-form dot products are computed elementwise in full float32, so a
+process-wide TF32 setting (``torch.backends.cuda.matmul.allow_tf32``)
+cannot reach them — TF32 breaks the region classification the way the
+TPU's default bf16 passes did.
 
 Vertex gradients (``vertices`` a tensor that requires grad): the selection
 scan runs under ``torch.no_grad()`` on detached triangles, and the gradient
@@ -25,18 +29,30 @@ The sign is not differentiable.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
 
 from ..grid.grid import Grid3D
-from .weno_cuda import scalar_type
+from . import init_cuda
+from .init_cuda import dense_rows, pack_rows, triangle_ids
+from .weno_cuda import kernel_supported, scalar_type
 
-#: Bound on a scan step's (blocks, points, tile) pair count, as in the JAX
-#: package (``init_sign.py:699``): ~4M pairs, some 40 float temporaries.
-_PAIRS_PER_STEP = 2 ** 22
+#: Points per chunk of the exact re-evaluation: few and large torch ops
+#: (run D records its autograd graph through them), some 40 temporaries of
+#: (points, 3) each.
+_EXACT_POINTS = 2 ** 22
+
+#: When a dict, the exact init adds its stages' seconds on the host clock
+#: to it, the device synchronised at each boundary: "culling" (the host
+#: build of the candidate lists), "select" (K7 or its plain version) and
+#: "exact" (the re-evaluation at each point's triangle and the field's
+#: assembly).  None (the default): no clock and no synchronisation.
+stage_times = None
 
 
 def _dot(u, v):
@@ -136,14 +152,6 @@ def _triangle_features(tri):
     return n, ang
 
 
-def _pdot(pc, v):
-    """(G, P, T) dots of points (G, P, 3) with vectors (G, T, 3), summed
-    elementwise in the working precision (no matmul, so no TF32)."""
-    return (pc[:, :, None, 0] * v[:, None, :, 0]
-            + pc[:, :, None, 1] * v[:, None, :, 1]
-            + pc[:, :, None, 2] * v[:, None, :, 2])
-
-
 def _exact_d2(points, tb):
     """Squared distance of each point (G, P, 3) to its triangle tb
     (G, P, 3, 3), in the direct (difference) form."""
@@ -151,101 +159,6 @@ def _exact_d2(points, tb):
                                  tb[:, :, 2])
     ub = points - cpb
     return _dot(ub, ub)
-
-
-def _select_scan(points, tri, feat, tile, rel_tie=1e-3):
-    """The nearest-triangle selection scan (the JAX package's
-    ``nearest_sign_scan`` without its final re-evaluation): (argmin
-    triangle index (G, P), pseudonormal accumulator (G, P)).
-
-    ``points`` (G, P, 3), ``tri`` (G, E, 3, 3) and its features ``feat``:
-    G independent blocks (the JAX package vmaps the same per-block scan).
-    Per tile, the Ericson dots come from the quadratic form of four
-    products (ab·p, ac·p, n·p, a·p) about each block's point mean; a new
-    minimum more than ``rel_tie`` below the running one discards the tie
-    accumulator.  Tiles are cut at ``tile`` candidates, the last one short:
-    a padded far-away sentinel contributes nothing, so the result is the
-    padded scan's.
-    """
-    G, P, _ = points.shape
-    E = tri.shape[1]
-    nrm, ang = feat
-    dt = points.dtype
-    shift = points.mean(dim=1, keepdim=True)          # (G, 1, 3)
-    pc = points - shift
-    p_sq = _dot(pc, pc)                                # (G, P)
-    eps = 1e-30
-    qeps = (64.0 * float(np.finfo(np.float32).eps)
-            * p_sq.amax(dim=1, keepdim=True))         # (G, 1)
-    rounded = scalar_type(dt)
-    tie, tie_floor = float(rounded(1.0 + rel_tie)), float(rounded(1e-12))
-    best_d = torch.full((G, P), math.inf, dtype=dt, device=points.device)
-    acc = torch.zeros((G, P), dtype=dt, device=points.device)
-    best_i = torch.zeros((G, P), dtype=torch.long, device=points.device)
-    for base in range(0, E, tile):
-        tb = tri[:, base:base + tile]
-        ang_t = ang[:, base:base + tile]
-        a = tb[:, :, 0, :] - shift                     # (G, T, 3)
-        b = tb[:, :, 1, :] - shift
-        c = tb[:, :, 2, :] - shift
-        ab, ac, bc = b - a, c - a, c - b
-        nr = torch.linalg.cross(ab, ac)
-        snn = _dot(nr, nr)
-        rsnn = 1.0 / torch.clamp_min(snn, eps)
-        rsab = 1.0 / torch.clamp_min(_dot(ab, ab), eps)
-        rsac = 1.0 / torch.clamp_min(_dot(ac, ac), eps)
-        rsbc = 1.0 / torch.clamp_min(_dot(bc, bc), eps)
-        cn = _dot(nr, a)[:, None, :]
-        ab_a, ab_b, ab_c = (_dot(ab, v)[:, None, :] for v in (a, b, c))
-        ac_a, ac_b, ac_c = (_dot(ac, v)[:, None, :] for v in (a, b, c))
-        bc_b = _dot(bc, b)[:, None, :]
-        saa, sbb, scc = (_dot(v, v)[:, None, :] for v in (a, b, c))
-        g1, g2, g3, g4 = (_pdot(pc, v) for v in (ab, ac, nr, a))
-
-        d1, d2 = g1 - ab_a, g2 - ac_a
-        d3, d4 = g1 - ab_b, g2 - ac_b
-        d5, d6 = g1 - ab_c, g2 - ac_c
-        va = d3 * d6 - d5 * d4
-        vb = d5 * d2 - d1 * d6
-        vc = d1 * d4 - d3 * d2
-        in_a = (d1 <= 0) & (d2 <= 0)
-        in_b = (d3 >= 0) & (d4 <= d3)
-        in_c = (d6 >= 0) & (d5 <= d6)
-        on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
-        on_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
-        on_bc = (va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0)
-
-        ap2 = p_sq[:, :, None] - 2.0 * g4 + saa
-        bp2 = ap2 - 2.0 * g1 + (sbb - saa)
-        cp2 = ap2 - 2.0 * g2 + (scc - saa)
-        bcbp = (g2 - g1) - bc_b
-        plane = g3 - cn                                # n·(p − a)
-        d = plane * plane * rsnn[:, None, :]
-        d = torch.where(on_bc, bp2 - bcbp * bcbp * rsbc[:, None, :], d)
-        d = torch.where(on_ac, ap2 - d2 * d2 * rsac[:, None, :], d)
-        d = torch.where(on_ab, ap2 - d1 * d1 * rsab[:, None, :], d)
-        d = torch.where(in_c, cp2, d)
-        d = torch.where(in_b, bp2, d)
-        d = torch.where(in_a, ap2, d)
-        d = torch.clamp_min(d, 0.0)
-        tile_d, tile_best = torch.min(d, dim=2)
-        better = tile_d < best_d
-        new_d = torch.where(better, tile_d, best_d)
-        best_i = torch.where(better, base + tile_best, best_i)
-
-        thresh = new_d * tie + tie_floor + qeps
-        pi = torch.full_like(d, math.pi)
-        w = torch.where(in_a, ang_t[:, None, :, 0],
-                        torch.where(in_b, ang_t[:, None, :, 1],
-                                    torch.where(in_c, ang_t[:, None, :, 2],
-                                                pi)))
-        upn = plane * torch.rsqrt(torch.clamp_min(snn, eps))[:, None, :]
-        contrib = torch.where(d <= thresh[:, :, None], w * upn,
-                              torch.zeros_like(d))
-        acc = torch.where(best_d <= thresh, acc,
-                          torch.zeros_like(acc)) + contrib.sum(dim=2)
-        best_d = new_d
-    return best_i, acc
 
 
 def nearest_triangle(points, tri, tile: int = 128):
@@ -279,9 +192,9 @@ def nearest_sign_scan(points, tri, feat=None, tile: int = 128,
     if feat is None:
         feat = _triangle_features(tri.detach())
     with torch.no_grad():
-        best_i, acc = _select_scan(points.detach()[None], tri.detach()[None],
-                                   (feat[0][None], feat[1][None]), tile,
-                                   rel_tie)
+        best_i, acc = init_cuda._select_scan(
+            points.detach()[None], tri.detach()[None], feat[1][None], tile,
+            rel_tie)
     d2 = _exact_d2(points[None], tri[best_i[0]][None])[0]
     return d2, acc[0]
 
@@ -333,9 +246,23 @@ class InitCulling:
     block: int
     nblocks: tuple
 
+    @property
+    def cand_idx(self):
+        """The (B, K) table of a single-bucket culling in block raster order
+        (``build_init_culling(..., bucketed=False)``)."""
+        if len(self.cands) != 1:
+            raise ValueError("cand_idx needs a single-bucket culling "
+                             "(build_init_culling(..., bucketed=False))")
+        return self.cands[0]
+
+    @property
+    def max_k(self) -> int:
+        return max(int(c.shape[1]) for c in self.cands)
+
 
 def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
-                       tile: int = 128) -> InitCulling:
+                       tile: int = 128, margin: float = 0.0,
+                       bucketed: bool = True) -> InitCulling:
     """Host-side spatial culling: per grid-block candidate triangle lists
     (``init_sign.py:495-657`` of the JAX package).
 
@@ -348,6 +275,12 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
     center with an absolute slack that only ever adds candidates.  Blocks
     are bucketed by candidate count (K = tile * 2^j), so the padded work
     tracks the mean count, not the heavy-tailed maximum.
+
+    ``margin`` (distance units) widens every block's upper bound, so a
+    culling built once stays exact while the vertices move by up to that
+    much (a shape fitter's gradient steps reusing one culling).
+    ``bucketed=False`` pads every block to one K (a multiple of ``tile``),
+    one table in block raster order (:attr:`InitCulling.cand_idx`).
     """
     verts = np.asarray(vertices, np.float64)
     elems = np.asarray(elements)
@@ -372,7 +305,7 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
     c_sq = (cen32 ** 2).sum(-1)
     t_sq = (tc32 ** 2).sum(0)
     r32 = r_t.astype(np.float32)
-    slack = np.float32(1e-3 * R_b + 1e-9)
+    slack = np.float32(1e-3 * (R_b + margin) + 1e-9)
 
     def keep_rows(cen_rows, csq_rows, cen_abs, cols, Rb):
         d = np.dot(cen_rows, tc32[:, cols] if cols is not None else tc32)
@@ -385,7 +318,7 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
         j = np.argmin(d + rs[None, :], axis=1)
         jg = cols[j] if cols is not None else j
         d_ex = np.sqrt(_np_point_tri_d2(cen_abs, tri[jg]))
-        ub = (d_ex + Rb).astype(np.float32)
+        ub = (d_ex + Rb + margin).astype(np.float32)
         d -= rs[None, :]
         thresh = ub * np.float32(1.0 + 1e-3) + np.float32(Rb) + slack
         return d <= thresh[:, None]
@@ -430,6 +363,11 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
     pos = (np.concatenate(hit_p_parts) if hit_p_parts
            else np.empty(0, np.int64))
     kmax = int(counts.max()) if B else 0
+    if not bucketed:
+        K = max(tile, -(-kmax // tile) * tile)
+        cand = np.full((B, K), E, np.int32)
+        cand[hit_r, pos] = hit_t
+        return InitCulling((cand,), (np.arange(B, dtype=np.int32),), bs, nb)
     levels = [tile]
     while levels[-1] < kmax:
         levels.append(levels[-1] * 2)
@@ -464,82 +402,76 @@ def _blocks_to_grid(results, nblocks, block, shape):
     return res[:shape[0], :shape[1], :shape[2]].contiguous()
 
 
-def _scan_blocks(grid, tri_s, feat, rows, borig, loc, *, dtype, tile):
-    """Signed distances of the point blocks at ``borig`` (G, 3) against
-    their candidate rows (G, K) of ``tri_s``: (G, P).  Points are
-    ``origin + dx * index`` of ``grid`` (for one block of a larger grid:
-    :class:`_BlockView`, the larger grid's origin and the global index)."""
-    origin = torch.tensor(grid.origin, dtype=dtype, device=tri_s.device)
-    pts = origin + float(scalar_type(dtype)(grid.dx)) * (
-        borig[:, None, :] + loc[None]).to(dtype)
-    with torch.no_grad():
-        best_i, ps = _select_scan(pts, tri_s.detach()[rows],
-                                  tuple(f[rows] for f in feat), tile)
-    # only the exact re-evaluation at the argmin triangle carries a gradient
-    d2 = _exact_d2(pts, tri_s[rows.gather(1, best_i)])
-    sgn = torch.where(ps < 0, -1.0, 1.0).to(dtype)
-    return sgn * torch.sqrt(torch.clamp_min(d2, 1e-30))
+@contextlib.contextmanager
+def _stage(name, device):
+    """Adds the seconds of the ``with`` block to :data:`stage_times`, the
+    device synchronised before and after, when it is a dict."""
+    if stage_times is None:
+        yield
+        return
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda _: None)
+    sync(device)
+    t0 = time.perf_counter()
+    yield
+    sync(device)
+    stage_times[name] = (stage_times.get(name, 0.0)
+                         + time.perf_counter() - t0)
 
 
-def _culled_init(grid, tri, culling: InitCulling, *, dtype, tile,
-                 index_offset=(0, 0, 0)):
-    """Blocked exact init over the bucketed per-block candidate lists."""
+def _init_rows(grid, tri, rows, block, nblocks, *, dtype, tile,
+               index_offset=(0, 0, 0)):
+    """The exact init over the scan rows ``rows`` (:class:`~.init_cuda.
+    Rows`, one ``block``^3 point block each, of the ``nblocks`` raster).
+
+    Every row's points are ``origin + dx * index`` of ``grid`` (for one block
+    of a larger grid: :class:`_BlockView`, the larger grid's origin and the
+    global index) and its shift their centre.  The selection scan (no
+    gradient) is K7 for float32, through its wrapper, and the plain version
+    for other dtypes; the exact squared distance to each point's triangle,
+    through which alone gradients flow, is re-evaluated in chunks of
+    :data:`_EXACT_POINTS` points."""
     device = tri.device
-    E = tri.shape[0]
     far = torch.full((1, 3, 3), 1e30, dtype=tri.dtype, device=device)
-    tri_s = torch.cat([tri, far], dim=0)            # sentinel at index E
-    feat = _triangle_features(tri_s.detach())
-    block = culling.block
-    nbx, nby, nbz = culling.nblocks
+    tri_s = torch.cat([tri, far], dim=0)       # sentinel at index E
+    _, ang = _triangle_features(tri_s.detach())
+    nbx, nby, nbz = nblocks
     P = block ** 3
-    loc = _block_offsets(block, device)
-    parts, places = [], []
-    for cand, bidx in zip(culling.cands, culling.bidxs):
-        Bg = cand.shape[0]
-        counts = (cand != E).sum(axis=1)
-        group = max(1, min(Bg, _PAIRS_PER_STEP // (P * tile)))
-        borig = np.stack([bidx // (nby * nbz), (bidx // nbz) % nby,
-                          bidx % nbz], axis=-1) * block \
-            + np.asarray(index_offset)
-        for g0 in range(0, Bg, group):
-            sl = slice(g0, g0 + group)
-            kt = max(1, int(counts[sl].max()))     # trailing sentinels only
-            rows = torch.as_tensor(cand[sl, :kt], dtype=torch.long,
-                                   device=device)
-            parts.append(_scan_blocks(
-                grid, tri_s, feat, rows,
-                torch.as_tensor(borig[sl], device=device), loc,
-                dtype=dtype, tile=tile))
-            places.append(bidx[sl])
-    results = torch.zeros((nbx * nby * nbz, P), dtype=dtype, device=device)
-    if parts:
-        idx = torch.as_tensor(np.concatenate(places), dtype=torch.long,
+    bidx = rows.bidx
+    borig = torch.as_tensor(
+        np.stack([bidx // (nby * nbz), (bidx // nbz) % nby, bidx % nbz],
+                 axis=-1) * block + np.asarray(index_offset, np.int64),
+        device=device)
+    origin = torch.tensor(grid.origin, dtype=dtype, device=device)
+    dxv = float(scalar_type(dtype)(grid.dx))
+    pts = origin + dxv * (
+        borig[:, None, :] + _block_offsets(block, device)[None]).to(dtype)
+    # each row's centre from the points' formula in float64, rounded once:
+    # the same bits whatever the rows around it (a mean over the rows is
+    # not: on the card its order of summation follows the number of rows),
+    # so a block of the sharded init scans exactly as in the whole grid
+    shift = (origin.double() + dxv * (borig.double()
+                                      + (block - 1) / 2.0)).to(dtype)
+    with _stage("select", device), torch.no_grad():
+        select = (init_cuda.select_rows if kernel_supported(grid.shape, dtype)
+                  else init_cuda.select_rows_plain)
+        best, acc = select(pts, shift, tri_s.detach().contiguous(),
+                           ang.contiguous(), rows, tile=tile)
+    with _stage("exact", device):
+        tid = triangle_ids(rows, best, device)
+        sgn = torch.where(acc < 0, -1.0, 1.0).to(dtype)
+        step = max(1, _EXACT_POINTS // P)
+        parts = []
+        for r0 in range(0, pts.shape[0], step):
+            sl = slice(r0, r0 + step)
+            d2 = _exact_d2(pts[sl], tri_s[tid[sl]])
+            parts.append(sgn[sl] * torch.sqrt(torch.clamp_min(d2, 1e-30)))
+        results = torch.zeros((nbx * nby * nbz, P), dtype=dtype,
                               device=device)
-        results = results.index_copy(0, idx, torch.cat(parts))
-    return _blocks_to_grid(results, culling.nblocks, block, grid.shape)
-
-
-def _dense_signed_distance_init(grid, tri, *, dtype, tile: int,
-                                block: int = 16, index_offset=(0, 0, 0)):
-    """All-pairs exact init: every point block scans every triangle."""
-    device = tri.device
-    nb = tuple(-(-s // block) for s in grid.shape)
-    B, P, E = nb[0] * nb[1] * nb[2], block ** 3, tri.shape[0]
-    group = max(1, min(B, _PAIRS_PER_STEP // (P * tile)))
-    loc = _block_offsets(block, device)
-    feat = _triangle_features(tri.detach())
-    bid = torch.arange(B, device=device)
-    borig = torch.stack([bid // (nb[1] * nb[2]), (bid // nb[2]) % nb[1],
-                         bid % nb[2]], dim=-1) * block \
-        + torch.tensor(index_offset, device=device)
-    all_rows = torch.arange(E, device=device)
-    parts = []
-    for g0 in range(0, B, group):
-        o = borig[g0:g0 + group]
-        rows = all_rows[None].expand(o.shape[0], E)
-        parts.append(_scan_blocks(grid, tri, feat, rows, o, loc,
-                                  dtype=dtype, tile=tile))
-    return _blocks_to_grid(torch.cat(parts), nb, block, grid.shape)
+        if parts:
+            results = results.index_copy(
+                0, torch.as_tensor(bidx, device=device), torch.cat(parts))
+        return _blocks_to_grid(results, nblocks, block, grid.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -581,18 +513,24 @@ def signed_distance_init(grid: Grid3D, vertices, elements, *,
         host_v = np.asarray(vertices)
         v = torch.as_tensor(host_v, dtype=dtype, device=device or "cpu")
     if isinstance(culling, str) and culling == "auto":
-        culling = build_init_culling(grid, host_v, elems, block=cull_block,
-                                     tile=tile)
+        with _stage("culling", v.device):
+            culling = build_init_culling(grid, host_v, elems,
+                                         block=cull_block, tile=tile)
     tri = v[torch.as_tensor(elems, dtype=torch.long, device=v.device)]
     off = (0, 0, 0)
     if block_of is not None:
         whole, off = block_of
         grid = _BlockView(grid.shape, whole.origin, whole.dx)
+    E = tri.shape[0]
     if culling is None:
-        return _dense_signed_distance_init(grid, tri, dtype=dtype, tile=tile,
-                                           index_offset=off)
-    return _culled_init(grid, tri, culling, dtype=dtype, tile=tile,
-                        index_offset=off)
+        block = 16          # the JAX package's dense block (init_sign.py:788)
+        nblocks = tuple(-(-s // block) for s in grid.shape)
+        rows = dense_rows(int(np.prod(nblocks)), E)
+    else:
+        block, nblocks = culling.block, culling.nblocks
+        rows = pack_rows(culling.cands, culling.bidxs, E)
+    return _init_rows(grid, tri, rows, block, nblocks, dtype=dtype, tile=tile,
+                      index_offset=off)
 
 
 def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,

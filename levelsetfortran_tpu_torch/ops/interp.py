@@ -36,13 +36,26 @@ def trilinear(field: torch.Tensor, grid: Grid3D,
     return c0 * (1 - tz) + c1 * tz
 
 
+def dot3(u, v):
+    """``u . v`` over a last axis of 3, added left to right in the dtype's
+    accumulation type (float32 for bfloat16): ``torch.sum``'s order on the
+    CPU, spelled out so that the card adds in the same order (a CUDA
+    ``torch.sum`` over three terms adds the first and the last first) and
+    the kernels K7 and K8 can follow it."""
+    p = u * v
+    acc = torch.float32 if p.dtype in (torch.bfloat16, torch.float16) \
+        else p.dtype
+    return (p[..., 0].to(acc) + p[..., 1].to(acc)
+            + p[..., 2].to(acc)).to(p.dtype)
+
+
 def sample_surface(phi, grad_phi, grid: Grid3D, points, *,
                    mag_eps: float = 1e-7):
     """(phi_at_points, unit_inward_direction) — vectorized ``setPhiSurf``;
     direction is zero where ``|grad|^2 < mag_eps`` (subs.f90:1154-1166)."""
     phi_s = trilinear(phi, grid, points)
     g = -trilinear(grad_phi, grid, points)
-    mag2 = torch.sum(g * g, dim=-1, keepdim=True)
+    mag2 = dot3(g, g)[..., None]
     direction = torch.where(
         mag2 < mag_eps, torch.zeros_like(g),
         g / torch.sqrt(torch.clamp_min(mag2, mag_eps * 1e-6)))

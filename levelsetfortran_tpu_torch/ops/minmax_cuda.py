@@ -90,7 +90,7 @@ def _dense_step(phi, sc, interior=None):
     f = torch.where(pave < sc["threshold"], torch.clamp_max(lap, 0.0),
                     torch.clamp_min(lap, 0.0))
     if interior is None:
-        interior = interior_mask(phi.shape, 1, phi.device)
+        interior = interior_mask(phi.shape, 1, device=phi.device)
     gate = interior & (torch.abs(phi) < sc["band_dx"])
     return torch.where(gate, phi + sc["h1"] * f, phi)
 
@@ -162,7 +162,7 @@ def _block_steps_plain(pad, dx, h1, geom, band_radius, threshold, ksteps,
     sc = minmax_scalars(pad.dtype, dx, h1, band_radius, threshold)
     shape, dev = pad.shape, pad.device
     interior = (global_interior_mask(shape, geom.origin, geom.gshape, 1, dev)
-                & interior_mask(shape, 1, dev))
+                & interior_mask(shape, 1, device=dev))
     prev, new = pad, pad
     for _ in range(ksteps):
         prev, new = new, _dense_step(new, sc, interior)

@@ -14,10 +14,11 @@ def shift(a: torch.Tensor, axis: int, off: int) -> torch.Tensor:
     return torch.roll(a, -off, dims=axis)
 
 
-def interior_mask(shape, depth: int, device=None) -> torch.Tensor:
-    """Boolean mask of cells at least ``depth`` points from every face
-    (``depth=1``: the update region ``subs.f90:744-746``; ``depth=4``: the
-    deep WENO region ``subs.f90:506``)."""
+def interior_mask(shape, depth: int, dtype=torch.bool,
+                  device=None) -> torch.Tensor:
+    """Mask of cells at least ``depth`` points from every face, as
+    ``dtype`` (``depth=1``: the update region ``subs.f90:744-746``;
+    ``depth=4``: the deep WENO region ``subs.f90:506``)."""
     masks = []
     for ax, n in enumerate(shape):
         idx = torch.arange(n, device=device)
@@ -25,7 +26,7 @@ def interior_mask(shape, depth: int, device=None) -> torch.Tensor:
         bshape = [1, 1, 1]
         bshape[ax] = n
         masks.append(m.reshape(bshape))
-    return masks[0] & masks[1] & masks[2]
+    return (masks[0] & masks[1] & masks[2]).to(dtype)
 
 
 def clamped_inner(phi: torch.Tensor) -> torch.Tensor:
@@ -42,7 +43,7 @@ def clamped_inner(phi: torch.Tensor) -> torch.Tensor:
 def boundary_extrapolate(phi: torch.Tensor, dx) -> torch.Tensor:
     """Ghost-layer BC: every boundary point becomes its nearest interior
     point plus ``dx`` (``subs.f90:858-897``)."""
-    bmask = ~interior_mask(phi.shape, 1, phi.device)
+    bmask = ~interior_mask(phi.shape, 1, device=phi.device)
     return torch.where(bmask, clamped_inner(phi) + dx, phi)
 
 

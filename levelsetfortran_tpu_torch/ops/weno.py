@@ -106,8 +106,8 @@ def weno_derivatives(phi, dx, *, eps_scale=1e-6, eps_floor=None,
     selection (subs.f90:506,646-664)."""
     if eps_floor is None:
         eps_floor = default_eps_floor(phi.dtype)
-    deep = (interior_mask(phi.shape, 4, phi.device) if deep_mask is None
-            else deep_mask)
+    deep = (interior_mask(phi.shape, 4, device=phi.device)
+            if deep_mask is None else deep_mask)
     minus, plus = [], []
     for axis in range(3):
         w_m, w_p = _weno5_axis(phi, axis, dx, eps_scale, eps_floor,

@@ -207,7 +207,7 @@ def _interior_update(phi, sign_src, sc, quirk_y_p5_zero, deep=None):
     faces; a block of a larger grid passes its global-coordinate mask)."""
     ratio_floor = sc["ratio_floor"]
     if deep is None:
-        deep = interior_mask(phi.shape, 4, phi.device)
+        deep = interior_mask(phi.shape, 4, device=phi.device)
     pos = sign_src > 0.0
     total = None
     for axis in range(3):
@@ -231,7 +231,7 @@ def _interior_update(phi, sign_src, sc, quirk_y_p5_zero, deep=None):
 
 def _ghost_bc(upd, dx):
     """Face cell = clamped inner neighbour's UPDATED value + dx."""
-    return torch.where(interior_mask(upd.shape, 1, upd.device), upd,
+    return torch.where(interior_mask(upd.shape, 1, device=upd.device), upd,
                        clamped_inner(upd) + dx)
 
 
@@ -442,7 +442,7 @@ def reinit_step_block_plain(pad, sign_pad, dx, h, geom: BlockGeom, *,
     res = torch.where(face, global_clamped_inner(upd, o, g) + sc["dx"], upd)
     # a cell's stencil (radius 3 where deep, else 1) must stay in the array;
     # a face cell evaluates its clamped inner neighbour's
-    ok3, ok1 = (interior_mask(shape, r, dev) for r in (3, 1))
+    ok3, ok1 = (interior_mask(shape, r, device=dev) for r in (3, 1))
     valid = global_clamped_inner(torch.where(deep, ok3, ok1), o, g)
     written = in_grid & valid
     if live is not None:

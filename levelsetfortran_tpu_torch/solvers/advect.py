@@ -3,7 +3,10 @@
 
 phi and grad phi are frozen during advection, so each node's trajectory
 depends only on its own position: the reference's per-node sweep equals a
-batched Jacobi iteration over all nodes.
+batched Jacobi iteration over all nodes.  A float32 field runs every
+iteration in one launch of kernel K8 (``ops/advect_cuda.py``); bfloat16
+and float64 run the plain loop on their own device, as the JAX package's
+dtype routing sends them to its jnp path.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ import torch
 
 from ..grid.grid import Grid3D
 from ..ops.band import narrow_band
+from ..ops import advect_cuda
 from ..ops.derivs import first_derivative
-from ..ops.interp import sample_surface
+from ..ops.weno_cuda import kernel_supported
 
 
 class AdvectResult(NamedTuple):
@@ -42,10 +46,7 @@ def advect_nodes(phi, grid: Grid3D, positions, dx, iters: int = 1000, *,
     grad = banded_gradient(phi, dx, order=order,
                            stencil_radius=stencil_radius,
                            quirk_deriv8_y=quirk_deriv8_y)
-    x = positions
-    for _ in range(iters):
-        p, direction = sample_surface(phi, grad, grid, x)
-        move = (p > eps).to(x.dtype)
-        x = x + (move * p)[:, None] * direction
-    p_final, _ = sample_surface(phi, grad, grid, x)
+    step = (advect_cuda.advect if kernel_supported(phi.shape, phi.dtype)
+            else advect_cuda.advect_plain)
+    x, p_final = step(phi, grad, grid, positions, iters, eps)
     return AdvectResult(positions=x, phi_surf=p_final)

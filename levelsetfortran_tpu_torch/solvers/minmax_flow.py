@@ -55,7 +55,7 @@ def minmax_step(phi, dx, h1, *, band_radius=4.1, threshold=0.0,
     nb, _ = narrow_band(phi, dx, band_radius, band_radius)
     f = minmax_rhs(phi, dx, threshold=threshold, avg_halfwidth=avg_halfwidth,
                    use_true_curvature=use_true_curvature)
-    gate = nb & interior_mask(phi.shape, 1, phi.device)
+    gate = nb & interior_mask(phi.shape, 1, device=phi.device)
     return torch.where(gate, phi + h1 * f, phi)
 
 

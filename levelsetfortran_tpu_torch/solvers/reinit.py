@@ -55,7 +55,8 @@ def reinit_step(phi, phi_sign_src, dx, h, *, eps_scale=1e-6, eps_floor=None,
         grad_mag = grad_fn(phi)
     sgn = smeared_sign(phi_sign_src, dx, grad_mag)
     update = phi + h * sgn * (1.0 - grad_mag)
-    phi = torch.where(interior_mask(phi.shape, 1, phi.device), update, phi)
+    phi = torch.where(interior_mask(phi.shape, 1, device=phi.device),
+                      update, phi)
     return boundary_extrapolate(phi, dx)
 
 
