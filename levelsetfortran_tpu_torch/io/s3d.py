@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.profiling import span
 from .stl import SurfaceMesh
 
 
@@ -12,7 +13,7 @@ def write_s3d(path: str, mesh: SurfaceMesh,
               coords: np.ndarray | None = None) -> None:
     """Write mesh connectivity plus (optionally advected) node coordinates."""
     coords = mesh.vertices if coords is None else np.asarray(coords)
-    with open(path, "w") as f:
+    with span("lsf.write_s3d"), open(path, "w") as f:
         f.write(f" {mesh.n_elems} {mesh.n_nodes} {mesh.n_bnd_elem}"
                 f" {mesh.bnd_normals.shape[0]}\n")
         for k in range(mesh.n_elems):

@@ -15,6 +15,8 @@ import struct
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class SurfaceMesh:
@@ -130,7 +132,7 @@ def _finish(tri_verts: np.ndarray) -> SurfaceMesh:
 
 def read_stl(path: str) -> SurfaceMesh:
     """Read a binary or ASCII STL file into a deduplicated SurfaceMesh."""
-    with open(path, "rb") as f:
+    with span("lsf.read_stl"), open(path, "rb") as f:
         head = f.read(5)
         f.seek(0)
         if head == b"solid":

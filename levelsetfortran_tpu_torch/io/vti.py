@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..grid.grid import Grid3D
+from ..utils.profiling import span
 
 _LF = b"\n"
 
@@ -59,12 +60,15 @@ def write_vti(path: str, phi: np.ndarray, grid: Grid3D, *,
               name: str = "phi", ref_compat: bool = False) -> None:
     """Write a scalar field of shape ``grid.shape`` (axes x, y, z);
     ``ref_compat``: declare the reference's payload byte count."""
-    phi = np.asarray(phi, dtype=np.float64)
-    if phi.shape != grid.shape:
-        raise ValueError(f"phi shape {phi.shape} != grid shape {grid.shape}")
-    _write_framed(path, grid, name,
-                  [np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()],
-                  ref_compat)
+    with span("lsf.write_vti"):
+        phi = np.asarray(phi, dtype=np.float64)
+        if phi.shape != grid.shape:
+            raise ValueError(f"phi shape {phi.shape} != grid shape "
+                             f"{grid.shape}")
+        _write_framed(
+            path, grid, name,
+            [np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()],
+            ref_compat)
 
 
 def write_vti_streaming(path: str, blocks, grid: Grid3D, mesh, *,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..grid.grid import Grid3D
+from ..utils.profiling import count, span
 from . import init_cuda
 from .init_cuda import dense_rows, pack_rows, triangle_ids
 from .weno_cuda import kernel_supported, scalar_type
@@ -51,7 +52,10 @@ _EXACT_POINTS = 2 ** 22
 #: to it, the device synchronised at each boundary: "culling" (the host
 #: build of the candidate lists), "select" (K7 or its plain version) and
 #: "exact" (the re-evaluation at each point's triangle and the field's
-#: assembly).  None (the default): no clock and no synchronisation.
+#: assembly).  None (the default): no clock and no synchronisation.  The
+#: stages' spans (``lsf.init.<stage>``, :func:`_stage`) time the same
+#: blocks without synchronising; this survives for the benchmark's
+#: ``init.culling_s`` alone.
 stage_times = None
 
 
@@ -323,69 +327,74 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
         thresh = ub * np.float32(1.0 + 1e-3) + np.float32(Rb) + slack
         return d <= thresh[:, None]
 
-    cf = 4
-    nbc = tuple(-(-x // cf) for x in nb)
-    R_c = grid.dx * np.sqrt(3.0) * (cf * bs - 1) / 2.0
-    pid = np.arange(B)
-    pbx = (pid // (nb[1] * nb[2])) // cf
-    pby = ((pid // nb[2]) % nb[1]) // cf
-    pbz = (pid % nb[2]) // cf
-    parent_of = (pbx * nbc[1] + pby) * nbc[2] + pbz
-    Bc = nbc[0] * nbc[1] * nbc[2]
-    psum = np.zeros((Bc, 3), np.float64)
-    pcnt = np.zeros(Bc, np.int64)
-    np.add.at(psum, parent_of, cen32.astype(np.float64))
-    np.add.at(pcnt, parent_of, 1)
-    pcen = (psum / np.maximum(pcnt, 1)[:, None]).astype(np.float32)
-    keep_c = keep_rows(pcen, (pcen ** 2).sum(-1),
-                       pcen.astype(np.float64) + shift, None, R_c + R_b)
-    order = np.argsort(parent_of, kind="stable")
-    bounds = np.searchsorted(parent_of[order], np.arange(Bc + 1))
-    for pc in range(Bc):
-        rows = order[bounds[pc]:bounds[pc + 1]]
-        if rows.size == 0:
-            continue
-        cols = np.nonzero(keep_c[pc])[0]
-        keep = keep_rows(cen32[rows], c_sq[rows], centers[rows], cols, R_b)
-        rr, tt = np.nonzero(keep)
-        cnt = keep.sum(axis=1)
-        local_start = np.zeros(rows.size + 1, np.int64)
-        np.cumsum(cnt, out=local_start[1:])
-        hit_r_parts.append(rows[rr].astype(np.int64))
-        hit_t_parts.append(cols[tt].astype(np.int32))
-        hit_p_parts.append(np.arange(rr.size, dtype=np.int64)
-                           - local_start[rr])
-        counts[rows] = cnt
-    hit_r = (np.concatenate(hit_r_parts) if hit_r_parts
-             else np.empty(0, np.int64))
-    hit_t = (np.concatenate(hit_t_parts) if hit_t_parts
-             else np.empty(0, np.int32))
-    pos = (np.concatenate(hit_p_parts) if hit_p_parts
-           else np.empty(0, np.int64))
-    kmax = int(counts.max()) if B else 0
-    if not bucketed:
-        K = max(tile, -(-kmax // tile) * tile)
-        cand = np.full((B, K), E, np.int32)
-        cand[hit_r, pos] = hit_t
-        return InitCulling((cand,), (np.arange(B, dtype=np.int32),), bs, nb)
-    levels = [tile]
-    while levels[-1] < kmax:
-        levels.append(levels[-1] * 2)
-    level_of = np.searchsorted(np.asarray(levels), counts)
-    hit_level = level_of[hit_r]
-    cands, bidxs = [], []
-    for li, K in enumerate(levels):
-        sel = np.nonzero(level_of == li)[0]
-        if sel.size == 0:
-            continue
-        local = np.empty(B, np.int64)
-        local[sel] = np.arange(sel.size)
-        m = hit_level == li
-        cand = np.full((sel.size, K), E, np.int32)
-        cand[local[hit_r[m]], pos[m]] = hit_t[m]
-        cands.append(cand)
-        bidxs.append(sel.astype(np.int32))
-    return InitCulling(tuple(cands), tuple(bidxs), bs, nb)
+    with span("lsf.init.culling.parents"):
+        cf = 4
+        nbc = tuple(-(-x // cf) for x in nb)
+        R_c = grid.dx * np.sqrt(3.0) * (cf * bs - 1) / 2.0
+        pid = np.arange(B)
+        pbx = (pid // (nb[1] * nb[2])) // cf
+        pby = ((pid // nb[2]) % nb[1]) // cf
+        pbz = (pid % nb[2]) // cf
+        parent_of = (pbx * nbc[1] + pby) * nbc[2] + pbz
+        Bc = nbc[0] * nbc[1] * nbc[2]
+        psum = np.zeros((Bc, 3), np.float64)
+        pcnt = np.zeros(Bc, np.int64)
+        np.add.at(psum, parent_of, cen32.astype(np.float64))
+        np.add.at(pcnt, parent_of, 1)
+        pcen = (psum / np.maximum(pcnt, 1)[:, None]).astype(np.float32)
+        keep_c = keep_rows(pcen, (pcen ** 2).sum(-1),
+                           pcen.astype(np.float64) + shift, None, R_c + R_b)
+        order = np.argsort(parent_of, kind="stable")
+        bounds = np.searchsorted(parent_of[order], np.arange(Bc + 1))
+    with span("lsf.init.culling.blocks"):
+        for pc in range(Bc):
+            rows = order[bounds[pc]:bounds[pc + 1]]
+            if rows.size == 0:
+                continue
+            cols = np.nonzero(keep_c[pc])[0]
+            keep = keep_rows(cen32[rows], c_sq[rows], centers[rows], cols,
+                             R_b)
+            rr, tt = np.nonzero(keep)
+            cnt = keep.sum(axis=1)
+            local_start = np.zeros(rows.size + 1, np.int64)
+            np.cumsum(cnt, out=local_start[1:])
+            hit_r_parts.append(rows[rr].astype(np.int64))
+            hit_t_parts.append(cols[tt].astype(np.int32))
+            hit_p_parts.append(np.arange(rr.size, dtype=np.int64)
+                               - local_start[rr])
+            counts[rows] = cnt
+        hit_r = (np.concatenate(hit_r_parts) if hit_r_parts
+                 else np.empty(0, np.int64))
+        hit_t = (np.concatenate(hit_t_parts) if hit_t_parts
+                 else np.empty(0, np.int32))
+        pos = (np.concatenate(hit_p_parts) if hit_p_parts
+               else np.empty(0, np.int64))
+    with span("lsf.init.culling.buckets"):
+        kmax = int(counts.max()) if B else 0
+        if not bucketed:
+            K = max(tile, -(-kmax // tile) * tile)
+            cand = np.full((B, K), E, np.int32)
+            cand[hit_r, pos] = hit_t
+            return InitCulling((cand,), (np.arange(B, dtype=np.int32),), bs,
+                               nb)
+        levels = [tile]
+        while levels[-1] < kmax:
+            levels.append(levels[-1] * 2)
+        level_of = np.searchsorted(np.asarray(levels), counts)
+        hit_level = level_of[hit_r]
+        cands, bidxs = [], []
+        for li, K in enumerate(levels):
+            sel = np.nonzero(level_of == li)[0]
+            if sel.size == 0:
+                continue
+            local = np.empty(B, np.int64)
+            local[sel] = np.arange(sel.size)
+            m = hit_level == li
+            cand = np.full((sel.size, K), E, np.int32)
+            cand[local[hit_r[m]], pos[m]] = hit_t[m]
+            cands.append(cand)
+            bidxs.append(sel.astype(np.int32))
+        return InitCulling(tuple(cands), tuple(bidxs), bs, nb)
 
 
 def _block_offsets(block: int, device):
@@ -404,19 +413,22 @@ def _blocks_to_grid(results, nblocks, block, shape):
 
 @contextlib.contextmanager
 def _stage(name, device):
-    """Adds the seconds of the ``with`` block to :data:`stage_times`, the
-    device synchronised before and after, when it is a dict."""
-    if stage_times is None:
+    """The span ``lsf.init.<name>`` around the ``with`` block; when
+    :data:`stage_times` is a dict, also adds the block's seconds to it,
+    the device synchronised before and after (that clock survives only
+    for the benchmark's ``init.culling_s``)."""
+    with span("lsf.init." + name):
+        if stage_times is None:
+            yield
+            return
+        sync = (torch.cuda.synchronize if device.type == "cuda"
+                else lambda _: None)
+        sync(device)
+        t0 = time.perf_counter()
         yield
-        return
-    sync = (torch.cuda.synchronize if device.type == "cuda"
-            else lambda _: None)
-    sync(device)
-    t0 = time.perf_counter()
-    yield
-    sync(device)
-    stage_times[name] = (stage_times.get(name, 0.0)
-                         + time.perf_counter() - t0)
+        sync(device)
+        stage_times[name] = (stage_times.get(name, 0.0)
+                             + time.perf_counter() - t0)
 
 
 def _init_rows(grid, tri, rows, block, nblocks, *, dtype, tile,
@@ -452,6 +464,8 @@ def _init_rows(grid, tri, rows, block, nblocks, *, dtype, tile,
     # so a block of the sharded init scans exactly as in the whole grid
     shift = (origin.double() + dxv * (borig.double()
                                       + (block - 1) / 2.0)).to(dtype)
+    count("init.pairs", rows.pairs_per_point * P)
+    count("init.points", math.prod(grid.shape))
     with _stage("select", device), torch.no_grad():
         select = (init_cuda.select_rows if kernel_supported(grid.shape, dtype)
                   else init_cuda.select_rows_plain)
@@ -504,33 +518,36 @@ def signed_distance_init(grid: Grid3D, vertices, elements, *,
     larger grid that starts at that global index; the points are then
     formed from the larger grid's origin and the global index (see
     :func:`signed_distance_init_sharded`)."""
-    elems = np.asarray(elements.cpu() if isinstance(elements, torch.Tensor)
-                       else elements)
-    if isinstance(vertices, torch.Tensor):
-        v = vertices.to(dtype=dtype, device=device or vertices.device)
-        host_v = vertices.detach().cpu().double().numpy()
-    else:
-        host_v = np.asarray(vertices)
-        v = torch.as_tensor(host_v, dtype=dtype, device=device or "cpu")
-    if isinstance(culling, str) and culling == "auto":
-        with _stage("culling", v.device):
-            culling = build_init_culling(grid, host_v, elems,
-                                         block=cull_block, tile=tile)
-    tri = v[torch.as_tensor(elems, dtype=torch.long, device=v.device)]
-    off = (0, 0, 0)
-    if block_of is not None:
-        whole, off = block_of
-        grid = _BlockView(grid.shape, whole.origin, whole.dx)
-    E = tri.shape[0]
-    if culling is None:
-        block = 16          # the JAX package's dense block (init_sign.py:788)
-        nblocks = tuple(-(-s // block) for s in grid.shape)
-        rows = dense_rows(int(np.prod(nblocks)), E)
-    else:
-        block, nblocks = culling.block, culling.nblocks
-        rows = pack_rows(culling.cands, culling.bidxs, E)
-    return _init_rows(grid, tri, rows, block, nblocks, dtype=dtype, tile=tile,
-                      index_offset=off)
+    with span("lsf.init"):
+        elems = np.asarray(elements.cpu()
+                           if isinstance(elements, torch.Tensor)
+                           else elements)
+        if isinstance(vertices, torch.Tensor):
+            v = vertices.to(dtype=dtype, device=device or vertices.device)
+            host_v = vertices.detach().cpu().double().numpy()
+        else:
+            host_v = np.asarray(vertices)
+            v = torch.as_tensor(host_v, dtype=dtype, device=device or "cpu")
+        if isinstance(culling, str) and culling == "auto":
+            with _stage("culling", v.device):
+                culling = build_init_culling(grid, host_v, elems,
+                                             block=cull_block, tile=tile)
+        tri = v[torch.as_tensor(elems, dtype=torch.long, device=v.device)]
+        off = (0, 0, 0)
+        if block_of is not None:
+            whole, off = block_of
+            grid = _BlockView(grid.shape, whole.origin, whole.dx)
+        E = tri.shape[0]
+        with span("lsf.init.pack_rows"):
+            if culling is None:
+                block = 16  # the JAX package's dense block (init_sign.py:788)
+                nblocks = tuple(-(-s // block) for s in grid.shape)
+                rows = dense_rows(int(np.prod(nblocks)), E)
+            else:
+                block, nblocks = culling.block, culling.nblocks
+                rows = pack_rows(culling.cands, culling.bidxs, E)
+        return _init_rows(grid, tri, rows, block, nblocks, dtype=dtype,
+                          tile=tile, index_offset=off)
 
 
 def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,

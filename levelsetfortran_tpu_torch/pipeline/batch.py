@@ -62,6 +62,7 @@ from ..solvers.advect import advect_nodes
 from ..solvers.minmax_flow import minmax_flow
 from ..solvers.reinit import reinit, rms_denominator
 from ..utils.logging import StageTimer, log_event
+from ..utils.profiling import count, span
 
 MeshLike = Union[str, SurfaceMesh]
 STRATEGIES = ("auto", "packed", "sequential")
@@ -98,6 +99,7 @@ class _Solve:
 
     def settle(self, dsq, tol) -> None:
         """The host read of this step's (B,) vector and the stop rule."""
+        count("batch.host_reads")
         step_rms = np.sqrt(dsq.cpu().numpy() / self.denom)
         self.rms = np.where(self.done, self.rms, step_rms)
         self.counts += ~self.done
@@ -116,17 +118,19 @@ def _batched_solves(problems, iters: int, tol) -> list:
     device) side by side: each step launches every running batch before it
     reads any batch's RMS vector, so their devices work together.  Each
     batch's result is the one it would have alone."""
-    solves = [_Solve(phi0, step) for phi0, step in problems]
-    n = 0
-    while n < iters:
-        running = [s for s in solves if not s.done.all()]
-        if not running:
-            break
-        dsqs = [s.launch(n) for s in running]
-        for s, dsq in zip(running, dsqs):
-            s.settle(dsq, tol)
-        n += 1
-    return [s.result() for s in solves]
+    with span("lsf.batched_solve"):
+        solves = [_Solve(phi0, step) for phi0, step in problems]
+        n = 0
+        while n < iters:
+            running = [s for s in solves if not s.done.all()]
+            if not running:
+                break
+            count("batch.steps")
+            dsqs = [s.launch(n) for s in running]
+            for s, dsq in zip(running, dsqs):
+                s.settle(dsq, tol)
+            n += 1
+        return [s.result() for s in solves]
 
 
 def _reinit_packed_step(phi0, dx, h, *, eps_scale=1e-6, eps_floor=None,
@@ -263,12 +267,19 @@ def run_batch(inputs: Sequence[MeshLike],
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: "
                          f"{', '.join(STRATEGIES)}")
-    timer = timer or StageTimer()
+    with span("lsf.run_batch"):
+        return _run_batch(inputs, config, out_dir, write_outputs,
+                          data_parallel, strategy, timer or StageTimer())
+
+
+def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
+               strategy, timer):
     cfg = config
     dtype = cfg.dtype
     device = cfg.torch_device()
 
-    loaded = [_load(m) for m in inputs]
+    with span("lsf.run_batch.load"):
+        loaded = [_load(m) for m in inputs]
     meshes = [m for m, _ in loaded]
     names = [n if n != "surface" else f"surface{i}"
              for i, (_, n) in enumerate(loaded)]
@@ -299,13 +310,15 @@ def run_batch(inputs: Sequence[MeshLike],
         culling = None if cfg.init_culling == "off" else "auto"
 
         def init(g, m, dev):
-            return signed_distance_init(
-                g, m.vertices, m.elements, dtype=dtype, device=dev,
-                culling=culling, cull_block=cfg.init_cull_block)
+            with span("lsf.run_batch.init"):
+                return signed_distance_init(
+                    g, m.vertices, m.elements, dtype=dtype, device=dev,
+                    culling=culling, cull_block=cfg.init_cull_block)
     else:
         def init(g, m, dev):
-            return initialize_sign_field(g, m.vertices, m.elements,
-                                         dtype=dtype, device=dev)
+            with span("lsf.run_batch.init"):
+                return initialize_sign_field(g, m.vertices, m.elements,
+                                             dtype=dtype, device=dev)
     phi0 = [torch.stack([init(grids[j], meshes[j], dev) for j in share])
             for share, dev in zip(shares, devices)]
     sync()
@@ -354,23 +367,18 @@ def run_batch(inputs: Sequence[MeshLike],
     # (share, index in it) of each geometry, in batch order
     where = [(s, k) for s, share in enumerate(shares)
              for k in range(len(share))]
-    advected = [
-        advect_nodes(m[s].phi[k], grids[i],
-                     torch.as_tensor(meshes[i].vertices, dtype=dtype,
-                                     device=devices[s]),
-                     cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
-                     order=cfg.advect_grad_order,
-                     stencil_radius=cfg.stencil_band_radius,
-                     quirk_deriv8_y=cfg.quirks.deriv8_y_jp1).positions
-        for i, (s, k) in enumerate(where)]
+    with span("lsf.run_batch.advect"):
+        advected = [
+            advect_nodes(m[s].phi[k], grids[i],
+                         torch.as_tensor(meshes[i].vertices, dtype=dtype,
+                                         device=devices[s]),
+                         cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
+                         order=cfg.advect_grad_order,
+                         stencil_radius=cfg.stencil_band_radius,
+                         quirk_deriv8_y=cfg.quirks.deriv8_y_jp1).positions
+            for i, (s, k) in enumerate(where)]
     sync()
     timer.mark("advect")
-
-    sums = []
-    for rs, ms in zip(r, m):
-        diff = ms.phi - rs.phi
-        sums += torch.sum(diff * diff, dim=(1, 2, 3)).cpu().tolist()
-    asym = [math.sqrt(v / rms_denominator(shape)) for v in sums]
 
     def host(x):
         return x.detach().to("cpu", torch.float64).numpy()
@@ -381,24 +389,31 @@ def run_batch(inputs: Sequence[MeshLike],
               rms=np.concatenate([rs.final_rms for rs in r]).tolist())
     log_event("batch_minmax", iterations=m_iters.tolist(),
               rms=np.concatenate([ms.final_rms for ms in m]).tolist())
-    items = []
-    for i, (mesh, g, name) in enumerate(zip(meshes, grids, names)):
-        s, k = where[i]
-        item = BatchItem(
-            mesh=mesh, grid=g, phi_init=host(r[s].phi[k]),
-            phi_smoothed=host(m[s].phi[k]), advected=host(advected[i]),
-            asymptotic_error=asym[i], reinit_iters=int(r_iters[i]),
-            minmax_iters=int(m_iters[i]), name=name)
-        items.append(item)
-        if write_outputs:
-            d = os.path.join(out_dir or ".", name)
-            os.makedirs(d, exist_ok=True)
-            write_vti(os.path.join(d, "signedDistanceFunction.vti"),
-                      item.phi_init, g)
-            write_vti(os.path.join(d, "smoothedDistanceFunction.vti"),
-                      item.phi_smoothed, g)
-            write_s3d(os.path.join(d, name + ".s3d"), mesh, item.advected)
+    with span("lsf.run_batch.to_host"):
+        sums = []
+        for rs, ms in zip(r, m):
+            diff = ms.phi - rs.phi
+            sums += torch.sum(diff * diff, dim=(1, 2, 3)).cpu().tolist()
+        asym = [math.sqrt(v / rms_denominator(shape)) for v in sums]
+        items = []
+        for i, (mesh, g, name) in enumerate(zip(meshes, grids, names)):
+            s, k = where[i]
+            items.append(BatchItem(
+                mesh=mesh, grid=g, phi_init=host(r[s].phi[k]),
+                phi_smoothed=host(m[s].phi[k]), advected=host(advected[i]),
+                asymptotic_error=asym[i], reinit_iters=int(r_iters[i]),
+                minmax_iters=int(m_iters[i]), name=name))
     if write_outputs:
+        with span("lsf.run_batch.write"):
+            for item in items:
+                d = os.path.join(out_dir or ".", item.name)
+                os.makedirs(d, exist_ok=True)
+                write_vti(os.path.join(d, "signedDistanceFunction.vti"),
+                          item.phi_init, item.grid)
+                write_vti(os.path.join(d, "smoothedDistanceFunction.vti"),
+                          item.phi_smoothed, item.grid)
+                write_s3d(os.path.join(d, item.name + ".s3d"), item.mesh,
+                          item.advected)
         log_event("batch_outputs", dir=out_dir or ".", n=len(items))
     timer.mark("total")
     return items

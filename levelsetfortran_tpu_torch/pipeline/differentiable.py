@@ -26,6 +26,7 @@ from ..parallel.sharded import minmax_fixed_sharded, reinit_fixed_sharded
 from ..render.sphere_trace import camera_rays, render
 from ..solvers.minmax_flow import minmax_flow_fixed
 from ..solvers.reinit import reinit_fixed
+from ..utils.profiling import span
 
 
 class DifferentiableRender(NamedTuple):
@@ -58,29 +59,31 @@ def render_from_vertices(vertices, elements, grid: Grid3D, *, eye, target,
     steps its own blocks, and renders the same image from the field
     gathered on every rank; the vertex cotangents of every shard are added
     in shard order, so every rank gets the same gradient."""
-    dx = grid.dx
-    if mesh is not None:
-        blocks = signed_distance_init_sharded(grid, vertices, elements, mesh,
-                                              dtype=vertices.dtype,
-                                              culling=culling)
-        blocks = reinit_fixed_sharded(mesh, blocks, dx, reinit_cfl * dx,
-                                      reinit_steps)
-        if minmax_steps:
-            blocks = minmax_fixed_sharded(mesh, blocks, dx,
-                                          minmax_cfl * dx * dx, minmax_steps)
-        phi = gather_everywhere(mesh, blocks, vertices.device)
-    else:
-        phi = signed_distance_init(grid, vertices, elements,
-                                   dtype=vertices.dtype,
-                                   device=vertices.device, culling=culling)
-        phi = reinit_fixed(phi, dx, reinit_cfl * dx, reinit_steps)
-        if minmax_steps:
-            phi = minmax_flow_fixed(phi, dx, minmax_cfl * dx * dx,
-                                    minmax_steps)
-    origins, dirs = camera_rays(height, width, eye=eye, target=target,
-                                dtype=phi.dtype, device=phi.device)
-    out = render(phi, grid, origins, dirs, n_steps=n_march_steps,
-                 hit_tol=0.25 * dx)
+    with span("lsf.render_from_vertices"):
+        dx = grid.dx
+        if mesh is not None:
+            blocks = signed_distance_init_sharded(
+                grid, vertices, elements, mesh, dtype=vertices.dtype,
+                culling=culling)
+            blocks = reinit_fixed_sharded(mesh, blocks, dx, reinit_cfl * dx,
+                                          reinit_steps)
+            if minmax_steps:
+                blocks = minmax_fixed_sharded(
+                    mesh, blocks, dx, minmax_cfl * dx * dx, minmax_steps)
+            phi = gather_everywhere(mesh, blocks, vertices.device)
+        else:
+            phi = signed_distance_init(grid, vertices, elements,
+                                       dtype=vertices.dtype,
+                                       device=vertices.device,
+                                       culling=culling)
+            phi = reinit_fixed(phi, dx, reinit_cfl * dx, reinit_steps)
+            if minmax_steps:
+                phi = minmax_flow_fixed(phi, dx, minmax_cfl * dx * dx,
+                                        minmax_steps)
+        origins, dirs = camera_rays(height, width, eye=eye, target=target,
+                                    dtype=phi.dtype, device=phi.device)
+        out = render(phi, grid, origins, dirs, n_steps=n_march_steps,
+                     hit_tol=0.25 * dx)
     return DifferentiableRender(image=out.image, depth=out.depth, phi=phi)
 
 
@@ -93,5 +96,6 @@ def image_loss_and_vertex_grad(vertices, elements, grid: Grid3D,
     v = vertices.detach().requires_grad_(True)
     out = render_from_vertices(v, elements, grid, **kw)
     loss = 0.5 * torch.sum((out.image - target_image) ** 2)
-    grad, = torch.autograd.grad(loss, v)
+    with span("lsf.vertex_grad"):
+        grad, = torch.autograd.grad(loss, v)
     return loss.detach(), grad

@@ -54,6 +54,7 @@ from ..solvers.minmax_flow import minmax_flow, minmax_flow_narrowband
 from ..solvers.reinit import reinit, reinit_narrowband, rms_denominator
 from ..utils.checkpoint import FieldCheckpointer
 from ..utils.logging import StageTimer, log_event
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -98,7 +99,12 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
              base: str = "surface", write_outputs: bool = False
              ) -> PipelineResult:
     """Pipeline on an in-memory mesh."""
-    timer = timer or StageTimer()
+    with span("lsf.run_mesh"):
+        return _run_mesh(mesh, config, timer or StageTimer(), out_dir, base,
+                         write_outputs)
+
+
+def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
     cfg = config
     dtype = cfg.dtype
     device = cfg.torch_device()
@@ -112,8 +118,9 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
                                  write_outputs)
 
     # --- grid setup (set3d.f90:89-173) ---
-    grid = gridmod.from_surface(mesh.vertices, cfg.dx, cfg.pad_cells)
-    dxx = cfg.dx / gridmod.surface_diag(mesh.vertices)   # set3d.f90:301
+    with span("lsf.run_mesh.grid"):
+        grid = gridmod.from_surface(mesh.vertices, cfg.dx, cfg.pad_cells)
+        dxx = cfg.dx / gridmod.surface_diag(mesh.vertices)   # set3d.f90:301
     log_event("grid", shape=list(grid.shape), dx=cfg.dx, device=str(device))
 
     # --- inside/outside classification (set3d.f90:196-268) ---
@@ -189,9 +196,10 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     timer.mark("advect")
 
     # --- asymptotic error (set3d.f90:508-521) ---
-    diff = phi_smoothed - phi_init
-    asym = math.sqrt(float(torch.sum(diff * diff))
-                     / rms_denominator(grid.shape))
+    with span("lsf.run_mesh.asym"):
+        diff = phi_smoothed - phi_init
+        asym = math.sqrt(float(torch.sum(diff * diff))
+                         / rms_denominator(grid.shape))
 
     # --- final reinit (set3d.f90:576-582) ---
     fargs = (phi_smoothed, cfg.dx, cfg.final_reinit_cfl * dxx,
@@ -204,9 +212,10 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     sync()
     timer.mark("total")                     # set3d.f90:652-654
 
-    phi_init_h, phi_smoothed_h, phi_final_h = (
-        _host(phi_init), _host(phi_smoothed), _host(rf.phi))
-    advected_h = _host(adv.positions)
+    with span("lsf.run_mesh.to_host"):
+        phi_init_h, phi_smoothed_h, phi_final_h = (
+            _host(phi_init), _host(phi_smoothed), _host(rf.phi))
+        advected_h = _host(adv.positions)
     log_event("reinit", iterations=r.iterations, rms=r.final_rms,
               diverged=r.diverged)
     log_event("minmax", iterations=m.iterations, rms=m.final_rms,
@@ -214,12 +223,14 @@ def run_mesh(mesh: SurfaceMesh, config: LevelSetConfig, *,
     log_event("asymptotic_error", rms=asym)
 
     if write_outputs:
-        os.makedirs(out_dir, exist_ok=True)
-        write_vti(os.path.join(out_dir, "signedDistanceFunction.vti"),
-                  phi_init_h, grid)
-        write_vti(os.path.join(out_dir, "smoothedDistanceFunction.vti"),
-                  phi_smoothed_h, grid)
-        write_s3d(os.path.join(out_dir, base + ".s3d"), mesh, advected_h)
+        with span("lsf.run_mesh.write"):
+            os.makedirs(out_dir, exist_ok=True)
+            write_vti(os.path.join(out_dir, "signedDistanceFunction.vti"),
+                      phi_init_h, grid)
+            write_vti(os.path.join(out_dir, "smoothedDistanceFunction.vti"),
+                      phi_smoothed_h, grid)
+            write_s3d(os.path.join(out_dir, base + ".s3d"), mesh,
+                      advected_h)
         log_event("outputs", dir=out_dir)
 
     return PipelineResult(

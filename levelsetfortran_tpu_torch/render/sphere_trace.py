@@ -21,6 +21,7 @@ import torch
 
 from ..grid.grid import Grid3D
 from ..ops.interp import trilinear
+from ..utils.profiling import span
 
 
 class RenderResult(NamedTuple):
@@ -55,30 +56,31 @@ class _TraceDepth(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        phi, origins, dirs, t = (x.detach() for x in ctx.saved_tensors)
-        grid = ctx.grid
-        with torch.enable_grad():
-            tt = t.detach().requires_grad_(True)
-            p = trilinear(phi, grid, origins + tt[..., None] * dirs)
-            dphi_dt, = torch.autograd.grad(p.sum(), tt)
-        # the implicit VJP holds only where the march converged to phi = 0;
-        # a truncated ray's depth is an artifact of the step count
-        converged = torch.abs(p.detach()) < 10.0 * ctx.hit_tol
-        safe = converged & (torch.abs(dphi_dt) > 1e-6)
-        one = torch.ones_like(dphi_dt)
-        inv = torch.where(safe, -1.0 / torch.where(safe, dphi_dt, one),
-                          torch.zeros_like(dphi_dt))
-        lam = g * inv
-        want = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [x.requires_grad_(w)
-                      for x, w in zip((phi, origins, dirs), want)]
-            s = torch.sum(lam * trilinear(
-                leaves[0], grid, leaves[1] + t[..., None] * leaves[2]))
-            wanted = [x for x, w in zip(leaves, want) if w]
-            grads = iter(torch.autograd.grad(s, wanted) if wanted else ())
-        return (*(next(grads) if w else None for w in want), None, None,
-                None, None)
+        with span("lsf.render.backward"):
+            phi, origins, dirs, t = (x.detach() for x in ctx.saved_tensors)
+            grid = ctx.grid
+            with torch.enable_grad():
+                tt = t.detach().requires_grad_(True)
+                p = trilinear(phi, grid, origins + tt[..., None] * dirs)
+                dphi_dt, = torch.autograd.grad(p.sum(), tt)
+            # the implicit VJP holds only where the march converged to phi = 0;
+            # a truncated ray's depth is an artifact of the step count
+            converged = torch.abs(p.detach()) < 10.0 * ctx.hit_tol
+            safe = converged & (torch.abs(dphi_dt) > 1e-6)
+            one = torch.ones_like(dphi_dt)
+            inv = torch.where(safe, -1.0 / torch.where(safe, dphi_dt, one),
+                              torch.zeros_like(dphi_dt))
+            lam = g * inv
+            want = ctx.needs_input_grad[:3]
+            with torch.enable_grad():
+                leaves = [x.requires_grad_(w)
+                          for x, w in zip((phi, origins, dirs), want)]
+                s = torch.sum(lam * trilinear(
+                    leaves[0], grid, leaves[1] + t[..., None] * leaves[2]))
+                wanted = [x for x, w in zip(leaves, want) if w]
+                grads = iter(torch.autograd.grad(s, wanted) if wanted else ())
+            return (*(next(grads) if w else None for w in want), None, None,
+                    None, None)
 
 
 def trace_depth(phi, grid: Grid3D, origins, dirs, n_steps: int = 64,
@@ -136,12 +138,14 @@ def render(phi, grid: Grid3D, origins, dirs, *, n_steps: int = 64,
            light=(0.5, -0.7, 1.0)) -> RenderResult:
     """Sphere-trace + Lambertian shade; every output differentiable in
     ``phi``."""
-    t = trace_depth(phi, grid, origins, dirs, n_steps, hit_tol, t_max)
-    x = origins + t[..., None] * dirs
-    hit = torch.abs(trilinear(phi, grid, x)) < 10.0 * hit_tol
-    n = surface_normal(phi, grid, x)
-    lvec = torch.as_tensor(light, dtype=phi.dtype, device=phi.device)
-    lvec = lvec / torch.linalg.vector_norm(lvec)
-    lambert = torch.clamp(torch.sum(n * lvec, dim=-1), 0.0, 1.0)
-    image = torch.where(hit, 0.1 + 0.9 * lambert, torch.zeros_like(lambert))
+    with span("lsf.render"):
+        t = trace_depth(phi, grid, origins, dirs, n_steps, hit_tol, t_max)
+        x = origins + t[..., None] * dirs
+        hit = torch.abs(trilinear(phi, grid, x)) < 10.0 * hit_tol
+        n = surface_normal(phi, grid, x)
+        lvec = torch.as_tensor(light, dtype=phi.dtype, device=phi.device)
+        lvec = lvec / torch.linalg.vector_norm(lvec)
+        lambert = torch.clamp(torch.sum(n * lvec, dim=-1), 0.0, 1.0)
+        image = torch.where(hit, 0.1 + 0.9 * lambert,
+                            torch.zeros_like(lambert))
     return RenderResult(depth=t, hit=hit, normal=n, image=image)

@@ -20,6 +20,7 @@ from ..ops.band import narrow_band
 from ..ops import advect_cuda
 from ..ops.derivs import first_derivative
 from ..ops.weno_cuda import kernel_supported
+from ..utils.profiling import span
 
 
 class AdvectResult(NamedTuple):
@@ -43,10 +44,12 @@ def advect_nodes(phi, grid: Grid3D, positions, dx, iters: int = 1000, *,
                  quirk_deriv8_y: bool = False) -> AdvectResult:
     """Move nodes onto the zero level set; only nodes with
     ``phi_surf > eps`` move (set3d.f90:493)."""
-    grad = banded_gradient(phi, dx, order=order,
-                           stencil_radius=stencil_radius,
-                           quirk_deriv8_y=quirk_deriv8_y)
-    step = (advect_cuda.advect if kernel_supported(phi.shape, phi.dtype)
-            else advect_cuda.advect_plain)
-    x, p_final = step(phi, grad, grid, positions, iters, eps)
+    with span("lsf.advect"):
+        grad = banded_gradient(phi, dx, order=order,
+                               stencil_radius=stencil_radius,
+                               quirk_deriv8_y=quirk_deriv8_y)
+        step = (advect_cuda.advect
+                if kernel_supported(phi.shape, phi.dtype)
+                else advect_cuda.advect_plain)
+        x, p_final = step(phi, grad, grid, positions, iters, eps)
     return AdvectResult(positions=x, phi_surf=p_final)

@@ -30,6 +30,7 @@ from ..ops.stencil import interior_mask
 from ..ops.reverse import remat_scan
 from ..ops.weno_cuda import route, solve_buffers, tile_activity
 from ..utils.metrics import emit_iteration
+from ..utils.profiling import span
 from .reinit import rms_denominator
 
 
@@ -73,25 +74,26 @@ def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
                      minmax_cuda.minmax_step_plain)
         bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
         sums = solve_buffers(phi0)
-    p, n, rms = phi0, 0, math.inf
-    while n < iters:
-        if fused:
-            new, dsq = step(
-                p, dx, h1, band_radius, threshold, out=bufs[n % 2],
-                with_rms=True, bufs=sums)
-        else:
-            new = minmax_step(p, dx, h1, band_radius=band_radius,
-                              threshold=threshold,
-                              avg_halfwidth=avg_halfwidth,
-                              use_true_curvature=use_true_curvature)
-            d = (new - p).double()
-            dsq = (d * d).sum()
-        p, n = new, n + 1
-        rms = math.sqrt(dsq.item() / denom)
-        emit_iteration("minmax", metrics_every, n, rms, cells=phi0.numel())
-        if rms < tol or math.isnan(rms):
-            break
-    return MinMaxResult(p, n, rms, math.isnan(rms))
+    with span("lsf.minmax"):
+        p, n, rms = phi0, 0, math.inf
+        while n < iters:
+            if fused:
+                new, dsq = step(
+                    p, dx, h1, band_radius, threshold, out=bufs[n % 2],
+                    with_rms=True, bufs=sums)
+            else:
+                new = minmax_step(p, dx, h1, band_radius=band_radius,
+                                  threshold=threshold,
+                                  avg_halfwidth=avg_halfwidth,
+                                  use_true_curvature=use_true_curvature)
+                d = (new - p).double()
+                dsq = (d * d).sum()
+            p, n = new, n + 1
+            rms = math.sqrt(dsq.item() / denom)
+            emit_iteration("minmax", metrics_every, n, rms, cells=phi0.numel())
+            if rms < tol or math.isnan(rms):
+                break
+        return MinMaxResult(p, n, rms, math.isnan(rms))
 
 
 def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
@@ -121,33 +123,34 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     args = (dx, h1, band_radius, threshold)
     fusedk = route(phi0, minmax_cuda.minmax_fusedk,
                    minmax_cuda.minmax_fusedk_plain)
-    p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
-    n, dsq, done = 0, None, False
-    while not done and n + chunk_steps <= iters:
-        active = tile_activity(p, dx, band_radius, window="owned")
-        for c in range(calls):
-            r = fusedk(p, *args, ksteps=K, active=active, out=q,
-                       mint=c == 0, with_rms=c == calls - 1)
-            p, q = q, p
-        n += chunk_steps
-        dsq = r[1]
-        rms = math.sqrt(dsq.item() / denom)
-        emit_iteration("minmax_narrowband", every, n, rms, band_tiles=active,
-                       cells=phi0.numel())
-        done = rms < tol or math.isnan(rms)
-    rem = 0 if done else iters - n
-    if rem:
-        active = tile_activity(p, dx, band_radius, window="owned")
-        sums = solve_buffers(p)
-        step = route(p, minmax_cuda.minmax_step,
-                     minmax_cuda.minmax_step_plain)
-        for _ in range(rem):
-            _, dsq = step(p, *args, active=active, out=q, with_rms=True,
-                          bufs=sums)
-            p, q = q, p
-    n += rem
-    rms = math.inf if dsq is None else math.sqrt(dsq.item() / denom)
-    return MinMaxResult(p, n, rms, math.isnan(rms))
+    with span("lsf.minmax_narrowband"):
+        p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
+        n, dsq, done = 0, None, False
+        while not done and n + chunk_steps <= iters:
+            active = tile_activity(p, dx, band_radius, window="owned")
+            for c in range(calls):
+                r = fusedk(p, *args, ksteps=K, active=active, out=q,
+                           mint=c == 0, with_rms=c == calls - 1)
+                p, q = q, p
+            n += chunk_steps
+            dsq = r[1]
+            rms = math.sqrt(dsq.item() / denom)
+            emit_iteration("minmax_narrowband", every, n, rms,
+                           band_tiles=active, cells=phi0.numel())
+            done = rms < tol or math.isnan(rms)
+        rem = 0 if done else iters - n
+        if rem:
+            active = tile_activity(p, dx, band_radius, window="owned")
+            sums = solve_buffers(p)
+            step = route(p, minmax_cuda.minmax_step,
+                         minmax_cuda.minmax_step_plain)
+            for _ in range(rem):
+                _, dsq = step(p, *args, active=active, out=q, with_rms=True,
+                              bufs=sums)
+                p, q = q, p
+        n += rem
+        rms = math.inf if dsq is None else math.sqrt(dsq.item() / denom)
+        return MinMaxResult(p, n, rms, math.isnan(rms))
 
 
 class _MinmaxFixed(torch.autograd.Function):
@@ -187,8 +190,9 @@ class _MinmaxFixed(torch.autograd.Function):
             return vjp(p_in, gp, *args, bufs=bufs)[0]
 
         zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
-        gp = reverse.run_reverse("minmax_flow_fixed", fstep, bstep, phi0,
-                                 g.contiguous(), steps, ctx.traj)
+        with span("lsf.minmax_fixed.backward"):
+            gp = reverse.run_reverse("minmax_flow_fixed", fstep, bstep,
+                                     phi0, g.contiguous(), steps, ctx.traj)
         cdx, ch = bufs.sums[0], bufs.sums[1]
         ctx.traj = None
         # band_radius and threshold enter through comparisons only
@@ -211,10 +215,11 @@ def minmax_flow_fixed(phi0, dx, h1, steps: int, *, band_radius=4.1,
     checkpointed (:func:`~..ops.reverse.remat_scan`), so the backward keeps
     one field per step; ``band_radius`` and ``threshold`` enter through
     comparisons only and get no gradient there."""
-    if kernel_form(avg_halfwidth, use_true_curvature):
-        return _MinmaxFixed.apply(phi0, dx, h1, band_radius, threshold,
-                                  int(steps))
-    return remat_scan(lambda p: minmax_step(
-        p, dx, h1, band_radius=band_radius, threshold=threshold,
-        avg_halfwidth=avg_halfwidth, use_true_curvature=use_true_curvature),
-        phi0, steps)
+    with span("lsf.minmax_fixed"):
+        if kernel_form(avg_halfwidth, use_true_curvature):
+            return _MinmaxFixed.apply(phi0, dx, h1, band_radius, threshold,
+                                      int(steps))
+        return remat_scan(lambda p: minmax_step(
+            p, dx, h1, band_radius=band_radius, threshold=threshold,
+            avg_halfwidth=avg_halfwidth,
+            use_true_curvature=use_true_curvature), phi0, steps)

@@ -32,6 +32,7 @@ from ..ops.sign import smeared_sign
 from ..ops.stencil import boundary_extrapolate, interior_mask
 from ..ops.weno import weno_godunov
 from ..utils.metrics import emit_iteration
+from ..utils.profiling import span
 
 
 class ReinitResult(NamedTuple):
@@ -85,26 +86,27 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
         step = _step(phi0)
         bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
         sums = weno_cuda.solve_buffers(phi0)
-    p, n, rms = phi0, 0, math.inf
-    while n < iters:
-        if grad_fn is None:
-            p, dsq = step(
-                p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
-                quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2],
-                with_rms=True, bufs=sums)
-        else:
-            new = reinit_step(p, sign, dx, h, eps_scale=eps_scale,
-                              eps_floor=eps_floor,
-                              quirk_y_p5_zero=quirk_y_p5_zero,
-                              grad_fn=grad_fn)
-            d = (new - p).double()
-            p, dsq = new, (d * d).sum()
-        n += 1
-        rms = math.sqrt(dsq.item() / denom)
-        emit_iteration("reinit", metrics_every, n, rms, cells=phi0.numel())
-        if rms < tol or math.isnan(rms):
-            break
-    return ReinitResult(p, n, rms, math.isnan(rms))
+    with span("lsf.reinit"):
+        p, n, rms = phi0, 0, math.inf
+        while n < iters:
+            if grad_fn is None:
+                p, dsq = step(
+                    p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
+                    quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2],
+                    with_rms=True, bufs=sums)
+            else:
+                new = reinit_step(p, sign, dx, h, eps_scale=eps_scale,
+                                  eps_floor=eps_floor,
+                                  quirk_y_p5_zero=quirk_y_p5_zero,
+                                  grad_fn=grad_fn)
+                d = (new - p).double()
+                p, dsq = new, (d * d).sum()
+            n += 1
+            rms = math.sqrt(dsq.item() / denom)
+            emit_iteration("reinit", metrics_every, n, rms, cells=phi0.numel())
+            if rms < tol or math.isnan(rms):
+                break
+        return ReinitResult(p, n, rms, math.isnan(rms))
 
 
 def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
@@ -136,22 +138,23 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
               quirk_y_p5_zero=quirk_y_p5_zero,
               bufs=weno_cuda.solve_buffers(phi0))
     step = _step(phi0)
-    p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
-    n, rms = 0, math.inf
-    while n < iters:
-        active = weno_cuda.tile_activity(p, dx, band_radius, margin,
-                                         window="band4")
-        for s in range(chunk):
-            r = step(p, sign, dx, h, active=active, out=q, mint=s == 0,
-                     with_rms=s == chunk - 1, **kw)
-            p, q = q, p
-        n += chunk
-        rms = math.sqrt(r[1].item() / denom)
-        emit_iteration("reinit_narrowband", every, n, rms, band_tiles=active,
-                       cells=phi0.numel())
-        if rms < tol or math.isnan(rms):
-            break
-    return ReinitResult(p, n, rms, math.isnan(rms))
+    with span("lsf.reinit_narrowband"):
+        p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
+        n, rms = 0, math.inf
+        while n < iters:
+            active = weno_cuda.tile_activity(p, dx, band_radius, margin,
+                                             window="band4")
+            for s in range(chunk):
+                r = step(p, sign, dx, h, active=active, out=q, mint=s == 0,
+                         with_rms=s == chunk - 1, **kw)
+                p, q = q, p
+            n += chunk
+            rms = math.sqrt(r[1].item() / denom)
+            emit_iteration("reinit_narrowband", every, n, rms,
+                           band_tiles=active, cells=phi0.numel())
+            if rms < tol or math.isnan(rms):
+                break
+        return ReinitResult(p, n, rms, math.isnan(rms))
 
 
 class _ReinitFixed(torch.autograd.Function):
@@ -190,8 +193,9 @@ class _ReinitFixed(torch.autograd.Function):
 
         zero = torch.zeros((), dtype=torch.float64, device=phi0.device)
         carry = (g.contiguous(), torch.zeros_like(phi0), zero, zero)
-        gp, cs, cdx, ch = reverse.run_reverse(
-            "reinit_fixed", fstep, bstep, phi0, carry, steps, ctx.traj)
+        with span("lsf.reinit_fixed.backward"):
+            gp, cs, cdx, ch = reverse.run_reverse(
+                "reinit_fixed", fstep, bstep, phi0, carry, steps, ctx.traj)
         ctx.traj = None
         # the sign source IS phi0: both cotangent paths land on it
         return (gp + cs, reverse.scalar_cotangent(ctx.meta[0], cdx),
@@ -211,7 +215,8 @@ def reinit_fixed(phi0, dx, h, steps: int, *, eps_scale=1e-6, eps_floor=None,
     (:func:`~..ops.reverse.remat_scan`)."""
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
               quirk_y_p5_zero=quirk_y_p5_zero)
-    if grad_fn is None:
-        return _ReinitFixed.apply(phi0, dx, h, int(steps), kw)
-    return remat_scan(lambda p: reinit_step(p, phi0, dx, h, grad_fn=grad_fn,
-                                            **kw), phi0, steps)
+    with span("lsf.reinit_fixed"):
+        if grad_fn is None:
+            return _ReinitFixed.apply(phi0, dx, h, int(steps), kw)
+        return remat_scan(lambda p: reinit_step(
+            p, phi0, dx, h, grad_fn=grad_fn, **kw), phi0, steps)

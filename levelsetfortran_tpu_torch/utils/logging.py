@@ -17,8 +17,9 @@ logger = logging.getLogger("levelsetfortran_tpu_torch")
 
 def log_event(stage: str, **fields) -> None:
     """One structured JSON record per event, from the primary process only
-    (rank 0 under a process group), as in the JAX package."""
-    if not is_primary():
+    (rank 0 under a process group), as in the JAX package.  Nothing is
+    built where the logger drops INFO records."""
+    if not logger.isEnabledFor(logging.INFO) or not is_primary():
         return
     logger.info(json.dumps({"stage": stage, "t": time.time(), **fields},
                            default=float))
