@@ -162,10 +162,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      B's whole init under torch.profiler under INIT_KERNELS CUDA kernels;
      then K8 (the advection) on run B's and run E's smoothed fields and
      nodes, bitwise the plain loop and the runs' own advected nodes, timed
-     beside the loop.  Phases 3, 4, 5 and 6 read K7's and K8's counters
-     (K8 stays at 0 under a mesh, whose advection runs its plain loop) and
-     print the init split into the host's culling build, the selection
-     and the exact re-evaluation.
+     beside the loop; then K10 (the init's culling on the card) at run
+     B's and the run cell's grids (256^3 at dx 0.00855): its rows bitwise
+     its plain version's on the card, a pair apart from the host build's
+     only within CULL_NEAR_ULPS of its threshold, timed beside the plain
+     version, the host build and the bound, and the init's field through
+     it bitwise the field on the host-built culling.  Phases 3, 4, 5 and 6
+     read K7's, K8's and K10's counters (K8 stays at 0 under a mesh, whose
+     advection runs its plain loop) and print the init split into the
+     culling build (K10 on the card), the selection and the exact
+     re-evaluation.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per CLI run and
 one per rank of runs J, L and G-ranks and of the options phase's ranks,
@@ -216,10 +222,13 @@ FP32_OPS_PER_S = 67e12
 #: evaluates each pair twice (its two passes).  Per node and iteration of
 #: the advection (and once more for the final sample): the index, its
 #: clamps and floor (21), four trilinear blends (84), |g|^2 (5), the
-#: direction (4) and the move (10).
+#: direction (4) and the move (10).  Per (row, triangle) pair of the
+#: culling (K10, a parent against every triangle, a block against its
+#: parent's survivors): the dot (5), * -2 and two sums (3), the clamp and
+#: the square root (2), the radius (1), the running argmin or the test (1).
 OPS = {"reinit": 452, "rms": 3, "minmax_band": 14, "reinit_vjp": 1600,
        "minmax_vjp_band": 19, "minmax_vjp": 16, "init_pair": 70,
-       "advect_iter": 124}
+       "advect_iter": 124, "cull_pair": 12}
 #: Run E, the batched serving path: four icospheres (5,120 triangles) and
 #: four boxes at dx 0.015 with the default config (pad 10): a common grid
 #: of 129^3 per geometry.  The boxes have 4 quads per edge (192
@@ -300,12 +309,12 @@ class Logged:
 
 def run_counters():
     """The launch counters of the kernels a pipeline run may launch."""
-    from levelsetfortran_tpu_torch.ops import advect_cuda, init_cuda
+    from levelsetfortran_tpu_torch.ops import advect_cuda, cull_cuda, init_cuda
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     return (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
             wc.reinit_step_block, mc.minmax_step_block,
-            init_cuda.select_rows, advect_cuda.advect)
+            init_cuda.select_rows, advect_cuda.advect, cull_cuda.cull_rows)
 
 
 @contextlib.contextmanager
@@ -321,8 +330,8 @@ def init_split():
 
 
 def split_text(times):
-    """The init split as a line's words: the host's culling build, K7 (or
-    its plain version) and the exact re-evaluation."""
+    """The init split as a line's words: the culling build (K10 on the
+    card), K7 (or its plain version) and the exact re-evaluation."""
     return ", ".join(f"{k} {times.get(k, 0.0):.3f} s"
                      for k in ("culling", "select", "exact"))
 
@@ -782,11 +791,14 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     if "--mesh-shape" in extra_args:
         # the sharded advection runs its plain loop (ROADMAP: the next
         # slice), so K8 stays at 0 with the solo kernels
-        want = ("reinit_step_block", "minmax_step_block", "select_rows")
+        want = ("reinit_step_block", "minmax_step_block", "select_rows",
+                "cull_rows")
     elif "off" in extra_args:
-        want = ("reinit_step", "minmax_step", "select_rows", "advect")
+        want = ("reinit_step", "minmax_step", "select_rows", "advect",
+                "cull_rows")
     else:
-        want = ("reinit_step", "minmax_fusedk", "select_rows", "advect")
+        want = ("reinit_step", "minmax_fusedk", "select_rows", "advect",
+                "cull_rows")
     for name in want:
         check(launches[name] > 0, f"run {label}: {name} never launched")
     if "--mesh-shape" in extra_args:
@@ -2450,9 +2462,10 @@ RUN_L_CHUNK = 100
 #: Kernels of the sharded paths: what runs L and G-ranks must launch.
 BLOCK_KERNELS = ("reinit_step_block", "minmax_step_block",
                  "reinit_step_block_vjp", "minmax_step_block_vjp")
-#: The sharded init's scans: K7 runs under a mesh too, one launch per
-#: block (the sharded advection is still a plain loop: no K8).
-SHARDED_INIT = ("select_rows",)
+#: The sharded init's culling and scans: K10 and K7 run under a mesh too,
+#: one build and one launch per block (the sharded advection is still a
+#: plain loop: no K8).
+SHARDED_INIT = ("select_rows", "cull_rows")
 #: Exchanges timed for the advection's per-iteration all-reduce.
 EXCHANGE_REPS = 200
 
@@ -3528,10 +3541,10 @@ def options_phase(card, record, tmp, device="cuda"):
 def kernel_counters():
     """Every kernel wrapper of the record, by name: their launch
     counters."""
-    from levelsetfortran_tpu_torch.ops import advect_cuda, init_cuda
+    from levelsetfortran_tpu_torch.ops import advect_cuda, cull_cuda, init_cuda
     from levelsetfortran_tpu_torch.ops import minmax_cuda as mc
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
-    mods = (wc, mc, init_cuda, advect_cuda)
+    mods = (wc, mc, init_cuda, advect_cuda, cull_cuda)
     return {n: next(getattr(m, n) for m in mods if hasattr(m, n))
             for n in kernel_names()}
 
@@ -3539,8 +3552,11 @@ def kernel_counters():
 @contextlib.contextmanager
 def no_kernel(what):
     """Zero every launch counter, and fail if the block launched a
-    kernel of csrc/."""
+    kernel of csrc/ on the field: K10, the init's culling, builds the
+    candidate lists on the card whatever the field's dtype (they do not
+    depend on it), so it does not count."""
     counters = kernel_counters()
+    del counters["cull_rows"]
     for c in counters.values():
         c.launches = 0
     yield
@@ -3864,7 +3880,7 @@ def k7_case(tag, run, vertices=None):
     pairs = rows.pairs_per_point * P
     nbytes = 4 * (pts.numel() + 2 * best.numel() + tri_s.numel()
                   + a[3].numel()
-                  + (0 if rows.flat is None else rows.flat.size))
+                  + (0 if rows.flat is None else len(rows.flat)))
     b = bound(nbytes, pairs * OPS["init_pair"])
     x, y = phi_k.detach().double(), phi_p.detach().double()
     flip = torch.sign(x) != torch.sign(y)
@@ -3971,15 +3987,96 @@ def k8_case(tag, phi_np, grid, vertices, iters, advected=None,
             "plain_ms": t_plain * 1e3, **b}
 
 
+#: Phase 17c: a (block, triangle) pair K10 and the host build keep apart
+#: lies at most this many float32 ulps of the quadratic form from its
+#: threshold (``cull_cuda.margin_ulps``; the host's BLAS rounds the
+#: three-term dot another way than K10's fixed order).
+CULL_NEAR_ULPS = 4
+#: The benchmark's run cell: the icosphere at this spacing, pad 10, 256^3.
+RUN_CELL_DX = 0.00855
+
+
+def k10_case(tag, grid, mesh, device="cuda"):
+    """Phase 17c, one case: K10 on ``mesh`` over ``grid`` against its plain
+    version on the card (bitwise) and against the host build (each pair
+    apart within CULL_NEAR_ULPS of its threshold), timed beside both and
+    the bound; then the init's field through K10 (``culling="auto"`` on
+    the card) bitwise the field on the host-built culling.  Returns the
+    record's numbers."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import cull_cuda, init_cuda
+    from levelsetfortran_tpu_torch.ops.init_sign import (build_init_culling,
+                                                          signed_distance_init)
+    frame = cull_cuda.cull_frame(grid, mesh.vertices, mesh.elements)
+    rows, _ = sync_time(lambda: cull_cuda.cull_rows(frame, device))
+    plain, t_plain = sync_time(
+        lambda: cull_cuda.cull_rows_plain(frame, device))
+    same = all(np.array_equal(getattr(rows, n), getattr(plain, n))
+               for n in ("bidx", "counts", "offsets")) and torch.equal(
+        rows.flat, plain.flat)
+
+    def host():
+        c = build_init_culling(grid, mesh.vertices, mesh.elements)
+        return c, init_cuda.pack_rows(c.cands, c.bidxs, mesh.n_elems)
+
+    (cull, hrows), t_host = sync_time(host)
+    mine = rows.flat.cpu().numpy()
+    lists = [{int(b): f[o:o + n] for b, o, n in zip(r.bidx, r.offsets,
+                                                    r.counts)}
+             for r, f in ((hrows, hrows.flat), (rows, mine))]
+    apart = [cull_cuda.margin_ulps(frame, b, int(t), device)
+             for b in lists[0]
+             for t in np.setxor1d(lists[0][b], lists[1][b])]
+    ms = median_ms(lambda: cull_cuda.cull_rows(frame, device), 10)
+    walls = sorted(sync_time(lambda: cull_cuda.cull_rows(cull_cuda.cull_frame(
+        grid, mesh.vertices, mesh.elements), device))[1] for _ in range(5))
+    B, Bc, E = len(frame.centers), len(frame.pcen), len(frame.tri)
+    on = cull_cuda._on(frame, device)
+    dr, th = cull_cuda._keep(on, frame, on.pcen, on.pc_sq, frame.pcen_abs,
+                             None, frame.R_p)
+    survivors = (dr <= th[:, None]).sum(dim=1).cpu().numpy()
+    pairs = Bc * E + int(survivors[frame.parent_of].sum())
+    nbytes = (4 * (4 * B + 4 * Bc + 5 * E) + 8 * (3 * B + 3 * Bc + 9 * E)
+              + 4 * (len(mine) + B))
+    b = bound(nbytes, pairs * OPS["cull_pair"])
+    phi_k = signed_distance_init(grid, mesh.vertices, mesh.elements,
+                                 device=device)
+    phi_h = signed_distance_init(grid, mesh.vertices, mesh.elements,
+                                 device=device, culling=cull)
+    field = torch.equal(phi_k, phi_h)
+    gap = float((phi_k.double() - phi_h.double()).abs().max())
+    phase("K10", f"{tag}: {B} blocks, {Bc} parents, {E} triangles, {pairs} "
+          f"(row, triangle) pairs tested, {len(mine)} survivors; rows "
+          f"bitwise the plain version's {same}; {len(apart)} pair(s) apart "
+          f"from the host build's (pairs a point {rows.pairs_per_point} vs "
+          f"{hrows.pairs_per_point}), at "
+          f"{[round(u, 2) for u in sorted(apart)][:8]} ulps of the "
+          f"quadratic form from their thresholds (gate {CULL_NEAR_ULPS}); "
+          f"the init's field bitwise the "
+          f"host-culled one {field}; K10 {ms:.3f} ms (events, with its host "
+          f"read), the whole build with the host's "
+          f"constants {walls[2] * 1e3:.2f} ms (median of 5) vs the host "
+          f"build {t_host * 1e3:.1f} ms and the plain version "
+          f"{t_plain * 1e3:.1f} ms, bound {b['bound_ms']:.4g} ms "
+          f"({b['bound_by']}); card {CARD}")
+    check(same, f"K10 {tag}: rows differ from the plain version's")
+    check(all(u <= CULL_NEAR_ULPS for u in apart), f"K10 {tag}: a pair "
+          f"apart from the host build {max(apart, default=0.0)} ulps from its "
+          f"threshold")
+    check(field, f"K10 {tag}: the init's field differs from the "
+          f"host-culled one by {gap}")
+    return {"max_abs_err": gap, "ms": ms, "plain_ms": t_plain * 1e3, **b}
+
+
 def init_kernels_phase(card, record, ball, cubes, runs, items_e,
                        device="cuda", n_d=256, iters_b=1000,
                        iters_e=RUN_E_ADVECT_ITERS):
-    """Phase 17: K7 and K8 against their plain versions on the card.
+    """Phase 17: K7, K8 and K10 against their plain versions on the card.
     ``runs``: phase 3's results (A, B; run B advected ``iters_b`` times);
     ``items_e``: run E's geometries (smoothed field, grid, nodes, advected
     nodes; ``iters_e`` times); run D's grid is ``n_d``^3."""
     import torch
-    from levelsetfortran_tpu_torch.grid.grid import Grid3D
+    from levelsetfortran_tpu_torch.grid.grid import Grid3D, from_surface
     from levelsetfortran_tpu_torch.ops.init_sign import (build_init_culling,
                                                           signed_distance_init)
     res_b, res_a = runs["B"], runs["A"]
@@ -4033,6 +4130,13 @@ def init_kernels_phase(card, record, ball, cubes, runs, items_e,
                             iters_e, adv,
                             device=device)["max_abs_err"])
     record["advect"].update(rec, max_abs_err=max(errs))
+
+    rec = k10_case(f"run B {gb.shape}", gb, ball, device=device)
+    gr = from_surface(ball.vertices, RUN_CELL_DX, 10)
+    errs = [rec["max_abs_err"],
+            k10_case(f"run cell {gr.shape}", gr, ball,
+                     device=device)["max_abs_err"]]
+    record["cull_rows"].update(rec, max_abs_err=max(errs))
 
 
 def start():
@@ -4098,6 +4202,10 @@ def kernel_names():
         "advect": (csrc + "advect.cu",
                    "levelsetfortran_tpu/solvers/advect.py:46 (the jitted "
                    "advect_nodes; no Pallas)"),
+        # no kernel at all: the host's numpy culling build
+        "cull_rows": (csrc + "init_cull.cu",
+                      "levelsetfortran_tpu/ops/init_sign.py:495-657 "
+                      "(build_init_culling, host numpy; no Pallas)"),
     }
     return names
 

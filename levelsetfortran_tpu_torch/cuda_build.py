@@ -95,6 +95,16 @@ SIGNATURES = {
     # tile, tie, tie_floor, best, acc, stream
     "lsf_init_select_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                             _P, _P, _P],
+    # cen, c_sq, centers, pcen, pc_sq, pcen_abs, tc, t_sq, r, tri, blocks,
+    # parents, E, nb1, nb2, nbc1, nbc2, R_b, R_p, margin, widen, R_b32,
+    # R_p32, slack, thresh, counts, stream
+    "lsf_cull_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _D, _D, _D, _F, _F, _F, _F, _P, _P,
+                       _P],
+    # cen, c_sq, pcen, pc_sq, tc, t_sq, r, blocks, parents, E, nb1, nb2,
+    # nbc1, nbc2, thresh, offsets, flat, stream
+    "lsf_cull_fill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P],
     # phi, grad, pos, out_pos, out_phi, n, nx, ny, nz, origin (3), inv_dx,
     # iters, eps, mag_eps, mag_floor, stream
     "lsf_advect_nodes_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,

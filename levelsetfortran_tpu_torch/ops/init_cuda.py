@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -174,17 +174,19 @@ def _select_scan(points, tri, ang, tile, rel_tie=1e-3, shift=None):
 
 @dataclasses.dataclass(frozen=True)
 class Rows:
-    """The rows of one init's selection scan, on the host: row r is the
-    culling block ``bidx[r]`` (flat raster id) with the ``counts[r]``
-    candidates ``flat[offsets[r]:offsets[r] + counts[r]]`` (triangle ids;
-    the sentinel id may appear among them), or, where ``flat`` is None
-    (the dense init), every triangle ``0 .. counts[r] - 1``.  Rows are in
+    """The rows of one init's selection scan: row r is the culling block
+    ``bidx[r]`` (flat raster id) with the ``counts[r]`` candidates
+    ``flat[offsets[r]:offsets[r] + counts[r]]`` (triangle ids; the
+    sentinel id may appear among them), or, where ``flat`` is None (the
+    dense init), every triangle ``0 .. counts[r] - 1``.  Rows are in
     descending order of their counts, so that the card takes the longest
-    first and a plain scan step pads little."""
+    first and a plain scan step pads little.  ``bidx``, ``counts`` and
+    ``offsets`` are host arrays; ``flat`` is one too, or an int32 tensor
+    on the card where K10 built the rows there (``ops/cull_cuda.py``)."""
     bidx: np.ndarray
     counts: np.ndarray
     offsets: np.ndarray
-    flat: Optional[np.ndarray]
+    flat: Optional[Union[np.ndarray, torch.Tensor]]
 
     @property
     def pairs_per_point(self) -> int:
@@ -193,17 +195,24 @@ class Rows:
 
     def table(self, sl: slice, width: int, sentinel: int) -> np.ndarray:
         """Rows ``sl`` as a (rows, width) table, padded with ``sentinel``
-        past each row's count."""
+        past each row's count: an array, or a tensor on ``flat``'s
+        device where ``flat`` is one."""
         counts = self.counts[sl]
         j = np.arange(width)
+        live = j < counts[:, None]
         if self.flat is None:
-            return np.where(j < counts[:, None], j, sentinel)
-        if self.flat.size == 0:
+            return np.where(live, j, sentinel)
+        n = len(self.flat)
+        if n == 0:
             return np.full((counts.size, width), sentinel)
-        idx = self.offsets[sl, None] + np.clip(j, 0, counts[:, None] - 1)
-        return np.where(j < counts[:, None],
-                        self.flat[np.clip(idx, 0, self.flat.size - 1)],
-                        sentinel)
+        idx = np.clip(self.offsets[sl, None]
+                      + np.clip(j, 0, counts[:, None] - 1), 0, n - 1)
+        if isinstance(self.flat, torch.Tensor):
+            dev = self.flat.device
+            return torch.where(torch.as_tensor(live, device=dev),
+                               self.flat[torch.as_tensor(idx, device=dev)],
+                               sentinel)
+        return np.where(live, self.flat[idx], sentinel)
 
 
 def pack_rows(cands, bidxs, sentinel: int) -> Rows:
@@ -224,8 +233,20 @@ def pack_rows(cands, bidxs, sentinel: int) -> Rows:
     counts = np.concatenate(counts) if counts else np.empty(0, np.int64)
     flat = (np.concatenate(parts).astype(np.int32) if parts
             else np.empty(0, np.int32))
-    offsets = np.zeros(counts.size, np.int64)
+    return longest_first(bidx, counts, starts(counts), flat)
+
+
+def starts(counts) -> np.ndarray:
+    """Where each row starts in a ``flat`` that holds the rows one after
+    another: the exclusive running sum of ``counts`` (int64)."""
+    offsets = np.zeros(len(counts), np.int64)
     np.cumsum(counts[:-1], out=offsets[1:])
+    return offsets
+
+
+def longest_first(bidx, counts, offsets, flat) -> Rows:
+    """:class:`Rows` of the given rows, in descending order of their
+    counts (a stable sort: rows of one count keep their order)."""
     order = np.argsort(-counts, kind="stable")
     return Rows(bidx[order], counts[order], offsets[order], flat)
 

@@ -8,7 +8,8 @@ minimum (Baerentzen & Aanaes).  Grid points go in 16^3 blocks; each block
 scans its candidate triangles in tiles with a running (min, accumulator)
 carry.  With culling (default) each block scans only the triangles whose
 distance lower bound can beat the block's upper bound
-(:func:`build_init_culling`, host numpy, as in the JAX package).
+(:func:`build_init_culling`, host numpy, as in the JAX package; on a CUDA
+device kernel K10 builds the same lists on the card, ``ops/cull_cuda.py``).
 
 The scan of every block is one launch of kernel K7 for float32
 (``ops/init_cuda.py``, the JAX package's jitted scan), its plain version
@@ -39,7 +40,7 @@ import torch
 
 from ..grid.grid import Grid3D
 from ..utils.profiling import count, span
-from . import init_cuda
+from . import cull_cuda, init_cuda
 from .init_cuda import dense_rows, pack_rows, triangle_ids
 from .weno_cuda import kernel_supported, scalar_type
 
@@ -49,13 +50,14 @@ from .weno_cuda import kernel_supported, scalar_type
 _EXACT_POINTS = 2 ** 22
 
 #: When a dict, the exact init adds its stages' seconds on the host clock
-#: to it, the device synchronised at each boundary: "culling" (the host
-#: build of the candidate lists), "select" (K7 or its plain version) and
-#: "exact" (the re-evaluation at each point's triangle and the field's
-#: assembly).  None (the default): no clock and no synchronisation.  The
-#: stages' spans (``lsf.init.<stage>``, :func:`_stage`) time the same
-#: blocks without synchronising; this survives for the benchmark's
-#: ``init.culling_s`` alone.
+#: to it, the device synchronised at each boundary: "culling" (the build
+#: of the candidate lists: K10 on a CUDA device, else the host's),
+#: "select" (K7 or its plain version) and "exact" (the re-evaluation at
+#: each point's triangle and the field's assembly).  None (the default):
+#: no clock and no synchronisation.  The stages' spans
+#: (``lsf.init.<stage>``, :func:`_stage`) time the same blocks without
+#: synchronising; this survives for the benchmark's ``init.culling_s``
+#: alone.
 stage_times = None
 
 
@@ -102,42 +104,6 @@ def point_triangle_closest(p, a, b, c):
                       (in_c, c), (in_b, b), (in_a, a)):
         out = torch.where(cond[..., None], val, out)
     return out
-
-
-def _np_point_tri_d2(p, t):
-    """Exact squared point-triangle distance, host numpy, one pair per row
-    (the cull build's exact-center upper bound)."""
-    a, b, c = t[:, 0], t[:, 1], t[:, 2]
-    ab, ac, ap = b - a, c - a, p - a
-    d1, d2 = (ab * ap).sum(1), (ac * ap).sum(1)
-    bp = p - b
-    d3, d4 = (ab * bp).sum(1), (ac * bp).sum(1)
-    cp_ = p - c
-    d5, d6 = (ab * cp_).sum(1), (ac * cp_).sum(1)
-    va = d3 * d6 - d5 * d4
-    vb = d5 * d2 - d1 * d6
-    vc = d1 * d4 - d3 * d2
-
-    def g(x, y):
-        return x / np.where(np.abs(y) > 1e-300, y, 1.0)
-
-    t_ab = g(d1, d1 - d3)
-    t_ac = g(d2, d2 - d6)
-    t_bc = g(d4 - d3, (d4 - d3) + (d5 - d6))
-    denom_in = va + vb + vc
-    inv_in = 1.0 / np.where(np.abs(denom_in) > 1e-300, denom_in, 1.0)
-    out = a + (vb * inv_in)[:, None] * ab + (vc * inv_in)[:, None] * ac
-    for cond, val in [
-            ((va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0),
-             b + t_bc[:, None] * (c - b)),
-            ((vb <= 0) & (d2 >= 0) & (d6 <= 0), a + t_ac[:, None] * ac),
-            ((vc <= 0) & (d1 >= 0) & (d3 <= 0), a + t_ab[:, None] * ab),
-            ((d6 >= 0) & (d5 <= d6), c),
-            ((d3 >= 0) & (d4 <= d3), b),
-            ((d1 <= 0) & (d2 <= 0), a)]:
-        out = np.where(cond[:, None], val, out)
-    u = p - out
-    return (u * u).sum(1)
 
 
 def _triangle_features(tri):
@@ -286,30 +252,12 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
     ``bucketed=False`` pads every block to one K (a multiple of ``tile``),
     one table in block raster order (:attr:`InitCulling.cand_idx`).
     """
-    verts = np.asarray(vertices, np.float64)
-    elems = np.asarray(elements)
-    tri = verts[elems]
-    cent = tri.mean(axis=1)
-    r_t = np.sqrt(((tri - cent[:, None, :]) ** 2).sum(-1)).max(axis=1)
-
-    bs = int(block)
-    nb = tuple(-(-s // bs) for s in grid.shape)
-    ctr = [np.asarray(grid.origin[a]) + grid.dx *
-           (np.arange(nb[a]) * bs + (bs - 1) / 2.0) for a in range(3)]
-    cx, cy, cz = np.meshgrid(*ctr, indexing="ij")
-    centers = np.stack([cx, cy, cz], axis=-1).reshape(-1, 3)
-    R_b = grid.dx * np.sqrt(3.0) * (bs - 1) / 2.0
-
-    B, E = centers.shape[0], tri.shape[0]
+    f = cull_cuda.cull_frame(grid, vertices, elements, block=block,
+                             margin=margin)
+    tri, tc32, t_sq, r32, slack = f.tri, f.tc32, f.t_sq, f.r32, f.slack
+    B, E = f.centers.shape[0], tri.shape[0]
     hit_r_parts, hit_t_parts, hit_p_parts = [], [], []
     counts = np.zeros(B, np.int64)
-    shift = centers.mean(axis=0)
-    cen32 = np.ascontiguousarray(centers - shift, np.float32)
-    tc32 = np.ascontiguousarray((cent - shift).T, np.float32)
-    c_sq = (cen32 ** 2).sum(-1)
-    t_sq = (tc32 ** 2).sum(0)
-    r32 = r_t.astype(np.float32)
-    slack = np.float32(1e-3 * (R_b + margin) + 1e-9)
 
     def keep_rows(cen_rows, csq_rows, cen_abs, cols, Rb):
         d = np.dot(cen_rows, tc32[:, cols] if cols is not None else tc32)
@@ -321,39 +269,25 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
         np.sqrt(np.maximum(d, 0.0, out=d), out=d)
         j = np.argmin(d + rs[None, :], axis=1)
         jg = cols[j] if cols is not None else j
-        d_ex = np.sqrt(_np_point_tri_d2(cen_abs, tri[jg]))
+        d_ex = np.sqrt(cull_cuda._np_point_tri_d2(cen_abs, tri[jg]))
         ub = (d_ex + Rb + margin).astype(np.float32)
         d -= rs[None, :]
         thresh = ub * np.float32(1.0 + 1e-3) + np.float32(Rb) + slack
         return d <= thresh[:, None]
 
     with span("lsf.init.culling.parents"):
-        cf = 4
-        nbc = tuple(-(-x // cf) for x in nb)
-        R_c = grid.dx * np.sqrt(3.0) * (cf * bs - 1) / 2.0
-        pid = np.arange(B)
-        pbx = (pid // (nb[1] * nb[2])) // cf
-        pby = ((pid // nb[2]) % nb[1]) // cf
-        pbz = (pid % nb[2]) // cf
-        parent_of = (pbx * nbc[1] + pby) * nbc[2] + pbz
-        Bc = nbc[0] * nbc[1] * nbc[2]
-        psum = np.zeros((Bc, 3), np.float64)
-        pcnt = np.zeros(Bc, np.int64)
-        np.add.at(psum, parent_of, cen32.astype(np.float64))
-        np.add.at(pcnt, parent_of, 1)
-        pcen = (psum / np.maximum(pcnt, 1)[:, None]).astype(np.float32)
-        keep_c = keep_rows(pcen, (pcen ** 2).sum(-1),
-                           pcen.astype(np.float64) + shift, None, R_c + R_b)
-        order = np.argsort(parent_of, kind="stable")
-        bounds = np.searchsorted(parent_of[order], np.arange(Bc + 1))
+        Bc = len(f.pcen)
+        keep_c = keep_rows(f.pcen, f.pc_sq, f.pcen_abs, None, f.R_p)
+        order = np.argsort(f.parent_of, kind="stable")
+        bounds = np.searchsorted(f.parent_of[order], np.arange(Bc + 1))
     with span("lsf.init.culling.blocks"):
         for pc in range(Bc):
             rows = order[bounds[pc]:bounds[pc + 1]]
             if rows.size == 0:
                 continue
             cols = np.nonzero(keep_c[pc])[0]
-            keep = keep_rows(cen32[rows], c_sq[rows], centers[rows], cols,
-                             R_b)
+            keep = keep_rows(f.cen32[rows], f.c_sq[rows], f.centers[rows],
+                             cols, f.R_b)
             rr, tt = np.nonzero(keep)
             cnt = keep.sum(axis=1)
             local_start = np.zeros(rows.size + 1, np.int64)
@@ -375,8 +309,8 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
             K = max(tile, -(-kmax // tile) * tile)
             cand = np.full((B, K), E, np.int32)
             cand[hit_r, pos] = hit_t
-            return InitCulling((cand,), (np.arange(B, dtype=np.int32),), bs,
-                               nb)
+            return InitCulling((cand,), (np.arange(B, dtype=np.int32),),
+                               f.block, f.nblocks)
         levels = [tile]
         while levels[-1] < kmax:
             levels.append(levels[-1] * 2)
@@ -394,7 +328,7 @@ def build_init_culling(grid: Grid3D, vertices, elements, *, block: int = 16,
             cand[local[hit_r[m]], pos[m]] = hit_t[m]
             cands.append(cand)
             bidxs.append(sel.astype(np.int32))
-        return InitCulling(tuple(cands), tuple(bidxs), bs, nb)
+        return InitCulling(tuple(cands), tuple(bidxs), f.block, f.nblocks)
 
 
 def _block_offsets(block: int, device):
@@ -506,9 +440,12 @@ def signed_distance_init(grid: Grid3D, vertices, elements, *,
                          block_of=None):
     """Exact-distance signed initialization on the full grid.
 
-    ``culling``: ``"auto"`` builds per-block candidate lists on the host
-    (:func:`build_init_culling`, from a detached copy of the vertices); an
-    :class:`InitCulling` is used as is; ``None`` scans all pairs.
+    ``culling``: ``"auto"`` builds per-block candidate lists from a
+    detached host copy of the vertices, on the init's device: on a CUDA
+    device kernel K10 (:func:`~.cull_cuda.cull_rows`) builds the scan's
+    rows on the card, elsewhere the host (:func:`build_init_culling`); an
+    :class:`InitCulling` is used as is (built on the host); ``None`` scans
+    all pairs.
     ``vertices`` (n, 3) is a numpy array or a tensor — one that requires
     grad makes the field differentiable with respect to it — and
     ``elements`` (m, 3) an integer array or tensor.  ``device`` defaults
@@ -528,10 +465,17 @@ def signed_distance_init(grid: Grid3D, vertices, elements, *,
         else:
             host_v = np.asarray(vertices)
             v = torch.as_tensor(host_v, dtype=dtype, device=device or "cpu")
+        rows = None
         if isinstance(culling, str) and culling == "auto":
             with _stage("culling", v.device):
-                culling = build_init_culling(grid, host_v, elems,
-                                             block=cull_block, tile=tile)
+                if v.device.type == "cuda":
+                    frame = cull_cuda.cull_frame(grid, host_v, elems,
+                                                 block=cull_block)
+                    rows = cull_cuda.cull_rows(frame, v.device)
+                    block, nblocks = frame.block, frame.nblocks
+                else:
+                    culling = build_init_culling(grid, host_v, elems,
+                                                 block=cull_block, tile=tile)
         tri = v[torch.as_tensor(elems, dtype=torch.long, device=v.device)]
         off = (0, 0, 0)
         if block_of is not None:
@@ -543,7 +487,7 @@ def signed_distance_init(grid: Grid3D, vertices, elements, *,
                 block = 16  # the JAX package's dense block (init_sign.py:788)
                 nblocks = tuple(-(-s // block) for s in grid.shape)
                 rows = dense_rows(int(np.prod(nblocks)), E)
-            else:
+            elif rows is None:
                 block, nblocks = culling.block, culling.nblocks
                 rows = pack_rows(culling.cands, culling.bidxs, E)
         return _init_rows(grid, tri, rows, block, nblocks, dtype=dtype,
