@@ -168,10 +168,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      only within CULL_NEAR_ULPS of its threshold, timed beside the plain
      version, the host build and the bound, and the init's field through
      it bitwise the field on the host-built culling.  Phases 3, 4, 5 and 6
-     read K7's, K8's and K10's counters (K8 stays at 0 under a mesh, whose
-     advection runs its plain loop) and print the init split into the
+     read K7's, K8's and K10's counters (under a mesh K8's block mode,
+     ``run_blocks``, in place of K8) and print the init split into the
      culling build (K10 on the card), the selection and the exact
-     re-evaluation.
+     re-evaluation;
+ 18. K8's block mode (the sharded advection): run B's smoothed field
+     through the solo K8 (timed beside PERF.md's), then cut (2, 2, 1) with
+     all four blocks on one card and one block per visible card, and the
+     sphere's distance on the sharded cell's 512^3 grid cut the same two
+     ways: every shard's sample bitwise its plain version, the advected
+     positions and phi_surf bitwise the plain loop's on the same blocks
+     (and equal to the solo K8's on run B), the stage, the rounds and the
+     plain loop timed; one shard's sample timed alone; then the same
+     advection on two or more ranks (one per card over NCCL, two on one
+     card over gloo), every rank bitwise one process.
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Needs no network; starts one child process per CLI run and
 one per rank of runs J, L and G-ranks and of the options phase's ranks,
@@ -314,7 +324,8 @@ def run_counters():
     from levelsetfortran_tpu_torch.ops import weno_cuda as wc
     return (wc.reinit_step, mc.minmax_step, mc.minmax_fusedk,
             wc.reinit_step_block, mc.minmax_step_block,
-            init_cuda.select_rows, advect_cuda.advect, cull_cuda.cull_rows)
+            init_cuda.select_rows, advect_cuda.advect, cull_cuda.cull_rows,
+            advect_cuda.run_blocks, advect_cuda.sample_block)
 
 
 @contextlib.contextmanager
@@ -789,10 +800,9 @@ def run_phase(label, mesh, truth_fn, dx, extra_args, tmp):
     check(finite and not res.reinit_diverged and not res.minmax_diverged,
           f"run {label}: diverged or non-finite")
     if "--mesh-shape" in extra_args:
-        # the sharded advection runs its plain loop (ROADMAP: the next
-        # slice), so K8 stays at 0 with the solo kernels
+        # the sharded advection in one process: K8's block mode in rounds
         want = ("reinit_step_block", "minmax_step_block", "select_rows",
-                "cull_rows")
+                "cull_rows", "run_blocks")
     elif "off" in extra_args:
         want = ("reinit_step", "minmax_step", "select_rows", "advect",
                 "cull_rows")
@@ -2299,7 +2309,8 @@ def rank_main(argv) -> int:
                "launches": {c.__name__: c.launches for c in counters}}
     else:
         out = {"pipeline": rank_pipeline, "render": rank_render,
-               "halfwidth": rank_halfwidth}[kind](spec, devices)
+               "halfwidth": rank_halfwidth,
+               "advect": rank_advect}[kind](spec, devices)
     dev = (f"cuda:{torch.cuda.current_device()}"
            if spec["device"] == "cuda" else "cpu")
     torch.distributed.destroy_process_group()
@@ -2463,9 +2474,11 @@ RUN_L_CHUNK = 100
 BLOCK_KERNELS = ("reinit_step_block", "minmax_step_block",
                  "reinit_step_block_vjp", "minmax_step_block_vjp")
 #: The sharded init's culling and scans: K10 and K7 run under a mesh too,
-#: one build and one launch per block (the sharded advection is still a
-#: plain loop: no K8).
+#: one build and one launch per block.
 SHARDED_INIT = ("select_rows", "cull_rows")
+#: The sharded advection across processes: K8's block mode, one sample
+#: launch per shard and iteration before the all-reduce.
+SHARDED_ADVECT = ("sample_block",)
 #: Exchanges timed for the advection's per-iteration all-reduce.
 EXCHANGE_REPS = 200
 
@@ -2703,7 +2716,7 @@ def run_l_phase(card, tmp, run_f, world=2, device="cuda",
             check(not diff, f"run {label}: rank {r['rank']} differs from "
                   f"run F in {diff}: {[(got[k], mine[k]) for k in diff]}")
             ln = got["launches"]
-            kernels = BLOCK_KERNELS[:2] + SHARDED_INIT
+            kernels = BLOCK_KERNELS[:2] + SHARDED_INIT + SHARDED_ADVECT
             check(device != "cuda" or all(ln[k] > 0 for k in kernels)
                   and all(v == 0 for k, v in ln.items()
                           if k not in kernels),
@@ -4139,6 +4152,211 @@ def init_kernels_phase(card, record, ball, cubes, runs, items_e,
     record["cull_rows"].update(rec, max_abs_err=max(errs))
 
 
+#: Phase 18: the sharded cell's spacing (``icosphere5_512``: the icosphere
+#: of radius 1 on 512^3 at (2, 2, 1)) and its advection iterations.
+SHARDED_CELL_DX = 0.004085
+SHARDED_ITERS = 1000
+
+
+def rank_advect(spec, devices):
+    """One rank of phase 18: ``spec``'s field cut on its mesh across the
+    ranks, the sharded advection of its nodes (K8's block mode, one
+    sample launch per shard and iteration, the ranks' sums all-reduced):
+    the digests of the positions and of phi_surf, the launches, the
+    wall."""
+    import torch
+    from levelsetfortran_tpu_torch.grid.grid import Grid3D
+    from levelsetfortran_tpu_torch.ops import advect_cuda as ac
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import (make_mesh,
+                                                         split_blocks)
+    phi, nodes = torch.load(spec["field"]), torch.load(spec["nodes"])
+    grid = Grid3D(shape=tuple(phi.shape), origin=tuple(spec["origin"]),
+                  dx=spec["dx"])
+    mesh = make_mesh(tuple(spec["mesh"]), devices)
+    blocks = split_blocks(mesh, phi)
+    home = next(b.device for b in blocks if b is not None)
+    ac.sample_block.launches = 0
+    res, wall = rank_timed(lambda: sh.advect_nodes_sharded(
+        mesh, blocks, grid, nodes.to(home), grid.dx, spec["iters"]))
+    return {"positions": digest(res.positions),
+            "phi_surf": digest(res.phi_surf),
+            "launches": {"sample_block": ac.sample_block.launches},
+            "wall": wall}
+
+
+def k8_block_case(tag, mesh, phi, grid, nodes, iters, card, solo=None):
+    """Phase 18, one case: ``phi`` cut on ``mesh`` and its nodes advected,
+    K8's block mode (``advect_blocks`` in rounds) against the plain loop
+    on the same blocks (the route forced), and each shard's sample
+    (``sample_block``) against its plain version, bitwise; ``solo``: the
+    solo K8's positions and phi_surf, compared by value (the sharded sum
+    turns a -0.0 into +0.0).  Timed: the whole stage (the fields and the
+    rounds), the rounds alone and the plain loop, host clock with every
+    card synchronised."""
+    import torch
+    from levelsetfortran_tpu_torch.ops import advect_cuda as ac
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import split_blocks
+    blocks = split_blocks(mesh, phi)
+    home = blocks[0].device
+    x0 = torch.as_tensor(nodes, dtype=torch.float32, device=home)
+    fields, specs = sh.advection_fields(mesh, blocks, grid.dx)
+    samples = all(bitwise(ac.sample_block(f, sp, grid, x0),
+                          ac.sample_block_plain(f, sp, grid, x0))
+                  for f, sp in zip(fields, specs))
+
+    def stage():
+        return sh.advect_nodes_sharded(mesh, blocks, grid, x0, grid.dx,
+                                       iters)
+
+    ac.run_blocks.launches, r0 = 0, ac.rounds
+    res, _ = sync_time(stage)
+    launches, rounds = ac.run_blocks.launches, ac.rounds - r0
+    real = ac.takes_kernel
+    ac.takes_kernel = lambda f: False
+    try:
+        plain, t_plain = sync_time(stage)
+    finally:
+        ac.takes_kernel = real
+    same = (bitwise(res.positions, plain.positions)
+            and bitwise(res.phi_surf, plain.phi_surf))
+    t_stage = float(np.median([sync_time(stage)[1] for _ in range(3)]))
+    t_rounds = float(np.median([sync_time(lambda: ac.advect_blocks(
+        fields, specs, grid, x0, iters, 1e-13,
+        zero_sign=mesh.n_shards > 1))[1] for _ in range(3)]))
+    as_solo = solo is None or (
+        torch.equal(res.positions, solo[0].to(home))
+        and torch.equal(res.phi_surf, solo[1].to(home)))
+    n = x0.shape[0]
+    b = bound(28 * n, OPS["advect_iter"] * n * (iters + 1))
+    devs = sorted({str(f.device) for f in fields})
+    phase("K8 block", f"{tag}: blocks on {devs}, {n} nodes, {iters} "
+          f"iterations on {grid.shape}: every shard's sample bitwise its "
+          f"plain version {samples}, positions and phi_surf bitwise the "
+          f"plain loop's {same}"
+          + ("" if solo is None else f", equal to the solo K8's {as_solo}")
+          + f"; {launches} launches in {rounds} round(s); the stage "
+          f"{t_stage * 1e3:.2f} ms (the rounds {t_rounds * 1e3:.3f} ms) vs "
+          f"the plain loop {t_plain * 1e3:.1f} ms, bound "
+          f"{b['bound_ms']:.4g} ms ({b['bound_by']}); card {card}")
+    check(samples, f"K8 block {tag}: a shard's sample is not bitwise its "
+          f"plain version")
+    check(same, f"K8 block {tag}: not bitwise the plain loop "
+          f"({err(res.positions, plain.positions):.3g}, "
+          f"{err(res.phi_surf, plain.phi_surf):.3g})")
+    return {"max_abs_err": max(err(res.positions, plain.positions),
+                               err(res.phi_surf, plain.phi_surf)),
+            "ms": t_rounds * 1e3, "plain_ms": t_plain * 1e3,
+            "stage_ms": t_stage * 1e3, "res": res, **b}
+
+
+def k8_block_phase(card, record, tmp, ball, device="cuda", dx_b=0.01,
+                   dx_cell=SHARDED_CELL_DX, iters=SHARDED_ITERS):
+    """Phase 18: K8's block mode, the sharded advection on the card.
+    Run B's smoothed field (``dx_b``) through the solo K8 (phase 17's
+    case: its time beside PERF.md's), then cut (2, 2, 1): all four blocks
+    on one card (the mesh's round-robin) and one block per visible card,
+    each against the plain loop and the solo K8; then the sphere's
+    distance on the sharded cell's grid (``dx_cell``, 512^3) cut the same
+    two ways; then the same advection on two or more ranks (one per card,
+    NCCL; two on one card over gloo) against this process, bitwise."""
+    import torch
+    from levelsetfortran_tpu_torch import LevelSetConfig, run_mesh
+    from levelsetfortran_tpu_torch.grid.grid import from_surface
+    from levelsetfortran_tpu_torch.ops import advect_cuda as ac
+    from levelsetfortran_tpu_torch.parallel import sharded as sh
+    from levelsetfortran_tpu_torch.parallel.mesh import (make_mesh,
+                                                         split_blocks)
+    from levelsetfortran_tpu_torch.solvers.advect import advect_nodes
+    res_b = run_mesh(ball, LevelSetConfig(dx=dx_b, device=device,
+                                          advect_iters=iters))
+    gb = res_b.grid
+    solo_rec = k8_case(f"run B {gb.shape} (solo)", res_b.phi_smoothed, gb,
+                       ball.vertices, iters, res_b.advected, device=device)
+    phi_b = torch.tensor(res_b.phi_smoothed, dtype=torch.float32)
+    solo = advect_nodes(phi_b.to(device), gb, torch.tensor(
+        ball.vertices, dtype=torch.float32, device=device), gb.dx, iters)
+    del res_b
+    if device == "cuda":
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    else:
+        cards = [torch.device(device)]
+    placements = [("one card", cards[:1])]
+    if len(cards) > 1:
+        placements.append(("a card each", cards))
+    recs = [k8_block_case(f"run B on (2, 2, 1), {where}",
+                          make_mesh((2, 2, 1), devs), phi_b, gb,
+                          ball.vertices, iters, card, solo)
+            for where, devs in placements]
+    gc = from_surface(ball.vertices, dx_cell, 10, (2, 2, 1))
+    axes = [torch.tensor(o + gc.dx * np.arange(n), dtype=torch.float32,
+                         device=cards[0])
+            for o, n in zip(gc.origin, gc.shape)]
+    phi_c = torch.sqrt(axes[0][:, None, None] ** 2
+                       + axes[1][None, :, None] ** 2
+                       + axes[2][None, None, :] ** 2) - 1.0
+    del axes
+    for where, devs in placements:
+        recs.append(k8_block_case(f"{gc.shape} on (2, 2, 1), {where}",
+                                  make_mesh((2, 2, 1), devs), phi_c, gc,
+                                  ball.vertices, iters, card))
+    # one shard's sample alone at the cell's size, on one card
+    mesh = make_mesh((2, 2, 1), cards[:1])
+    fields, specs = sh.advection_fields(mesh, split_blocks(mesh, phi_c),
+                                        gc.dx)
+    del phi_c
+    x0 = torch.tensor(ball.vertices, dtype=torch.float32, device=cards[0])
+    f, sp = fields[0], specs[0]
+    t_plain = sync_time(lambda: ac.sample_block_plain(f, sp, gc, x0))[1]
+    ms = (median_ms(lambda: ac.sample_block(f, sp, gc, x0), 20)
+          if device == "cuda" else t_plain * 1e3)
+    n = x0.shape[0]
+    sb = bound(16 * n + 12 * n, OPS["advect_iter"] * n)
+    phase("K8 block", f"one shard's sample at {gc.shape}: {ms:.4f} ms "
+          f"(events) vs its plain version {t_plain * 1e3:.2f} ms, bound "
+          f"{sb['bound_ms']:.4g} ms; card {card}")
+    del fields, f
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # across processes, against this process on the same placement
+    world = max(2, len(cards)) if device == "cuda" else 2
+    backend = rank_backend(world, device)
+    field = os.path.join(tmp, "K8B_field.pt")
+    nodes = os.path.join(tmp, "K8B_nodes.pt")
+    torch.save(phi_b, field)
+    torch.save(torch.tensor(ball.vertices, dtype=torch.float32), nodes)
+    spec = {"kind": "advect", "device": device, "field": field,
+            "nodes": nodes, "origin": list(gb.origin), "dx": gb.dx,
+            "mesh": [2, 2, 1], "iters": iters}
+    ranks = run_ranks(spec, world, backend, tmp, "K8B")
+    one = recs[len(placements) - 1]["res"]   # run B's, a card each
+    for r in ranks:
+        check(r["positions"] == digest(one.positions)
+              and r["phi_surf"] == digest(one.phi_surf),
+              f"K8 block ranks: rank {r['rank']}'s advected nodes differ "
+              f"from one process's")
+        check(device != "cuda" or r["launches"]["sample_block"] > 0,
+              f"K8 block ranks: rank {r['rank']} launched no sample")
+    phase("K8 block", f"run B on (2, 2, 1) across {world} ranks "
+          f"{[r['device'] for r in ranks]} over {backend}: every rank's "
+          f"positions and phi_surf bitwise one process's; sample launches "
+          f"per rank {[r['launches']['sample_block'] for r in ranks]}, "
+          f"walls {[round(r['wall'], 3) for r in ranks]} s; card {card}")
+    cell = recs[-1]
+    record["run_blocks"].update(
+        {k: cell[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        max_abs_err=max(r["max_abs_err"] for r in recs),
+        solo_ms=solo_rec["ms"])
+    record["sample_block"].update(ms=ms, plain_ms=t_plain * 1e3,
+                                  max_abs_err=0.0, bound_ms=sb["bound_ms"],
+                                  bound_by=sb["bound_by"])
+    return recs
+
+
+
 def start():
     """Phases 0 and 1: the card's line, TF32 on, the kernels built.
     Returns the card's name and power limit."""
@@ -4202,6 +4420,16 @@ def kernel_names():
         "advect": (csrc + "advect.cu",
                    "levelsetfortran_tpu/solvers/advect.py:46 (the jitted "
                    "advect_nodes; no Pallas)"),
+        # the sharded advection: no pallas_call (a jnp loop under
+        # shard_map with a psum per iteration)
+        "run_blocks": (csrc + "advect.cu",
+                       "levelsetfortran_tpu/parallel/sharded.py "
+                       "advect_nodes_sharded (block mode, in rounds; no "
+                       "Pallas)"),
+        "sample_block": (csrc + "advect.cu",
+                         "levelsetfortran_tpu/parallel/sharded.py "
+                         "advect_nodes_sharded (block mode, one shard's "
+                         "sample; no Pallas)"),
         # no kernel at all: the host's numpy culling build
         "cull_rows": (csrc + "init_cull.cu",
                       "levelsetfortran_tpu/ops/init_sign.py:495-657 "
@@ -4319,6 +4547,10 @@ def main() -> int:
     _, wall_17 = sync_time(lambda: init_kernels_phase(
         card, record, ball, cubes, results, kept_e))
     phase("init kernels", f"wall {wall_17:.1f} s; card {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, wall_18 = sync_time(lambda: k8_block_phase(card, record, tmp,
+                                                      ball))
+    phase("K8 block", f"wall {wall_18:.1f} s; card {card}")
 
     kernels = []
     for n, (src, repl) in names.items():

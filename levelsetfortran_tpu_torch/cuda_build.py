@@ -109,6 +109,14 @@ SIGNATURES = {
     # iters, eps, mag_eps, mag_floor, stream
     "lsf_advect_nodes_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                              _F, _I, _F, _F, _F, _P],
+    # table (nb rows), nb, pos, out, n, global nx, ny, nz, origin (3),
+    # inv_dx, stream
+    "lsf_advect_block_f32": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                             _P],
+    # table (nb rows), nb, state, n, global nx, ny, nz, origin (3), inv_dx,
+    # iters, eps, mag_eps, mag_floor, zero_sign, stream
+    "lsf_advect_blocks_run_f32": [_P, _I, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                                  _I, _F, _F, _F, _I, _P],
 }
 
 

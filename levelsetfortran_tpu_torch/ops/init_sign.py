@@ -514,7 +514,15 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     order than in the whole-grid init and a tie between triangles may fall
     the other way (last-bit differences; the sign only where a point lies
     on the surface, ROADMAP H8).  The JAX package's rebalancing of uneven
-    candidate counts (``_overflow_split``) is not ported."""
+    candidate counts (``_overflow_split``) is not ported.  Traced as
+    ``lsf.sharded.init``."""
+    with span("lsf.sharded.init"):
+        return _init_blocks(grid, vertices, elements, mesh, dtype, tile,
+                            culling, cull_block)
+
+
+def _init_blocks(grid, vertices, elements, mesh, dtype, tile, culling,
+                 cull_block):
     from ..parallel.halo import local_offsets
     from ..parallel.mesh import replicate
     if not (culling is None or (isinstance(culling, str)

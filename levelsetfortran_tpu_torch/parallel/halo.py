@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..utils.profiling import count, span
 from .distributed import comm_device
 from .mesh import ShardMesh
 
@@ -138,29 +139,45 @@ def refresh_halos(pads, width, mesh: ShardMesh, periodic: bool = False
     become zeros, or with ``periodic`` the other end of the grid's cells
     (along an axis of one shard, the block's own opposite face: a copy).
     Under a process group the slabs that cross to another rank go through
-    :func:`_remote_slabs`; None (another rank's block) is skipped."""
-    for axis, w in enumerate(_widths(width)):
-        if not w:
+    :func:`_remote_slabs`; None (another rank's block) is skipped.
+
+    Traced as the span ``lsf.halo_exchange``, with the counter
+    ``halo.bytes``: the bytes of the slabs this process's blocks receive
+    from other shards (a periodic wrap onto the block's own face, zero
+    fills and the slabs sent to other ranks not counted)."""
+    with span("lsf.halo_exchange"):
+        for axis, w in enumerate(_widths(width)):
+            if w:
+                _refresh_axis(pads, w, axis, mesh, periodic)
+
+
+def _refresh_axis(pads, w: int, axis: int, mesh: ShardMesh,
+                  periodic: bool) -> None:
+    """One axis of :func:`refresh_halos`."""
+    remote = {}
+    if mesh.spans_processes:
+        remote = _remote_slabs(pads, w, axis, mesh, periodic,
+                               lambda size, step: size - 2 * w
+                               if step == -1 else w)
+    received = 0
+    for i, (coord, pad) in enumerate(zip(mesh.coords(), pads)):
+        if pad is None:
             continue
-        remote = {}
-        if mesh.spans_processes:
-            remote = _remote_slabs(pads, w, axis, mesh, periodic,
-                                   lambda size, step: size - 2 * w
-                                   if step == -1 else w)
-        for i, (coord, pad) in enumerate(zip(mesh.coords(), pads)):
-            if pad is None:
+        size = pad.shape[axis]
+        for step, src_lo, dst_lo in ((-1, size - 2 * w, 0),
+                                     (1, w, size - w)):
+            nb = _neighbour(mesh, coord, axis, step, periodic)
+            dst = pad.narrow(axis, dst_lo, w)
+            if nb is None:
+                dst.zero_()
                 continue
-            size = pad.shape[axis]
-            for step, src_lo, dst_lo in ((-1, size - 2 * w, 0),
-                                         (1, w, size - w)):
-                nb = _neighbour(mesh, coord, axis, step, periodic)
-                dst = pad.narrow(axis, dst_lo, w)
-                if nb is None:
-                    dst.zero_()
-                elif (i, step) in remote:
-                    dst.copy_(remote[(i, step)])
-                else:
-                    dst.copy_(pads[nb].narrow(axis, src_lo, w))
+            if (i, step) in remote:
+                dst.copy_(remote[(i, step)])
+            else:
+                dst.copy_(pads[nb].narrow(axis, src_lo, w))
+            if nb != i:
+                received += dst.numel() * dst.element_size()
+    count("halo.bytes", received)
 
 
 def _remote_slabs(blocks, w: int, axis: int, mesh: ShardMesh,

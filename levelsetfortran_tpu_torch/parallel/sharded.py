@@ -66,12 +66,13 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..ops import minmax_cuda, reverse, weno_cuda
+from ..ops import advect_cuda, minmax_cuda, reverse, weno_cuda
 from ..ops.derivs import second_derivative
 from ..ops.minmax import seven_point_average
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
 from ..utils.metrics import emit_iteration
+from ..utils.profiling import count, span
 from .distributed import comm_device, shard_order_sum
 from .halo import (crop, halo_exchange, halo_exchange_transpose,
                    local_offsets, refresh_halos)
@@ -408,6 +409,7 @@ def _global_rms(dsqs, gshape, mesh: ShardMesh) -> float:
     :func:`~.distributed.shard_order_sum`), so the same number in one
     process or several and on every rank."""
     denom = (gshape[0] - 1) * (gshape[1] - 1) * (gshape[2] - 1)
+    count("sharded.host_reads")
     return math.sqrt(shard_order_sum(dsqs, mesh.owners) / denom)
 
 
@@ -535,7 +537,12 @@ class ShardedLevelSet:
         """Up to ``iters`` reinit steps (in exchanges of k), stopping at
         global RMS < tol or NaN: ``(blocks, iterations, rms)``.  The state
         stays in the padded layout for the whole solve; the sign source is
-        exchanged once."""
+        exchanged once.  Traced as ``lsf.sharded.solve``, its steps
+        counted in ``sharded.steps``."""
+        with span("lsf.sharded.solve"):
+            return self._reinit(blocks, h, iters, tol, sign_src)
+
+    def _reinit(self, blocks, h, iters, tol, sign_src):
         sign = blocks if sign_src is None else sign_src
         spads = _each(torch.Tensor.contiguous,
                       halo_exchange(sign, self.widths, self.mesh))
@@ -546,6 +553,7 @@ class ShardedLevelSet:
             pads, outs, dsqs = self._reinit_once(pads, outs, spads, h,
                                                  self.k, True)
             n += self.k
+            count("sharded.steps", self.k)
             rms = _global_rms(dsqs, self.gshape, self.mesh)
             emit_iteration("reinit", self.metrics_every, n, rms,
                            cells=math.prod(self.gshape))
@@ -556,7 +564,13 @@ class ShardedLevelSet:
     def minmax_flow(self, blocks, h1, iters: int, tol: float, *,
                     band_radius=4.1, threshold=0.0):
         """Up to ``iters`` min/max steps with the global RMS early exit:
-        ``(blocks, iterations, rms)``."""
+        ``(blocks, iterations, rms)``.  Traced as ``lsf.sharded.solve``,
+        its steps counted in ``sharded.steps``."""
+        with span("lsf.sharded.solve"):
+            return self._minmax_flow(blocks, h1, iters, tol, band_radius,
+                                     threshold)
+
+    def _minmax_flow(self, blocks, h1, iters, tol, band_radius, threshold):
         actives = None
         if self.narrow_band:
             actives = minmax_tile_activity_local(blocks, self.dx,
@@ -570,6 +584,7 @@ class ShardedLevelSet:
                 geoms=self._mgeoms, widths=self.mwidths, mesh=self.mesh,
                 actives=actives, with_rms=True)
             n += 1
+            count("sharded.steps")
             rms = _global_rms(dsqs, self.gshape, self.mesh)
             emit_iteration("minmax", self.metrics_every, n, rms,
                            band_tiles=actives, cells=math.prod(self.gshape))
@@ -939,6 +954,40 @@ def minmax_fixed_sharded(mesh: ShardMesh, blocks, dx, h1, steps: int, *,
 
 # ------------------------- sharded advection -------------------------
 
+def advection_fields(mesh: ShardMesh, blocks, dx, *, order: int = 8,
+                     stencil_radius: float = 8.1,
+                     quirk_deriv8_y: bool = False):
+    """What the sharded advection samples: per shard (None for another
+    rank's) its block's phi and banded order-8 gradient as one
+    ``(X, Y, Z, 4)`` field with a halo of one cell on the sharded axes,
+    and its :class:`~..ops.advect_cuda.BlockSpec`.  The gradient comes
+    from a periodic exchange of ``HALO`` cells, exactly as the
+    single-device :func:`~..solvers.advect.banded_gradient` with its
+    circular shifts."""
+    from ..ops.band import narrow_band
+    from ..ops.derivs import first_derivative
+    b = next(tuple(x.shape) for x in blocks if x is not None)
+    w4 = (HALO,) * 3
+
+    def masked_gradient(phi_l, pad):
+        g, _ = first_derivative(pad, dx, order=order,
+                                quirk_deriv8_y=quirk_deriv8_y)
+        _, sb = narrow_band(phi_l, dx, stencil_radius, stencil_radius)
+        g = crop(g, w4)
+        return torch.where(sb[..., None], g, torch.zeros_like(g))
+
+    grads = _each(masked_gradient, blocks,
+                  halo_exchange(blocks, w4, mesh, periodic=True))
+    w1 = sharded_widths(mesh, 1)
+    fields = _each(lambda p, g: torch.cat([p[..., None], g], dim=-1),
+                   halo_exchange(blocks, w1, mesh),
+                   halo_exchange(grads, w1, mesh))
+    specs = [advect_cuda.BlockSpec(off, tuple(o + n for o, n in zip(off, b)),
+                                   w1)
+             for off in local_offsets(mesh, b)]
+    return fields, specs
+
+
 def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
                          iters: int = 1000, *, eps: float = 1e-13,
                          order: int = 8, stencil_radius: float = 8.1,
@@ -959,75 +1008,46 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
     +0.0, so each sum is exact (an all-gather of the per-shard samples
     would move ``world`` times the bytes for the same numbers).
 
-    The banded order-8 gradient (radius 4) is computed once per shard from
-    a periodic exchange of ``HALO`` cells, exactly as the single-device
-    :func:`~..solvers.advect.banded_gradient` with its circular shifts."""
-    from ..ops.band import narrow_band
-    from ..ops.derivs import first_derivative
+    Float32 blocks on the card take K8's block mode
+    (:mod:`~..ops.advect_cuda`): in one process every iteration in one
+    launch per card (:func:`~..ops.advect_cuda.advect_blocks`, nodes
+    handed between cards only where they cross a seam between them);
+    across processes one launch per shard and iteration
+    (:func:`~..ops.advect_cuda.sample_block`) before the all-reduce.  CPU,
+    bfloat16 and float64 blocks run the plain loop
+    (:func:`~..ops.advect_cuda.sample_block_plain` per shard and
+    iteration).  Every route is bitwise the plain loop's.  The nodes
+    sample the fields of :func:`advection_fields`."""
     from ..solvers.advect import AdvectResult
-    gshape = tuple(grid.shape)
-    b = mesh.block_shape(gshape)
-    w4 = (HALO,) * 3
+    fields, specs = advection_fields(mesh, blocks, dx, order=order,
+                                     stencil_radius=stencil_radius,
+                                     quirk_deriv8_y=quirk_deriv8_y)
+    mine = [(f, sp) for f, sp in zip(fields, specs) if f is not None]
+    home = positions.device
+    kernel = all(advect_cuda.takes_kernel(f) for f, _ in mine)
+    if kernel and not mesh.spans_processes:
+        x, p = advect_cuda.advect_blocks(
+            [f for f, _ in mine], [sp for _, sp in mine], grid, positions,
+            iters, eps, zero_sign=mesh.n_shards > 1)
+        return AdvectResult(positions=x, phi_surf=p)
 
-    def masked_gradient(phi_l, pad):
-        g, _ = first_derivative(pad, dx, order=order,
-                                quirk_deriv8_y=quirk_deriv8_y)
-        _, sb = narrow_band(phi_l, dx, stencil_radius, stencil_radius)
-        g = crop(g, w4)
-        return torch.where(sb[..., None], g, torch.zeros_like(g))
+    if kernel:
+        tables = [advect_cuda.block_table([f], [sp], f.device)
+                  for f, sp in mine]
 
-    grads = _each(masked_gradient, blocks,
-                  halo_exchange(blocks, w4, mesh, periodic=True))
-    w1 = sharded_widths(mesh, 1)
-    fields = _each(lambda p, g: torch.cat([p[..., None], g], dim=-1),
-                   halo_exchange(blocks, w1, mesh),
-                   halo_exchange(grads, w1, mesh))
-    del grads
-    dtype, home = positions.dtype, positions.device
-    consts = []
-    for off, field in zip(local_offsets(mesh, b), fields):
-        if field is None:
-            consts.append(None)
-            continue
-        dev = field.device
+        def sample_one(n, f, sp, x):
+            return advect_cuda.sample_block(f, sp, grid, x, tables[n])
+    else:
+        consts = [advect_cuda.block_consts(f, sp, grid, positions.dtype)
+                  for f, sp in mine]
 
-        def t(v, dt=dtype):
-            return torch.tensor(v, dtype=dt, device=dev)
-
-        consts.append(dict(
-            origin=t(grid.origin), hi=t([s - 1 for s in gshape]),
-            max_i0=t([s - 2 for s in gshape], torch.long),
-            lo=t(off, torch.long),
-            end=t([o + n for o, n in zip(off, b)], torch.long),
-            shift=t([w - o for o, w in zip(off, w1)], torch.long),
-            li_max=t([s - 2 for s in field.shape[:3]], torch.long)))
+        def sample_one(n, f, sp, x):
+            return advect_cuda.sample_block_plain(f, sp, grid, x, consts[n])
 
     def sample(x):
         total = None
-        for field, c in zip(fields, consts):
-            if field is None:
-                continue
-            f = (x.to(field.device) - c["origin"]) / grid.dx
-            f = torch.minimum(torch.clamp_min(f, 0.0), c["hi"])
-            i0 = torch.minimum(torch.clamp_min(torch.floor(f).long(), 0),
-                               c["max_i0"])
-            tt = f - i0.to(f.dtype)
-            own = ((i0 >= c["lo"]) & (i0 < c["end"])).all(dim=-1)
-            li = torch.minimum(torch.clamp_min(i0 + c["shift"], 0),
-                               c["li_max"])       # clamp off-shard junk
-
-            def gather(di, dj, dk):
-                return field[li[:, 0] + di, li[:, 1] + dj, li[:, 2] + dk]
-
-            tx, ty, tz = tt[:, 0:1], tt[:, 1:2], tt[:, 2:3]
-            c00 = gather(0, 0, 0) * (1 - tx) + gather(1, 0, 0) * tx
-            c10 = gather(0, 1, 0) * (1 - tx) + gather(1, 1, 0) * tx
-            c01 = gather(0, 0, 1) * (1 - tx) + gather(1, 0, 1) * tx
-            c11 = gather(0, 1, 1) * (1 - tx) + gather(1, 1, 1) * tx
-            c0 = c00 * (1 - ty) + c10 * ty
-            c1 = c01 * (1 - ty) + c11 * ty
-            s = c0 * (1 - tz) + c1 * tz
-            s = torch.where(own[:, None], s, torch.zeros_like(s)).to(home)
+        for n, (f, sp) in enumerate(mine):
+            s = sample_one(n, f, sp, x).to(home)
             total = s if total is None else total + s
         if mesh.spans_processes:
             buf = total.to(comm_device(total))
@@ -1035,17 +1055,9 @@ def advect_nodes_sharded(mesh: ShardMesh, blocks, grid, positions, dx,
             total = buf.to(home)
         return total
 
-    mag_eps = 1e-7
     x = positions
     for _ in range(iters):
-        s = sample(x)
-        p, g = s[:, 0], -s[:, 1:4]
-        mag2 = torch.sum(g * g, dim=-1, keepdim=True)
-        direction = torch.where(
-            mag2 < mag_eps, torch.zeros_like(g),
-            g / torch.sqrt(torch.clamp_min(mag2, mag_eps * 1e-6)))
-        move = (p > eps).to(x.dtype)
-        x = x + (move * p)[:, None] * direction
+        x = advect_cuda.move(x, sample(x), eps)
     return AdvectResult(positions=x, phi_surf=sample(x)[:, 0])
 
 

@@ -361,14 +361,17 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     sync()
     timer.mark("minmax")
 
-    # --- node advection: phi stays in blocks, the nodes are replicated ---
-    adv = advect_nodes_sharded(
-        smesh, phi_smoothed, grid,
-        torch.as_tensor(mesh.vertices, dtype=dtype, device=mine[0]),
-        cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
-        order=cfg.advect_grad_order, stencil_radius=cfg.stencil_band_radius,
-        quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
-    sync()
+    # --- node advection: phi stays in blocks, the nodes are replicated;
+    # its span closes once the mesh's cards are done ---
+    with span("lsf.sharded.advect"):
+        adv = advect_nodes_sharded(
+            smesh, phi_smoothed, grid,
+            torch.as_tensor(mesh.vertices, dtype=dtype, device=mine[0]),
+            cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
+            order=cfg.advect_grad_order,
+            stencil_radius=cfg.stencil_band_radius,
+            quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
+        sync()
     timer.mark("advect")
 
     # --- asymptotic error from the blocks (set3d.f90:508-521): the
