@@ -3878,15 +3878,16 @@ def k7_case(tag, run, vertices=None):
     a, kw, (best, _) = calls[0]
     pts, _, tri_s, _, rows = a
     P = pts.shape[1]
-    (bp, _), t_plain = sync_time(
-        lambda: init_cuda.select_rows_plain(*a, **kw))
+    index = kw.get("index") or init_cuda.row_index(rows, pts.device)
+    (bp, _), t_plain = sync_time(lambda: init_cuda.select_rows_plain(
+        *a, **{k: v for k, v in kw.items() if k != "index"}))
     ms = median_ms(lambda: init_cuda.select_rows(*a, **kw), 3)
     d = best != bp
     diff = int(d.sum())
     worst = 0.0
     if diff:
         dk, dp = (_exact_d2(pts[d][None], tri_s[init_cuda.triangle_ids(
-            rows, b, pts.device)[d]][None])[0].cpu().numpy()
+            index, b)[d]][None])[0].cpu().numpy()
             for b in (best, bp))
         ulp = np.spacing(np.maximum(dk, dp).astype(np.float32))
         worst = float((np.abs(dk - dp) / ulp).max())

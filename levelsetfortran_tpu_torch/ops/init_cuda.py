@@ -258,15 +258,27 @@ def dense_rows(n_blocks: int, n_tri: int) -> Rows:
                 np.zeros(n_blocks, np.int64), None)
 
 
-def triangle_ids(rows: Rows, best_i, device):
-    """The triangle of each point from its position ``best_i`` (R, P) in
-    its row."""
-    best_i = best_i.long()
+def row_index(rows: Rows, device):
+    """``(offsets, flat)`` of ``rows`` as tensors on ``device`` (None for
+    the dense rows): what K7 and :func:`triangle_ids` read.  The init
+    makes them before it launches the scan, since a copy from pageable
+    host memory waits for the card's stream: made after the launch, it
+    would hold the host until the scan ends."""
     if rows.flat is None:
+        return None
+    return (torch.as_tensor(rows.offsets, device=device),
+            torch.as_tensor(rows.flat, device=device))
+
+
+def triangle_ids(index, best_i):
+    """The triangle of each point from its position ``best_i`` (R, P) in
+    its row; ``index`` the rows' :func:`row_index` (None: dense rows, a
+    position is the triangle)."""
+    best_i = best_i.long()
+    if index is None:
         return best_i
-    flat = torch.as_tensor(rows.flat, dtype=torch.long, device=device)
-    off = torch.as_tensor(rows.offsets, device=device)
-    return flat[off[:, None] + best_i]
+    offsets, flat = index
+    return flat[offsets[:, None] + best_i].long()
 
 
 # ----------------------------- K7 and its plain version -----------------
@@ -312,14 +324,15 @@ def _check(pts, shift, tri_s, ang, tile):
 
 
 def select_rows(pts, shift, tri_s, ang, rows: Rows, *, tile: int,
-                rel_tie: float = 1e-3):
+                rel_tie: float = 1e-3, index=None):
     """The selection scan of every row: (best_i (R, P), the position of
     each point's nearest candidate in its row; acc (R, P), the
     pseudonormal accumulator).  ``pts`` (R, P, 3) are the rows' points,
     ``shift`` (R, 3) their centres, ``tri_s`` (E + 1, 3, 3) the triangles
-    with the far sentinel last and ``ang`` their vertex angles.  One K7
-    launch for a CUDA tensor (float32 only; anything else raises), the
-    plain version for a CPU one."""
+    with the far sentinel last and ``ang`` their vertex angles;
+    ``index`` the rows' :func:`row_index` on the tensors' device, where
+    the caller has made it.  One K7 launch for a CUDA tensor (float32
+    only; anything else raises), the plain version for a CPU one."""
     if pts.device.type == "cpu":
         return select_rows_plain(pts, shift, tri_s, ang, rows, tile=tile,
                                  rel_tie=rel_tie)
@@ -336,8 +349,8 @@ def select_rows(pts, shift, tri_s, ang, rows: Rows, *, tile: int,
         return best.long(), acc
     dense = rows.flat is None
     counts = torch.as_tensor(rows.counts, dtype=torch.int32, device=dev)
-    offsets = None if dense else torch.as_tensor(rows.offsets, device=dev)
-    flat = None if dense else torch.as_tensor(rows.flat, device=dev)
+    offsets, flat = (None, None) if dense else (index
+                                                or row_index(rows, dev))
     t = scalar_type(torch.float32)
     with on_device(dev):
         cuda_build.launch(

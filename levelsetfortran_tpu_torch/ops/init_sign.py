@@ -39,15 +39,19 @@ import numpy as np
 import torch
 
 from ..grid.grid import Grid3D
-from ..utils.profiling import count, span
+from ..utils.profiling import count, recording, span
 from . import cull_cuda, init_cuda
-from .init_cuda import dense_rows, pack_rows, triangle_ids
+from .init_cuda import dense_rows, pack_rows, row_index, triangle_ids
 from .weno_cuda import kernel_supported, scalar_type
 
 #: Points per chunk of the exact re-evaluation: few and large torch ops
 #: (run D records its autograd graph through them), some 40 temporaries of
-#: (points, 3) each.
-_EXACT_POINTS = 2 ** 22
+#: (points, 3) each.  Each chunk is ~100 launches queued on the card behind
+#: the scan; past the ~1000 the card's launch queue holds, the host's
+#: next launch blocks until the scan ends (a quarter of a 512^3 grid:
+#: ~5 chunks of 2^23, ~10 of 2^22), and the sharded init's next block, on
+#: another card, with it.
+_EXACT_POINTS = 2 ** 23
 
 #: When a dict, the exact init adds its stages' seconds on the host clock
 #: to it, the device synchronised at each boundary: "culling" (the build
@@ -376,7 +380,13 @@ def _init_rows(grid, tri, rows, block, nblocks, *, dtype, tile,
     gradient) is K7 for float32, through its wrapper, and the plain version
     for other dtypes; the exact squared distance to each point's triangle,
     through which alone gradients flow, is re-evaluated in chunks of
-    :data:`_EXACT_POINTS` points."""
+    :data:`_EXACT_POINTS` points.
+
+    Every host array the init sends to the device goes before the scan is
+    launched, and nothing after the launch reads back: a copy from
+    pageable memory waits for the card's stream, so the host would wait
+    for the scan, and the sharded init's next block, on another card,
+    with it."""
     device = tri.device
     far = torch.full((1, 3, 3), 1e30, dtype=tri.dtype, device=device)
     tri_s = torch.cat([tri, far], dim=0)       # sentinel at index E
@@ -398,15 +408,19 @@ def _init_rows(grid, tri, rows, block, nblocks, *, dtype, tile,
     # so a block of the sharded init scans exactly as in the whole grid
     shift = (origin.double() + dxv * (borig.double()
                                       + (block - 1) / 2.0)).to(dtype)
+    index = row_index(rows, device)
+    dest = torch.as_tensor(bidx, device=device)
     count("init.pairs", rows.pairs_per_point * P)
     count("init.points", math.prod(grid.shape))
     with _stage("select", device), torch.no_grad():
-        select = (init_cuda.select_rows if kernel_supported(grid.shape, dtype)
-                  else init_cuda.select_rows_plain)
-        best, acc = select(pts, shift, tri_s.detach().contiguous(),
-                           ang.contiguous(), rows, tile=tile)
+        args = (pts, shift, tri_s.detach().contiguous(), ang.contiguous(),
+                rows)
+        if kernel_supported(grid.shape, dtype):
+            best, acc = init_cuda.select_rows(*args, tile=tile, index=index)
+        else:
+            best, acc = init_cuda.select_rows_plain(*args, tile=tile)
     with _stage("exact", device):
-        tid = triangle_ids(rows, best, device)
+        tid = triangle_ids(index, best)
         sgn = torch.where(acc < 0, -1.0, 1.0).to(dtype)
         step = max(1, _EXACT_POINTS // P)
         parts = []
@@ -417,8 +431,7 @@ def _init_rows(grid, tri, rows, block, nblocks, *, dtype, tile,
         results = torch.zeros((nbx * nby * nbz, P), dtype=dtype,
                               device=device)
         if parts:
-            results = results.index_copy(
-                0, torch.as_tensor(bidx, device=device), torch.cat(parts))
+            results = results.index_copy(0, dest, torch.cat(parts))
         return _blocks_to_grid(results, nblocks, block, grid.shape)
 
 
@@ -514,8 +527,17 @@ def signed_distance_init_sharded(grid: Grid3D, vertices, elements, mesh, *,
     order than in the whole-grid init and a tie between triangles may fall
     the other way (last-bit differences; the sign only where a point lies
     on the surface, ROADMAP H8).  The JAX package's rebalancing of uneven
-    candidate counts (``_overflow_split``) is not ported.  Traced as
-    ``lsf.sharded.init``."""
+    candidate counts (``_overflow_split``) is not ported.
+
+    The blocks are enqueued one after another from this thread, and the
+    host waits on no card once a block's scan is launched
+    (:func:`_init_rows`), so blocks on different cards run at once; blocks
+    on one card keep its stream's order.  Traced as ``lsf.sharded.init``,
+    each block's ``signed_distance_init`` as ``lsf.sharded.init.block``;
+    counters ``sharded.init_blocks`` and ``sharded.init_overlapped`` (the
+    blocks enqueued while an earlier block's work on another card was
+    still running: a CUDA event recorded after each block and queried
+    without waiting, while a session records only)."""
     with span("lsf.sharded.init"):
         return _init_blocks(grid, vertices, elements, mesh, dtype, tile,
                             culling, cull_block)
@@ -533,16 +555,26 @@ def _init_blocks(grid, vertices, elements, mesh, dtype, tile, culling,
     b = mesh.block_shape(grid.shape)
     verts = (replicate(mesh, vertices) if isinstance(vertices, torch.Tensor)
              else [vertices] * mesh.n_shards)
-    blocks = []
+    blocks, enqueued = [], []        # enqueued: (card, event) a block
     for off, dev, v in zip(local_offsets(mesh, b), mesh.devices, verts):
         if dev is None:
             blocks.append(None)
             continue
         sub = Grid3D(shape=b, origin=tuple(
             o + i * grid.dx for o, i in zip(grid.origin, off)), dx=grid.dx)
-        blocks.append(signed_distance_init(
-            sub, v, elements, dtype=dtype, device=dev, tile=tile,
-            culling=culling, cull_block=cull_block, block_of=(grid, off)))
+        with span("lsf.sharded.init.block"):
+            blocks.append(signed_distance_init(
+                sub, v, elements, dtype=dtype, device=dev, tile=tile,
+                culling=culling, cull_block=cull_block,
+                block_of=(grid, off)))
+        if recording():
+            count("sharded.init_blocks")
+            count("sharded.init_overlapped", int(any(
+                d != dev and not e.query() for d, e in enqueued)))
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                enqueued.append((dev, done))
     return blocks
 
 

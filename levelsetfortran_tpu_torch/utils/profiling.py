@@ -40,24 +40,29 @@ _NO_SPAN = contextlib.nullcontext()
 _counters: dict = {}
 
 
+def recording() -> bool:
+    """Whether a profiler session records: the profiler's own Python flag,
+    ``torch.autograd.profiler._is_profiler_enabled``, which
+    ``torch.profiler.profile`` and ``torch.autograd.profiler.profile`` set
+    while they record (a read of a module attribute)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A context manager marking a layer of the program in the trace: a
     ``torch.profiler.record_function(name)`` while a profiler session
-    records, else one shared null context.  The test is the profiler's own
-    Python flag, ``torch.autograd.profiler._is_profiler_enabled``, which
-    ``torch.profiler.profile`` and ``torch.autograd.profiler.profile`` set
-    while they record (a read of a module attribute; a
+    records (:func:`recording`), else one shared null context (a
     ``record_function`` made unconditionally costs some microseconds)."""
-    if _autograd_profiler._is_profiler_enabled:
+    if recording():
         return torch.profiler.record_function(name)
     return _NO_SPAN
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while a profiler session records
-    (the flag of :func:`span`); else nothing.  Called from the thread
-    that drives the pipeline, with numbers already on the host."""
-    if _autograd_profiler._is_profiler_enabled:
+    (:func:`recording`); else nothing.  Called from the thread that drives
+    the pipeline, with numbers already on the host."""
+    if recording():
         _counters[name] = _counters.get(name, 0) + n
 
 

@@ -131,7 +131,7 @@ def test_plain_rows_scan_equals_the_bucket_scans(mesh, dtype):
 @pytest.mark.parametrize("culling", ["auto", None])
 def test_init_in_chunks_matches_jax(mesh, dtype, culling, monkeypatch):
     """The exact re-evaluation in chunks of three culling blocks (the
-    card's are 1024) against the JAX package's init."""
+    card's are 2048) against the JAX package's init."""
     monkeypatch.setattr(tinit, "_EXACT_POINTS", 3 * 16 ** 3)
     m = MESHES[mesh]()
     jdt, tdt, atol = DTYPES[dtype]
