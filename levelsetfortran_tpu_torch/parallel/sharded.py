@@ -71,7 +71,7 @@ from ..ops.derivs import second_derivative
 from ..ops.minmax import seven_point_average
 from ..ops.stencil import global_clamped_inner, global_interior_mask
 from ..ops.weno_cuda import BRICK, BlockGeom
-from ..utils.metrics import emit_iteration
+from ..solvers.converge import converge, step_rms
 from ..utils.profiling import count, span
 from .distributed import comm_device, shard_order_sum
 from .halo import (crop, halo_exchange, halo_exchange_transpose,
@@ -403,14 +403,9 @@ def minmax_step_persistent(pads, outs, dx, h1, band_radius, threshold, *,
 
 
 def _global_rms(dsqs, gshape, mesh: ShardMesh) -> float:
-    """RMS over the reference's ``(nx-1)(ny-1)(nz-1)`` denominator from the
-    shards' sums of squared changes, added on the host in shard order in
-    float64 (one host read; across processes the sums all-gathered first,
-    :func:`~.distributed.shard_order_sum`), so the same number in one
-    process or several and on every rank."""
-    denom = (gshape[0] - 1) * (gshape[1] - 1) * (gshape[2] - 1)
-    count("sharded.host_reads")
-    return math.sqrt(shard_order_sum(dsqs, mesh.owners) / denom)
+    """A check's RMS from the shards' sums, the same number on every rank
+    (:func:`~..solvers.converge.step_rms`)."""
+    return step_rms(dsqs, gshape, mesh.owners)
 
 
 # --------------------------- public wrapper ---------------------------
@@ -546,20 +541,10 @@ class ShardedLevelSet:
         sign = blocks if sign_src is None else sign_src
         spads = _each(torch.Tensor.contiguous,
                       halo_exchange(sign, self.widths, self.mesh))
-        pads = self._padded(blocks, self.widths)
-        outs = _each(torch.zeros_like, pads)
-        n, rms = 0, math.inf
-        while n < iters:
-            pads, outs, dsqs = self._reinit_once(pads, outs, spads, h,
-                                                 self.k, True)
-            n += self.k
-            count("sharded.steps", self.k)
-            rms = _global_rms(dsqs, self.gshape, self.mesh)
-            emit_iteration("reinit", self.metrics_every, n, rms,
-                           cells=math.prod(self.gshape))
-            if rms < tol or math.isnan(rms):
-                break
-        return self._cropped(pads, self.widths), n, rms
+        return self._converge(
+            lambda pads, outs: self._reinit_once(pads, outs, spads, h,
+                                                 self.k, True),
+            blocks, iters, tol, "reinit", self.widths, self.k)
 
     def minmax_flow(self, blocks, h1, iters: int, tol: float, *,
                     band_radius=4.1, threshold=0.0):
@@ -575,22 +560,28 @@ class ShardedLevelSet:
         if self.narrow_band:
             actives = minmax_tile_activity_local(blocks, self.dx,
                                                  band_radius)
-        pads = self._padded(blocks, self.mwidths)
-        outs = _each(torch.zeros_like, pads)
-        n, rms = 0, math.inf
-        while n < iters:
-            pads, outs, dsqs = minmax_step_persistent(
+        return self._converge(
+            lambda pads, outs: minmax_step_persistent(
                 pads, outs, self.dx, h1, band_radius, threshold,
                 geoms=self._mgeoms, widths=self.mwidths, mesh=self.mesh,
-                actives=actives, with_rms=True)
-            n += 1
-            count("sharded.steps")
-            rms = _global_rms(dsqs, self.gshape, self.mesh)
-            emit_iteration("minmax", self.metrics_every, n, rms,
-                           band_tiles=actives, cells=math.prod(self.gshape))
-            if rms < tol or math.isnan(rms):
-                break
-        return self._cropped(pads, self.mwidths), n, rms
+                actives=actives, with_rms=True),
+            blocks, iters, tol, "minmax", self.mwidths, 1, actives)
+
+    def _converge(self, step, blocks, iters, tol, stage, widths, k,
+                  actives=None):
+        """The loop of :mod:`..solvers.converge` over ``step(pads, outs) ->
+        (pads, outs, dsqs)`` (``k`` steps) on the blocks padded by
+        ``widths``: ``(cropped blocks, iterations, rms)``."""
+        def advance(state, n):
+            pads, outs, dsqs = step(*state)
+            count("sharded.steps", k)
+            return (pads, outs), k, dsqs, actives
+        pads = self._padded(blocks, widths)
+        (pads, _), n, rms, _ = converge(
+            advance, (pads, _each(torch.zeros_like, pads)), iters, tol,
+            stage=stage, shape=self.gshape, metrics_every=self.metrics_every,
+            owners=self.mesh.owners)
+        return self._cropped(pads, widths), n, rms
 
 
 # ------------------ differentiable fixed-step solvers ------------------

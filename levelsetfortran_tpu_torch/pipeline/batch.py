@@ -60,9 +60,11 @@ from ..ops.weno_cuda import (kernel_supported, packed_vector, round_to,
 from ..parallel.mesh import default_devices
 from ..solvers.advect import advect_nodes
 from ..solvers.minmax_flow import minmax_flow
-from ..solvers.reinit import reinit, rms_denominator
+from ..solvers.converge import rms_denominator, stops
+from ..solvers.reinit import reinit
 from ..utils.logging import StageTimer, log_event
 from ..utils.profiling import count, span
+from .run import _host, _stage_kw, _sync
 
 MeshLike = Union[str, SurfaceMesh]
 STRATEGIES = ("auto", "packed", "sequential")
@@ -103,7 +105,7 @@ class _Solve:
         step_rms = np.sqrt(dsq.cpu().numpy() / self.denom)
         self.rms = np.where(self.done, self.rms, step_rms)
         self.counts += ~self.done
-        now = self.done | (step_rms < tol) | np.isnan(step_rms)
+        now = self.done | stops(step_rms, tol)
         if (now != self.done).any():
             self.live = torch.as_tensor(~now, dtype=torch.int32,
                                         device=self.p.device)
@@ -120,8 +122,7 @@ def _batched_solves(problems, iters: int, tol) -> list:
     batch's result is the one it would have alone."""
     with span("lsf.batched_solve"):
         solves = [_Solve(phi0, step) for phi0, step in problems]
-        n = 0
-        while n < iters:
+        for n in range(iters):
             running = [s for s in solves if not s.done.all()]
             if not running:
                 break
@@ -129,7 +130,6 @@ def _batched_solves(problems, iters: int, tol) -> list:
             dsqs = [s.launch(n) for s in running]
             for s, dsq in zip(running, dsqs):
                 s.settle(dsq, tol)
-            n += 1
         return [s.result() for s in solves]
 
 
@@ -299,21 +299,15 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
     else:
         shares, devices = [range(len(meshes))], [device]
 
-    def sync():
-        for d in set(devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-
+    ikw, rkw, mkw, akw = _stage_kw(cfg)
     # per-geometry init, either mode (JAX batch.py:358-363), on its share's
     # device
     if cfg.init_mode == "distance":
-        culling = None if cfg.init_culling == "off" else "auto"
-
         def init(g, m, dev):
             with span("lsf.run_batch.init"):
                 return signed_distance_init(
                     g, m.vertices, m.elements, dtype=dtype, device=dev,
-                    culling=culling, cull_block=cfg.init_cull_block)
+                    **ikw)
     else:
         def init(g, m, dev):
             with span("lsf.run_batch.init"):
@@ -321,7 +315,7 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
                                              dtype=dtype, device=dev)
     phi0 = [torch.stack([init(grids[j], meshes[j], dev) for j in share])
             for share, dev in zip(shares, devices)]
-    sync()
+    _sync(devices)
     timer.mark("search")
 
     h_r, h_m = step_sizes(meshes, cfg)
@@ -332,9 +326,6 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
                     else "sequential")
     log_event("batch_strategy", strategy=strategy)
 
-    rkw = dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,
-               quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero)
-    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
     if strategy == "sequential":
         r = [_stack([reinit(p[k], cfg.dx, float(h_r[j]), cfg.reinit_iters,
                             cfg.reinit_tol, **rkw)
@@ -345,7 +336,7 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
             [(p, _reinit_packed_step(p, cfg.dx, h_r[list(share)], **rkw))
              for p, share in zip(phi0, shares)],
             cfg.reinit_iters, cfg.reinit_tol)
-    sync()
+    _sync(devices)
     timer.mark("initialization")
 
     if strategy == "sequential" or cfg.minmax_avg_halfwidth != 1:
@@ -361,7 +352,7 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
                                           **mkw))
              for rs, share in zip(r, shares)],
             cfg.minmax_iters, cfg.minmax_tol)
-    sync()
+    _sync(devices)
     timer.mark("minmax")
 
     # (share, index in it) of each geometry, in batch order
@@ -372,16 +363,10 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
             advect_nodes(m[s].phi[k], grids[i],
                          torch.as_tensor(meshes[i].vertices, dtype=dtype,
                                          device=devices[s]),
-                         cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
-                         order=cfg.advect_grad_order,
-                         stencil_radius=cfg.stencil_band_radius,
-                         quirk_deriv8_y=cfg.quirks.deriv8_y_jp1).positions
+                         cfg.dx, **akw).positions
             for i, (s, k) in enumerate(where)]
-    sync()
+    _sync(devices)
     timer.mark("advect")
-
-    def host(x):
-        return x.detach().to("cpu", torch.float64).numpy()
 
     r_iters = np.concatenate([rs.iterations for rs in r])
     m_iters = np.concatenate([ms.iterations for ms in m])
@@ -399,8 +384,9 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
         for i, (mesh, g, name) in enumerate(zip(meshes, grids, names)):
             s, k = where[i]
             items.append(BatchItem(
-                mesh=mesh, grid=g, phi_init=host(r[s].phi[k]),
-                phi_smoothed=host(m[s].phi[k]), advected=host(advected[i]),
+                mesh=mesh, grid=g, phi_init=_host(r[s].phi[k]),
+                phi_smoothed=_host(m[s].phi[k]),
+                advected=_host(advected[i]),
                 asymptotic_error=asym[i], reinit_iters=int(r_iters[i]),
                 minmax_iters=int(m_iters[i]), name=name))
     if write_outputs:

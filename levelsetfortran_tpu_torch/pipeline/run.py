@@ -51,7 +51,8 @@ from ..solvers.checkpointed import (minmax_resumable,
                                     minmax_resumable_sharded,
                                     reinit_resumable, reinit_resumable_sharded)
 from ..solvers.minmax_flow import minmax_flow, minmax_flow_narrowband
-from ..solvers.reinit import reinit, reinit_narrowband, rms_denominator
+from ..solvers.converge import rms_denominator
+from ..solvers.reinit import reinit, reinit_narrowband
 from ..utils.checkpoint import FieldCheckpointer
 from ..utils.logging import StageTimer, log_event
 from ..utils.profiling import span
@@ -108,14 +109,10 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
     cfg = config
     dtype = cfg.dtype
     device = cfg.torch_device()
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     if cfg.mesh_shape:
         return _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
                                  write_outputs)
+    ikw, rkw, mkw, akw = _stage_kw(cfg)
 
     # --- grid setup (set3d.f90:89-173) ---
     with span("lsf.run_mesh.grid"):
@@ -125,20 +122,15 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
 
     # --- inside/outside classification (set3d.f90:196-268) ---
     if cfg.init_mode == "distance":
-        phi0 = signed_distance_init(
-            grid, mesh.vertices, mesh.elements, dtype=dtype, device=device,
-            culling=None if cfg.init_culling == "off" else "auto",
-            cull_block=cfg.init_cull_block)
+        phi0 = signed_distance_init(grid, mesh.vertices, mesh.elements,
+                                    dtype=dtype, device=device, **ikw)
     else:
         phi0 = initialize_sign_field(grid, mesh.vertices, mesh.elements,
                                      dtype=dtype, device=device)
-    sync()
+    _sync([device])
     timer.mark("search")                    # set3d.f90:271-273
 
-    rkw = dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,
-               quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero)
     fkw = dict(rkw, metrics_every=cfg.metrics_every)
-    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
     h_r, h_m = cfg.reinit_cfl * dxx, cfg.minmax_cfl * dxx
     # --- initial reinitialization (set3d.f90:298-308) ---
     # checkpointed: chunked dense solves with resume and no metrics, as in
@@ -158,7 +150,7 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
         r = reinit(phi0, cfg.dx, h_r, cfg.reinit_iters, cfg.reinit_tol,
                    **fkw)
     phi_init = r.phi
-    sync()
+    _sync([device])
     timer.mark("initialization")            # set3d.f90:314-316
 
     # --- min/max smoothing (set3d.f90:394-462) ---
@@ -181,18 +173,13 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
                         avg_halfwidth=cfg.minmax_avg_halfwidth,
                         metrics_every=cfg.metrics_every, **mkw)
     phi_smoothed = m.phi
-    sync()
+    _sync([device])
     timer.mark("minmax")
 
     # --- node advection (set3d.f90:470-501) ---
-    adv = advect_nodes(phi_smoothed, grid,
-                       torch.as_tensor(mesh.vertices, dtype=dtype,
-                                       device=device),
-                       cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
-                       order=cfg.advect_grad_order,
-                       stencil_radius=cfg.stencil_band_radius,
-                       quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
-    sync()
+    nodes = torch.as_tensor(mesh.vertices, dtype=dtype, device=device)
+    adv = advect_nodes(phi_smoothed, grid, nodes, cfg.dx, **akw)
+    _sync([device])
     timer.mark("advect")
 
     # --- asymptotic error (set3d.f90:508-521) ---
@@ -209,7 +196,7 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
                                refresh_every=cfg.nb_refresh_every, **fkw)
     else:
         rf = reinit(*fargs, **fkw)
-    sync()
+    _sync([device])
     timer.mark("total")                     # set3d.f90:652-654
 
     with span("lsf.run_mesh.to_host"):
@@ -264,6 +251,27 @@ def _host(t):
     return t.detach().to("cpu", torch.float64).numpy()
 
 
+def _sync(devices) -> None:
+    """Wait for the cards among ``devices`` (a stage's end, timed)."""
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _stage_kw(cfg) -> tuple:
+    """The config's keyword arguments of the distance init (its culling),
+    the reinit, the min/max flow and the node advection."""
+    return (dict(culling=None if cfg.init_culling == "off" else "auto",
+                 cull_block=cfg.init_cull_block),
+            dict(eps_scale=cfg.weno_eps_scale, eps_floor=cfg.eps_floor,
+                 quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero),
+            dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold),
+            dict(iters=cfg.advect_iters, eps=cfg.advect_eps,
+                 order=cfg.advect_grad_order,
+                 stencil_radius=cfg.stencil_band_radius,
+                 quirk_deriv8_y=cfg.quirks.deriv8_y_jp1))
+
+
 def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
                       write_outputs) -> PipelineResult:
     """The domain-decomposed pipeline (``run.py:108-228, 306-391`` of the
@@ -274,6 +282,7 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     group each rank holds its own blocks; the sums are added in shard
     order, the outputs written by the primary."""
     dtype = cfg.dtype
+    ikw, rkw, mkw, akw = _stage_kw(cfg)
     banded = _banded(cfg, initial=True)
     if cfg.overlap and (cfg.narrow_band != "off"
                         or cfg.steps_per_exchange != 1):
@@ -290,11 +299,6 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
                       devices)
     mine = [d for d in smesh.devices if d is not None]
 
-    def sync():
-        for d in set(mine):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-
     # --- grid setup: every axis a multiple of the mesh ---
     grid = gridmod.from_surface(mesh.vertices, cfg.dx, cfg.pad_cells,
                                 smesh.shape)
@@ -302,8 +306,7 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
 
     # --- the solver: its constructor checks the blocks' sizes ---
     solver = ShardedLevelSet(
-        smesh, grid.shape, cfg.dx, eps_scale=cfg.weno_eps_scale,
-        eps_floor=cfg.eps_floor, quirk_y_p5_zero=cfg.quirks.weno_y_p5_zero,
+        smesh, grid.shape, cfg.dx, **rkw,
         steps_per_exchange=cfg.steps_per_exchange, narrow_band=banded,
         band_radius=cfg.stencil_band_radius, overlap=cfg.overlap,
         metrics_every=cfg.metrics_every)
@@ -316,49 +319,37 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     # cut into blocks (JAX run.py:149-152, 182, 208) ---
     if cfg.init_mode == "distance":
         phi0 = signed_distance_init_sharded(
-            grid, mesh.vertices, mesh.elements, smesh, dtype=dtype,
-            culling=None if cfg.init_culling == "off" else "auto",
-            cull_block=cfg.init_cull_block)
+            grid, mesh.vertices, mesh.elements, smesh, dtype=dtype, **ikw)
     else:
         phi0 = solver.device_put(initialize_sign_field(
             grid, mesh.vertices, mesh.elements, dtype=dtype,
             device=mine[0]))
-    sync()
+    _sync(mine)
     timer.mark("search")
 
     # --- the solver stages on the blocks ---
+    def stage(name, resumable, solve, phi, *args, **kw):
+        """One solver stage: with ``checkpoint_dir`` resumable chunks of
+        the sharded solver, saved block by block (JAX run.py:173-214)."""
+        if not cfg.checkpoint_dir:
+            out, it, rms = solve(phi, *args, **kw)
+            return out, it, rms, math.isnan(rms)
+        with FieldCheckpointer(os.path.join(cfg.checkpoint_dir, name)) as ck:
+            rr = resumable(solver, phi, *args, ckpt=ck,
+                           chunk=cfg.checkpoint_chunk, **kw)
+        return rr.phi, rr.iterations, rr.final_rms, rr.diverged
+
     h_r, h_m = cfg.reinit_cfl * dxx, cfg.minmax_cfl * dxx
-    mkw = dict(band_radius=cfg.band_radius, threshold=cfg.minmax_threshold)
-    # checkpointed: resumable chunks of the sharded solvers, saved block by
-    # block (JAX run.py:173-214)
-    if cfg.checkpoint_dir:
-        with FieldCheckpointer(
-                os.path.join(cfg.checkpoint_dir, "reinit")) as ck:
-            rr = reinit_resumable_sharded(
-                solver, phi0, h_r, cfg.reinit_iters, cfg.reinit_tol,
-                ckpt=ck, chunk=cfg.checkpoint_chunk)
-        phi_init, r_it, r_rms, r_div = (rr.phi, rr.iterations,
-                                        rr.final_rms, rr.diverged)
-    else:
-        phi_init, r_it, r_rms = solver.reinit(
-            phi0, h_r, cfg.reinit_iters, cfg.reinit_tol)
-        r_div = math.isnan(r_rms)
-    sync()
+    phi_init, r_it, r_rms, r_div = stage(
+        "reinit", reinit_resumable_sharded, solver.reinit, phi0, h_r,
+        cfg.reinit_iters, cfg.reinit_tol)
+    _sync(mine)
     timer.mark("initialization")
 
-    if cfg.checkpoint_dir:
-        with FieldCheckpointer(
-                os.path.join(cfg.checkpoint_dir, "minmax")) as ck:
-            mm = minmax_resumable_sharded(
-                solver, phi_init, h_m, cfg.minmax_iters, cfg.minmax_tol,
-                ckpt=ck, chunk=cfg.checkpoint_chunk, **mkw)
-        phi_smoothed, m_it, m_rms, m_div = (mm.phi, mm.iterations,
-                                            mm.final_rms, mm.diverged)
-    else:
-        phi_smoothed, m_it, m_rms = solver.minmax_flow(
-            phi_init, h_m, cfg.minmax_iters, cfg.minmax_tol, **mkw)
-        m_div = math.isnan(m_rms)
-    sync()
+    phi_smoothed, m_it, m_rms, m_div = stage(
+        "minmax", minmax_resumable_sharded, solver.minmax_flow, phi_init,
+        h_m, cfg.minmax_iters, cfg.minmax_tol, **mkw)
+    _sync(mine)
     timer.mark("minmax")
 
     # --- node advection: phi stays in blocks, the nodes are replicated;
@@ -367,11 +358,8 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
         adv = advect_nodes_sharded(
             smesh, phi_smoothed, grid,
             torch.as_tensor(mesh.vertices, dtype=dtype, device=mine[0]),
-            cfg.dx, iters=cfg.advect_iters, eps=cfg.advect_eps,
-            order=cfg.advect_grad_order,
-            stencil_radius=cfg.stencil_band_radius,
-            quirk_deriv8_y=cfg.quirks.deriv8_y_jp1)
-        sync()
+            cfg.dx, **akw)
+        _sync(mine)
     timer.mark("advect")
 
     # --- asymptotic error from the blocks (set3d.f90:508-521): the
@@ -385,7 +373,7 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
     phi_final, _, f_rms = solver.reinit(
         phi_smoothed, cfg.final_reinit_cfl * dxx, cfg.final_reinit_iters,
         cfg.reinit_tol)
-    sync()
+    _sync(mine)
     timer.mark("total")
 
     advected_h = _host(adv.positions)

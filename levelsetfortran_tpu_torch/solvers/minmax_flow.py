@@ -29,9 +29,8 @@ from ..ops.minmax import minmax_rhs
 from ..ops.stencil import interior_mask
 from ..ops.reverse import remat_scan
 from ..ops.weno_cuda import route, solve_buffers, tile_activity
-from ..utils.metrics import emit_iteration
 from ..utils.profiling import span
-from .reinit import rms_denominator
+from .converge import converge, step_rms, stops
 
 
 class MinMaxResult(NamedTuple):
@@ -67,33 +66,28 @@ def minmax_flow(phi0, dx, h1, iters: int, tol, *, band_radius=4.1,
     metrics event every ``metrics_every`` steps.  The default options run
     kernel K3; the others have no kernel (as in the JAX package) and run
     :func:`minmax_step`."""
-    denom = rms_denominator(phi0.shape)
-    fused = kernel_form(avg_halfwidth, use_true_curvature)
-    if fused:
+    if kernel_form(avg_halfwidth, use_true_curvature):
         step = route(phi0, minmax_cuda.minmax_step,
                      minmax_cuda.minmax_step_plain)
         bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
         sums = solve_buffers(phi0)
+
+        def advance(p, n):
+            new, dsq = step(p, dx, h1, band_radius, threshold,
+                            out=bufs[n % 2], with_rms=True, bufs=sums)
+            return new, 1, dsq, None
+    else:
+        def advance(p, n):
+            new = minmax_step(p, dx, h1, band_radius=band_radius,
+                              threshold=threshold,
+                              avg_halfwidth=avg_halfwidth,
+                              use_true_curvature=use_true_curvature)
+            d = (new - p).double()
+            return new, 1, (d * d).sum(), None
     with span("lsf.minmax"):
-        p, n, rms = phi0, 0, math.inf
-        while n < iters:
-            if fused:
-                new, dsq = step(
-                    p, dx, h1, band_radius, threshold, out=bufs[n % 2],
-                    with_rms=True, bufs=sums)
-            else:
-                new = minmax_step(p, dx, h1, band_radius=band_radius,
-                                  threshold=threshold,
-                                  avg_halfwidth=avg_halfwidth,
-                                  use_true_curvature=use_true_curvature)
-                d = (new - p).double()
-                dsq = (d * d).sum()
-            p, n = new, n + 1
-            rms = math.sqrt(dsq.item() / denom)
-            emit_iteration("minmax", metrics_every, n, rms, cells=phi0.numel())
-            if rms < tol or math.isnan(rms):
-                break
-        return MinMaxResult(p, n, rms, math.isnan(rms))
+        return MinMaxResult(*converge(
+            advance, phi0, iters, tol, stage="minmax", shape=phi0.shape,
+            metrics_every=metrics_every))
 
 
 def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
@@ -111,46 +105,41 @@ def minmax_flow_narrowband(phi0, dx, h1, iters: int, tol, *,
     events (``"minmax_narrowband"``) fire at chunk ends, ``metrics_every``
     rounded to a whole number of chunks; the tail emits none.
     """
-    denom = rms_denominator(phi0.shape)
-    K = 4 if min(phi0.shape) >= 16 else 1
-    pairs = max(0, (refresh_every // K) // 2)
-    calls = 1 + 2 * pairs
-    chunk_steps = K * calls
-    every = (chunk_steps * max(1, metrics_every // chunk_steps)
-             if metrics_every else 0)
     if iters <= 0:
         return MinMaxResult(phi0, 0, math.inf, False)
+    K = 4 if min(phi0.shape) >= 16 else 1
+    calls = 1 + 2 * max(0, (refresh_every // K) // 2)
+    chunk = K * calls
     args = (dx, h1, band_radius, threshold)
     fusedk = route(phi0, minmax_cuda.minmax_fusedk,
                    minmax_cuda.minmax_fusedk_plain)
-    with span("lsf.minmax_narrowband"):
-        p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
-        n, dsq, done = 0, None, False
-        while not done and n + chunk_steps <= iters:
-            active = tile_activity(p, dx, band_radius, window="owned")
-            for c in range(calls):
-                r = fusedk(p, *args, ksteps=K, active=active, out=q,
-                           mint=c == 0, with_rms=c == calls - 1)
-                p, q = q, p
-            n += chunk_steps
-            dsq = r[1]
-            rms = math.sqrt(dsq.item() / denom)
-            emit_iteration("minmax_narrowband", every, n, rms,
-                           band_tiles=active, cells=phi0.numel())
-            done = rms < tol or math.isnan(rms)
-        rem = 0 if done else iters - n
-        if rem:
+    q = torch.empty_like(phi0)
+
+    def advance(p, n):
+        nonlocal q
+        active = tile_activity(p, dx, band_radius, window="owned")
+        for c in range(calls):
+            r = fusedk(p, *args, ksteps=K, active=active, out=q,
+                       mint=c == 0, with_rms=c == calls - 1)
+            p, q = q, p
+        return p, chunk, r[1], active
+    with span("lsf.minmax_narrowband"):   # never write into phi0
+        p, n, rms, diverged = converge(
+            advance, phi0.clone(), iters // chunk * chunk, tol,
+            stage="minmax_narrowband", shape=phi0.shape,
+            metrics_every=metrics_every, chunk=chunk)
+        if n < iters and not stops(rms, tol):
             active = tile_activity(p, dx, band_radius, window="owned")
             sums = solve_buffers(p)
             step = route(p, minmax_cuda.minmax_step,
                          minmax_cuda.minmax_step_plain)
-            for _ in range(rem):
+            for _ in range(iters - n):
                 _, dsq = step(p, *args, active=active, out=q, with_rms=True,
                               bufs=sums)
                 p, q = q, p
-        n += rem
-        rms = math.inf if dsq is None else math.sqrt(dsq.item() / denom)
-        return MinMaxResult(p, n, rms, math.isnan(rms))
+            n, rms = iters, step_rms(dsq, phi0.shape)
+            diverged = math.isnan(rms)
+        return MinMaxResult(p, n, rms, diverged)
 
 
 class _MinmaxFixed(torch.autograd.Function):

@@ -5,8 +5,8 @@
 Jacobi steps, interior-only update, ghost-extrapolation BC, RMS over the
 reference's ``(nx-1)(ny-1)(nz-1)`` denominator, early exit below ``tol``
 and a NaN flag.  Each step is kernel K1 (:mod:`..ops.weno_cuda`) on a CUDA
-tensor and its plain version on a CPU tensor; the loops are Python loops
-that read the RMS scalar to the host once per check.  The route follows
+tensor and its plain version on a CPU tensor, in the loop of
+:mod:`.converge`, one host read of the RMS per check.  The route follows
 the field's dtype, as the JAX package's ``_use_pallas``: float32 takes
 the kernels, bfloat16 and float64 the kernels' plain versions
 (:func:`..ops.weno_cuda.route`) on the device the field lies on.
@@ -21,7 +21,6 @@ on the card as on the CPU.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -31,8 +30,8 @@ from ..ops.reverse import remat_scan
 from ..ops.sign import smeared_sign
 from ..ops.stencil import boundary_extrapolate, interior_mask
 from ..ops.weno import weno_godunov
-from ..utils.metrics import emit_iteration
 from ..utils.profiling import span
+from .converge import converge, rms_denominator  # noqa: F401  (re-exported)
 
 
 class ReinitResult(NamedTuple):
@@ -68,11 +67,6 @@ def _step(phi):
                            weno_cuda.reinit_step_plain)
 
 
-def rms_denominator(shape) -> int:
-    """The reference's nx*ny*nz, i.e. points-1 per axis (subs.f90:914)."""
-    return (shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
-
-
 def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
            eps_floor=None, quirk_y_p5_zero=False, grad_fn=None,
            metrics_every: int = 0) -> ReinitResult:
@@ -81,32 +75,26 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
     per step (its plain version off float32), or with ``grad_fn`` the
     plain :func:`reinit_step`."""
     sign = phi0 if sign_src is None else sign_src
-    denom = rms_denominator(phi0.shape)
+    kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
+              quirk_y_p5_zero=quirk_y_p5_zero)
     if grad_fn is None:
         step = _step(phi0)
         bufs = (torch.empty_like(phi0), torch.empty_like(phi0))
         sums = weno_cuda.solve_buffers(phi0)
+
+        def advance(p, n):
+            p, dsq = step(p, sign, dx, h, out=bufs[n % 2], with_rms=True,
+                          bufs=sums, **kw)
+            return p, 1, dsq, None
+    else:
+        def advance(p, n):
+            new = reinit_step(p, sign, dx, h, grad_fn=grad_fn, **kw)
+            d = (new - p).double()
+            return new, 1, (d * d).sum(), None
     with span("lsf.reinit"):
-        p, n, rms = phi0, 0, math.inf
-        while n < iters:
-            if grad_fn is None:
-                p, dsq = step(
-                    p, sign, dx, h, eps_scale=eps_scale, eps_floor=eps_floor,
-                    quirk_y_p5_zero=quirk_y_p5_zero, out=bufs[n % 2],
-                    with_rms=True, bufs=sums)
-            else:
-                new = reinit_step(p, sign, dx, h, eps_scale=eps_scale,
-                                  eps_floor=eps_floor,
-                                  quirk_y_p5_zero=quirk_y_p5_zero,
-                                  grad_fn=grad_fn)
-                d = (new - p).double()
-                p, dsq = new, (d * d).sum()
-            n += 1
-            rms = math.sqrt(dsq.item() / denom)
-            emit_iteration("reinit", metrics_every, n, rms, cells=phi0.numel())
-            if rms < tol or math.isnan(rms):
-                break
-        return ReinitResult(p, n, rms, math.isnan(rms))
+        return ReinitResult(*converge(
+            advance, phi0, iters, tol, stage="reinit", shape=phi0.shape,
+            metrics_every=metrics_every))
 
 
 def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
@@ -129,32 +117,27 @@ def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
     rounded to a whole number of chunks.
     """
     sign = phi0 if sign_src is None else sign_src
-    denom = rms_denominator(phi0.shape)
-    pairs = refresh_every // 2
-    chunk = 1 + 2 * pairs
+    chunk = 1 + 2 * (refresh_every // 2)
     margin = chunk * h / dx
-    every = chunk * max(1, metrics_every // chunk) if metrics_every else 0
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
               quirk_y_p5_zero=quirk_y_p5_zero,
               bufs=weno_cuda.solve_buffers(phi0))
     step = _step(phi0)
-    with span("lsf.reinit_narrowband"):
-        p, q = phi0.clone(), torch.empty_like(phi0)   # never write into phi0
-        n, rms = 0, math.inf
-        while n < iters:
-            active = weno_cuda.tile_activity(p, dx, band_radius, margin,
-                                             window="band4")
-            for s in range(chunk):
-                r = step(p, sign, dx, h, active=active, out=q, mint=s == 0,
-                         with_rms=s == chunk - 1, **kw)
-                p, q = q, p
-            n += chunk
-            rms = math.sqrt(r[1].item() / denom)
-            emit_iteration("reinit_narrowband", every, n, rms,
-                           band_tiles=active, cells=phi0.numel())
-            if rms < tol or math.isnan(rms):
-                break
-        return ReinitResult(p, n, rms, math.isnan(rms))
+    q = torch.empty_like(phi0)
+
+    def advance(p, n):
+        nonlocal q
+        active = weno_cuda.tile_activity(p, dx, band_radius, margin,
+                                         window="band4")
+        for s in range(chunk):
+            r = step(p, sign, dx, h, active=active, out=q, mint=s == 0,
+                     with_rms=s == chunk - 1, **kw)
+            p, q = q, p
+        return p, chunk, r[1], active
+    with span("lsf.reinit_narrowband"):   # never write into phi0
+        return ReinitResult(*converge(
+            advance, phi0.clone(), iters, tol, stage="reinit_narrowband",
+            shape=phi0.shape, metrics_every=metrics_every, chunk=chunk))
 
 
 class _ReinitFixed(torch.autograd.Function):
