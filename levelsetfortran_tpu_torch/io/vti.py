@@ -19,15 +19,16 @@ import numpy as np
 import torch
 
 from ..grid.grid import Grid3D
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 _LF = b"\n"
 
 
 def _write_framed(path: str, grid: Grid3D, name: str, payload,
                   ref_compat: bool = False) -> None:
-    """The XML frame around ``payload``, an iterable of byte chunks that
-    together hold ``grid``'s samples as Float64, x fastest."""
+    """The XML frame around ``payload``, an iterable of byte chunks (any
+    C-contiguous buffer, written as its bytes) that together hold
+    ``grid``'s samples as Float64, x fastest."""
     nx, ny, nz = (s - 1 for s in grid.shape)
     extent = f" 0 {nx:6d} 0 {ny:6d} 0 {nz:6d}"
     origin = "".join(f"{v:20.8f} " for v in grid.origin)
@@ -59,16 +60,24 @@ def _write_framed(path: str, grid: Grid3D, name: str, payload,
 def write_vti(path: str, phi: np.ndarray, grid: Grid3D, *,
               name: str = "phi", ref_compat: bool = False) -> None:
     """Write a scalar field of shape ``grid.shape`` (axes x, y, z);
-    ``ref_compat``: declare the reference's payload byte count."""
+    ``ref_compat``: declare the reference's payload byte count.
+
+    A field that lies x fastest in memory (Fortran order, as the
+    pipeline's results do) is written from its own memory; any other
+    layout is first copied into the payload's order on the host (counted
+    in ``vti.host_transposes``, of ``vti.writes``)."""
     with span("lsf.write_vti"):
         phi = np.asarray(phi, dtype=np.float64)
         if phi.shape != grid.shape:
             raise ValueError(f"phi shape {phi.shape} != grid shape "
                              f"{grid.shape}")
-        _write_framed(
-            path, grid, name,
-            [np.ascontiguousarray(phi.transpose(2, 1, 0)).tobytes()],
-            ref_compat)
+        pay = phi.transpose(2, 1, 0)
+        in_order = pay.flags.c_contiguous
+        count("vti.writes")
+        count("vti.host_transposes", int(not in_order))
+        if not in_order:
+            pay = np.ascontiguousarray(pay)
+        _write_framed(path, grid, name, [memoryview(pay)], ref_compat)
 
 
 def write_vti_streaming(path: str, blocks, grid: Grid3D, mesh, *,

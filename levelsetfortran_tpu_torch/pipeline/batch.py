@@ -64,7 +64,7 @@ from ..solvers.converge import rms_denominator, stops
 from ..solvers.reinit import reinit
 from ..utils.logging import StageTimer, log_event
 from ..utils.profiling import count, span
-from .run import _host, _stage_kw, _sync
+from .run import _host, _host_field, _stage_kw, _sync
 
 MeshLike = Union[str, SurfaceMesh]
 STRATEGIES = ("auto", "packed", "sequential")
@@ -204,7 +204,9 @@ def common_shape_grids(meshes: Sequence[SurfaceMesh], dx: float,
 
 @dataclasses.dataclass
 class BatchItem:
-    """One geometry's outputs; the fields are host float64 numpy."""
+    """One geometry's outputs; the fields are host float64 numpy of shape
+    ``grid.shape`` (x, y, z), x fastest in memory (the ``.vti`` payload's
+    order, made on the card: ``run._host_field``)."""
     mesh: SurfaceMesh
     grid: Grid3D
     phi_init: np.ndarray
@@ -384,8 +386,8 @@ def _run_batch(inputs, config, out_dir, write_outputs, data_parallel,
         for i, (mesh, g, name) in enumerate(zip(meshes, grids, names)):
             s, k = where[i]
             items.append(BatchItem(
-                mesh=mesh, grid=g, phi_init=_host(r[s].phi[k]),
-                phi_smoothed=_host(m[s].phi[k]),
+                mesh=mesh, grid=g, phi_init=_host_field(r[s].phi[k]),
+                phi_smoothed=_host_field(m[s].phi[k]),
                 advected=_host(advected[i]),
                 asymptotic_error=asym[i], reinit_iters=int(r_iters[i]),
                 minmax_iters=int(m_iters[i]), name=name))

@@ -60,11 +60,13 @@ from ..utils.profiling import span
 
 @dataclasses.dataclass
 class PipelineResult:
-    """Pipeline outputs.  The three phi fields are host float64 numpy;
-    under a mesh with ``config.gather_results=False`` they stay lists of
-    block tensors in shard order, each on its shard's device (None for
-    another rank's block under a process group); with ``gather_results``
-    under a process group they are None on every rank but the primary."""
+    """Pipeline outputs.  The three phi fields are host float64 numpy of
+    shape ``grid.shape`` (x, y, z), x fastest in memory (Fortran order,
+    the ``.vti`` payload's: :func:`_host_field`); under a mesh with
+    ``config.gather_results=False`` they stay lists of block tensors in
+    shard order, each on its shard's device (None for another rank's
+    block under a process group); with ``gather_results`` under a process
+    group they are None on every rank but the primary."""
     mesh: SurfaceMesh
     grid: gridmod.Grid3D
     phi_init: np.ndarray          # after initial reinit (vti #1 field)
@@ -201,7 +203,8 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
 
     with span("lsf.run_mesh.to_host"):
         phi_init_h, phi_smoothed_h, phi_final_h = (
-            _host(phi_init), _host(phi_smoothed), _host(rf.phi))
+            _host_field(phi_init), _host_field(phi_smoothed),
+            _host_field(rf.phi))
         advected_h = _host(adv.positions)
     log_event("reinit", iterations=r.iterations, rms=r.final_rms,
               diverged=r.diverged)
@@ -249,6 +252,15 @@ def _banded(cfg, *, initial: bool) -> bool:
 
 def _host(t):
     return t.detach().to("cpu", torch.float64).numpy()
+
+
+def _host_field(t):
+    """A 3-D grid field on the host as :func:`_host` gives it, with the
+    same values and shape (x, y, z), but x fastest in memory: the field is
+    permuted to (z, y, x) on its device before the copy, so the ``.vti``
+    writer takes its payload as it lies, with no host transpose."""
+    zyx = t.detach().permute(2, 1, 0).contiguous()
+    return zyx.to("cpu", torch.float64).numpy().transpose(2, 1, 0)
 
 
 def _sync(devices) -> None:
@@ -399,7 +411,7 @@ def _run_mesh_sharded(mesh, cfg, device, timer, out_dir, base,
 
     fields = (phi_init, phi_smoothed, phi_final)
     if cfg.gather_results:
-        fields = tuple(None if g is None else _host(g) for g in (
+        fields = tuple(None if g is None else _host_field(g) for g in (
             solver.gather(f, "cpu") for f in fields))
     return PipelineResult(
         mesh=mesh, grid=grid, phi_init=fields[0], phi_smoothed=fields[1],
