@@ -30,6 +30,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -55,7 +57,7 @@ from ..solvers.converge import rms_denominator
 from ..solvers.reinit import reinit, reinit_narrowband
 from ..utils.checkpoint import FieldCheckpointer
 from ..utils.logging import StageTimer, log_event
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -129,6 +131,10 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
     else:
         phi0 = initialize_sign_field(grid, mesh.vertices, mesh.elements,
                                      dtype=dtype, device=device)
+    # the three results' host memory, first touched while the card runs
+    # the init: the first touch is most of a hand-over (_host_field)
+    host = ([_host_array(grid.shape) for _ in range(3)] if _staged(phi0)
+            else [None] * 3)
     _sync([device])
     timer.mark("search")                    # set3d.f90:271-273
 
@@ -203,8 +209,8 @@ def _run_mesh(mesh, config, timer, out_dir, base, write_outputs):
 
     with span("lsf.run_mesh.to_host"):
         phi_init_h, phi_smoothed_h, phi_final_h = (
-            _host_field(phi_init), _host_field(phi_smoothed),
-            _host_field(rf.phi))
+            _host_field(f) if out is None else _host_field(f, out)
+            for f, out in zip((phi_init, phi_smoothed, rf.phi), host))
         advected_h = _host(adv.positions)
     log_event("reinit", iterations=r.iterations, rms=r.final_rms,
               diverged=r.diverged)
@@ -254,13 +260,79 @@ def _host(t):
     return t.detach().to("cpu", torch.float64).numpy()
 
 
-def _host_field(t):
+def _host_field(t, out: Optional[np.ndarray] = None):
     """A 3-D grid field on the host as :func:`_host` gives it, with the
     same values and shape (x, y, z), but x fastest in memory: the field is
     permuted to (z, y, x) on its device before the copy, so the ``.vti``
-    writer takes its payload as it lies, with no host transpose."""
+    writer takes its payload as it lies, with no host transpose.
+
+    A field on a card (:func:`_staged`) is copied as it is into the pinned
+    buffer :data:`_staging` (one ``cudaMemcpyAsync`` and a wait on the
+    stream), then widened from there straight into the float64 result by
+    one ``torch`` copy, parallel over the intra-op threads: no pageable
+    temporary, and the buffer never leaves this function.  The result is
+    ``out`` where given (a :func:`_host_array` of the field's shape), else
+    a new array.  Any other field takes ``.to("cpu", torch.float64)``."""
     zyx = t.detach().permute(2, 1, 0).contiguous()
-    return zyx.to("cpu", torch.float64).numpy().transpose(2, 1, 0)
+    if not _staged(zyx):
+        return zyx.to("cpu", torch.float64).numpy().transpose(2, 1, 0)
+    if out is None:
+        out = np.empty(t.shape, np.float64, order="F")
+    assert (out.shape == t.shape and out.dtype == np.float64
+            and out.flags.f_contiguous)
+    nbytes = zyx.numel() * zyx.element_size()
+    with _staging_lock:
+        buf = _staging_buffer(nbytes)[:nbytes].view(zyx.dtype).view(zyx.shape)
+        buf.copy_(zyx)
+        torch.from_numpy(out.transpose(2, 1, 0)).copy_(buf)
+    count("host.staged_bytes", nbytes)
+    return out
+
+
+def _host_array(shape) -> np.ndarray:
+    """A float64 array of ``shape``, x fastest in memory, its pages
+    touched: the first write to fresh host memory costs more than the
+    widening into it (the kernel's page faults), so a caller that knows a
+    field's shape while the card is busy takes that cost there."""
+    out = np.empty(shape, np.float64, order="F")
+    torch.from_numpy(out.transpose(2, 1, 0)).zero_()
+    return out
+
+
+#: The pinned host buffer a grid field on a card passes through on its way
+#: to the host (:func:`_host_field`): kept across calls, regrown only for a
+#: larger field.
+_staging: Optional[torch.Tensor] = None
+_staging_lock = threading.Lock()
+
+
+def _staged(t) -> bool:
+    """Whether a field goes to the host through :data:`_staging`."""
+    return t.is_cuda
+
+
+def _staging_buffer(nbytes: int) -> torch.Tensor:
+    """:data:`_staging`, regrown to ``nbytes`` if it holds fewer; the old
+    buffer is let go (and unpinned) before the new one is pinned."""
+    global _staging
+    if _staging is None or _staging.numel() < nbytes:
+        _staging = None
+        _staging = _pinned(nbytes)
+    return _staging
+
+
+def _pinned(nbytes: int) -> torch.Tensor:
+    """``nbytes`` bytes of page-locked host memory: host memory registered
+    with CUDA while the tensor lives (``pin_memory=True`` would round the
+    size up to a power of two)."""
+    buf = torch.empty(nbytes, dtype=torch.uint8)
+    cudart = torch.cuda.cudart()
+    portable = 1                            # cudaHostRegisterPortable
+    err = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, portable))
+    if err:
+        raise RuntimeError(f"cudaHostRegister failed: cudaError {err}")
+    weakref.finalize(buf, cudart.cudaHostUnregister, buf.data_ptr())
+    return buf
 
 
 def _sync(devices) -> None:
