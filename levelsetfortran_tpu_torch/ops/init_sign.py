@@ -654,39 +654,49 @@ def initialize_sign_field(grid: Grid3D, vertices, elements, *,
     sub-box, the triple-product sign of that triangle, smeared with gM = 1
     (:func:`~.sign.smeared_sign`).  ``vertices`` is a numpy array or a
     tensor, ``device`` defaults to its (the CPU for numpy).  No kernel:
-    PyTorch tensor ops on ``device``."""
+    PyTorch tensor ops on ``device``.  Spans ``lsf.init.reference`` around
+    the whole, ``.nearest`` around the search and ``.sign`` around the sign
+    and the field; counters ``init.reference_points`` (the sub-box's
+    points) and ``init.centroid_pairs`` (those points times the
+    centroids), once a call."""
     from .sign import smeared_sign
-    if isinstance(vertices, torch.Tensor):
-        v = vertices.detach().to(dtype=dtype, device=device or
-                                 vertices.device)
-    else:
-        v = torch.as_tensor(np.asarray(vertices), dtype=dtype,
-                            device=device or "cpu")
-    elems = torch.as_tensor(np.asarray(
-        elements.cpu() if isinstance(elements, torch.Tensor) else elements),
-        dtype=torch.long, device=v.device)
-    tri = v[elems]
-    centroids = tri.mean(dim=1)
+    with span("lsf.init.reference"):
+        if isinstance(vertices, torch.Tensor):
+            v = vertices.detach().to(dtype=dtype, device=device or
+                                     vertices.device)
+        else:
+            v = torch.as_tensor(np.asarray(vertices), dtype=dtype,
+                                device=device or "cpu")
+        elems = torch.as_tensor(np.asarray(
+            elements.cpu() if isinstance(elements, torch.Tensor)
+            else elements), dtype=torch.long, device=v.device)
+        tri = v[elems]
+        centroids = tri.mean(dim=1)
 
-    # the bbox in the field's dtype and its arithmetic, as the JAX package
-    # forms it from its dtype's host array (0-d tensors: numpy has no
-    # bfloat16)
-    host_v = v.detach().cpu()
-    (i0, i1), (j0, j1), (k0, k1) = subbox_ranges(
-        grid, host_v.amin(0), host_v.amax(0), margin)
-    ni, nj, nk = i1 - i0 + 1, j1 - j0 + 1, k1 - k0 + 1
-    rounded = scalar_type(dtype)
-    dxv = float(rounded(grid.dx))
-    xs, ys, zs = (float(rounded(grid.origin[a])) + dxv * (o + torch.arange(
-        n, dtype=dtype, device=v.device))
-        for a, o, n in ((0, i0, ni), (1, j0, nj), (2, k0, nk)))
-    gx, gy, gz = torch.meshgrid(xs, ys, zs, indexing="ij")
-    points = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
-    nearest = nearest_centroid(points, centroids, tile=tile)
-    ps = orientation_sign(points, tri[nearest])
-    sgn = smeared_sign(ps, torch.tensor(grid.dx, dtype=dtype,
-                                        device=v.device),
-                       torch.tensor(1.0, dtype=dtype, device=v.device))
-    phi = torch.ones(grid.shape, dtype=dtype, device=v.device)
-    phi[i0:i1 + 1, j0:j1 + 1, k0:k1 + 1] = sgn.reshape(ni, nj, nk)
+        # the bbox in the field's dtype and its arithmetic, as the JAX
+        # package forms it from its dtype's host array (0-d tensors: numpy
+        # has no bfloat16)
+        host_v = v.detach().cpu()
+        (i0, i1), (j0, j1), (k0, k1) = subbox_ranges(
+            grid, host_v.amin(0), host_v.amax(0), margin)
+        ni, nj, nk = i1 - i0 + 1, j1 - j0 + 1, k1 - k0 + 1
+        rounded = scalar_type(dtype)
+        dxv = float(rounded(grid.dx))
+        xs, ys, zs = (float(rounded(grid.origin[a])) + dxv * (
+            o + torch.arange(n, dtype=dtype, device=v.device))
+            for a, o, n in ((0, i0, ni), (1, j0, nj), (2, k0, nk)))
+        gx, gy, gz = torch.meshgrid(xs, ys, zs, indexing="ij")
+        points = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+        count("init.reference_points", points.shape[0])
+        count("init.centroid_pairs", points.shape[0] * centroids.shape[0])
+        with span("lsf.init.reference.nearest"):
+            nearest = nearest_centroid(points, centroids, tile=tile)
+        with span("lsf.init.reference.sign"):
+            ps = orientation_sign(points, tri[nearest])
+            sgn = smeared_sign(ps, torch.tensor(grid.dx, dtype=dtype,
+                                                device=v.device),
+                               torch.tensor(1.0, dtype=dtype,
+                                            device=v.device))
+            phi = torch.ones(grid.shape, dtype=dtype, device=v.device)
+            phi[i0:i1 + 1, j0:j1 + 1, k0:k1 + 1] = sgn.reshape(ni, nj, nk)
     return phi

@@ -30,7 +30,7 @@ from ..ops.reverse import remat_scan
 from ..ops.sign import smeared_sign
 from ..ops.stencil import boundary_extrapolate, interior_mask
 from ..ops.weno import weno_godunov
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .converge import converge, rms_denominator  # noqa: F401  (re-exported)
 
 
@@ -73,7 +73,8 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
     """Up to ``iters`` dense steps, stopping at RMS < tol or NaN; a
     ``"reinit"`` metrics event every ``metrics_every`` steps.  Kernel K1
     per step (its plain version off float32), or with ``grad_fn`` the
-    plain :func:`reinit_step`."""
+    plain :func:`reinit_step`.  The steps taken go to the counter
+    ``reinit.steps`` once the loop has returned."""
     sign = phi0 if sign_src is None else sign_src
     kw = dict(eps_scale=eps_scale, eps_floor=eps_floor,
               quirk_y_p5_zero=quirk_y_p5_zero)
@@ -92,9 +93,11 @@ def reinit(phi0, dx, h, iters: int, tol, *, sign_src=None, eps_scale=1e-6,
             d = (new - p).double()
             return new, 1, (d * d).sum(), None
     with span("lsf.reinit"):
-        return ReinitResult(*converge(
+        res = ReinitResult(*converge(
             advance, phi0, iters, tol, stage="reinit", shape=phi0.shape,
             metrics_every=metrics_every))
+    count("reinit.steps", res.iterations)
+    return res
 
 
 def reinit_narrowband(phi0, dx, h, iters: int, tol, *, band_radius=8.1,
